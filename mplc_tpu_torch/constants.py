@@ -1,0 +1,112 @@
+"""Framework-wide constants of the PyTorch port.
+
+The names and defaults follow `mplc_tpu/constants.py`, so a configuration
+written for the JAX package keeps its meaning here. The port's environment
+knobs carry their own `MPLC_TORCH_` prefix.
+"""
+
+from __future__ import annotations
+
+import os
+import warnings
+
+# ML defaults (reference: mplc/constants.py:7-12)
+DEFAULT_BATCH_SIZE = 256
+MAX_BATCH_SIZE = 2 ** 20
+DEFAULT_GRADIENT_UPDATES_PER_PASS_COUNT = 8
+PATIENCE = 10  # early-stopping patience, in epochs
+DEFAULT_BATCH_COUNT = 20
+DEFAULT_EPOCH_COUNT = 40
+
+# Contributivity method registry names: every method the JAX package knows.
+# The port computes "GTG-Shapley" (and `Contributivity.exact_reconstructed`);
+# the others raise NotImplementedError until their slice lands (ROADMAP.md).
+CONTRIBUTIVITY_METHODS = [
+    "Shapley values",
+    "Independent scores",
+    "TMCS",
+    "ITMCS",
+    "IS_lin_S",
+    "IS_reg_S",
+    "AIS_Kriging_S",
+    "SMCS",
+    "WR_SMC",
+    "Federated SBS linear",
+    "Federated SBS quadratic",
+    "Federated SBS constant",
+    "LFlip",
+    "PVRL",
+    "GTG-Shapley",
+    "SVARM",
+    "auto",
+]
+
+# Dataset tags (reference: mplc/constants.py:46-52)
+MNIST = "mnist"
+CIFAR10 = "cifar10"
+TITANIC = "titanic"
+ESC50 = "esc50"
+IMDB = "imdb"
+SUPPORTED_DATASETS_NAMES = [MNIST, CIFAR10, TITANIC, ESC50, IMDB]
+
+
+def _env_float(name: str, default: float) -> float:
+    """A non-negative float knob; a malformed value warns and falls back."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        value = float(raw)
+        if not value >= 0:
+            raise ValueError(raw)
+    except ValueError:
+        warnings.warn(f"{name}={raw!r} is not a non-negative number; "
+                      f"falling back to {default}", stacklevel=2)
+        return default
+    return value
+
+
+def _env_positive_int(name: str, default: int) -> int:
+    """A positive integer knob; a malformed value warns and falls back."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        value = int(raw)
+        if value <= 0:
+            raise ValueError(raw)
+    except ValueError:
+        warnings.warn(f"{name}={raw!r} is not a positive integer; "
+                      f"falling back to {default}", stacklevel=2)
+        return default
+    return value
+
+
+# Scale of the synthetic datasets (fraction of the published sample
+# counts). The loaders take `scale=` explicitly; this is their default.
+SYNTH_SCALE_ENV = "MPLC_TORCH_SYNTH_SCALE"
+
+
+def synth_scale() -> float:
+    return _env_float(SYNTH_SCALE_ENV, 1.0)
+
+
+# Samples per evaluation chunk (the JAX package's default).
+EVAL_CHUNK_SIZE = 2048
+
+# Models x rows evaluated in one forward call when a batch of models scores
+# one eval set: bounds the activation memory of a reconstruction batch
+# (the MNIST CNN's second conv alone holds 147 KB per sample).
+EVAL_ROWS_IN_FLIGHT = 16384
+
+# Coalitions reconstructed and evaluated per batch by the retrain-free
+# evaluator (contrib/reconstruct.py).
+RECON_BATCH = _env_positive_int("MPLC_TORCH_RECON_BATCH", 64)
+
+# GTG-Shapley's within-round truncation threshold (default 0.05, as in
+# the JAX package).
+GTG_TRUNCATION_ENV = "MPLC_TORCH_GTG_TRUNCATION"
+
+
+def gtg_truncation() -> float:
+    return _env_float(GTG_TRUNCATION_ENV, 0.05)

@@ -1,0 +1,122 @@
+"""Retrain-free coalition reconstruction (GTG-Shapley, arXiv:2109.02053;
+port of `mplc_tpu/contrib/reconstruct.py`).
+
+During ONE grand-coalition FedAvg run, every aggregation round's
+per-partner parameter delta and weight are recorded; any coalition S's
+model is then rebuilt by replaying the recorded rounds restricted to S,
+
+    M_S^r = M_S^{r-1} + sum_{p in S} w~_p^r delta_p^r,
+    w~ = the recorded weights renormalized over S,
+
+which the fused contraction K1 (ops/recon_kernel.py) does for a whole batch
+of coalitions in one pass. v(S) then costs an evaluation, not a training
+run. Reconstructed values live in the evaluator's own memo.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import constants
+from ..mpl.engine import MplTrainer
+from ..ops import recon_kernel
+from .engine import _bucket_size
+
+
+@dataclasses.dataclass
+class RecordedRun:
+    """One grand-coalition training's recorded update stream."""
+    init_params: dict        # the run's initial global params
+    deltas: dict             # leaves [R, P, ...]: per-round deltas
+    weights: torch.Tensor    # [R, P] normalized aggregation weights
+    rounds: int              # R = epoch_count x minibatch_count
+    partners_count: int
+    epochs_done: int | None      # epochs trained (None: foreign recording)
+    training_passes: int | None  # partner passes paid (None: likewise)
+    memory_bytes: int        # recorded-update memory footprint
+    final_params: dict | None = None   # the run's final global params
+
+    def describe(self) -> dict:
+        return {"rounds": self.rounds, "partners": self.partners_count,
+                "epochs": self.epochs_done,
+                "training_passes": self.training_passes,
+                "memory_bytes": self.memory_bytes}
+
+
+def record_updates(engine) -> RecordedRun:
+    """Train the grand coalition once with update recording on, through
+    the engine's coalition-training config and the grand coalition's own
+    random stream, and return the recorded stream."""
+    cfg = dataclasses.replace(engine._multi_cfg, record_updates=True)
+    trainer = MplTrainer(engine.model, cfg)
+    P = engine.partners_count
+    full = tuple(range(P))
+    generator = engine.coalition_generator(engine._effective_subset(full))
+    mask = torch.from_numpy(engine._coalition_arrays([full])[0]).to(engine.device)
+    state = trainer.init_state(generator, P, engine.device)
+    init_params = {g: {k: t.clone() for k, t in d.items()}
+                   for g, d in state.params.items()}
+    trainer.epoch_chunk(state, engine.stacked, engine.val, mask, generator,
+                        cfg.epoch_count)
+    epochs = state.nb_epochs_done
+    mem = sum(t.numel() * t.element_size()
+              for d in state.upd_h.values() for t in d.values())
+    mem += state.w_h.numel() * state.w_h.element_size()
+    return RecordedRun(init_params=init_params, deltas=state.upd_h,
+                       weights=state.w_h,
+                       rounds=cfg.epoch_count * cfg.minibatch_count,
+                       partners_count=P, epochs_done=epochs,
+                       training_passes=epochs * cfg.minibatch_count * P,
+                       memory_bytes=mem, final_params=state.params)
+
+
+class ReconstructionEvaluator:
+    """Memoizing, batching v(S) over reconstructed coalition models.
+
+    The recorded stream is flattened once to K1's layout (init [D],
+    deltas [K = R*P, D]); each batch of up to RECON_BATCH coalitions is one
+    K1 launch followed by a vmapped evaluation of the batch's models on the
+    test set. Values are row-independent, so the batch width never changes
+    them."""
+
+    def __init__(self, engine, recorded: RecordedRun | None = None):
+        self.engine = engine
+        self.recorded = recorded if recorded is not None else record_updates(engine)
+        self.values: dict[tuple, float] = {(): 0.0}
+        self.reconstructions = 0
+        rec = self.recorded
+        R, P = rec.weights.shape
+        self._init, self._d2, self._layout = recon_kernel.flatten_stream(
+            rec.init_params, rec.deltas, R * P)
+        self._weights = rec.weights.float()
+
+    def _apply(self, masks: torch.Tensor) -> torch.Tensor:
+        """Test accuracy of each reconstructed coalition model ([B])."""
+        flat = recon_kernel.reconstruct_flat(masks, self._init, self._d2,
+                                             self._weights)
+        params = recon_kernel.unflatten(flat, self._layout)
+        with torch.no_grad():
+            return self.engine.trainer.evaluate_models(params, self.engine.test)[1]
+
+    def evaluate(self, subsets) -> np.ndarray:
+        """Batched memoized reconstructed v(S); values in input order."""
+        keys = [tuple(sorted(int(i) for i in s)) for s in subsets]
+        missing = [k for k in dict.fromkeys(keys) if k not in self.values]
+        for i in range(0, len(missing), constants.RECON_BATCH):
+            self._run_batch(missing[i:i + constants.RECON_BATCH])
+        return np.array([self.values[k] for k in keys])
+
+    def _run_batch(self, group: list[tuple]) -> None:
+        """One batch, padded to a power-of-two width with copies of its
+        first coalition (so kernel shapes repeat across batches)."""
+        b = _bucket_size(len(group), 1, constants.RECON_BATCH)
+        masks = self.engine._coalition_arrays(group)
+        sel = np.zeros(b, np.intp)
+        sel[:len(group)] = np.arange(len(group))
+        accs = self._apply(torch.from_numpy(masks[sel]).to(self.engine.device))
+        for s, acc in zip(group, accs[:len(group)].tolist()):
+            self.values[s] = float(acc)
+        self.reconstructions += len(group)

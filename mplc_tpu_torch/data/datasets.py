@@ -1,0 +1,139 @@
+"""Datasets: the L1 layer (port of `mplc_tpu/data/datasets.py`).
+
+Same `Dataset` contract as the JAX package: `x_train/y_train/x_val/
+y_val/x_test/y_test`, `input_shape`, `num_classes`, a global 90/10
+train/val split at construction (random_state=42) and the local split
+hooks the basic partitioner calls. The synthetic loaders draw the same
+numpy streams as the JAX package's, so their arrays are byte-equal for the
+same `scale`.
+
+Only the synthetic paths are ported (no `mnist.npz` / Titanic CSV cache
+lookup yet). The port does not depend on scikit-learn: `train_test_split`
+below reproduces scikit-learn's shuffle split (one `RandomState`
+permutation, the first ceil(test_size * n) indices are the test rows), and
+the MNIST prototypes are the JAX package's sklearn-digits prototypes,
+stored in `digits_prototypes.npy` beside this file.
+"""
+
+from __future__ import annotations
+
+from math import ceil
+from pathlib import Path
+
+import numpy as np
+
+from .. import constants
+from ..models import zoo as model_zoo
+from ..models.core import Model
+
+_PROTOTYPES = Path(__file__).with_name("digits_prototypes.npy")
+
+
+def to_categorical(y: np.ndarray, num_classes: int) -> np.ndarray:
+    out = np.zeros((len(y), num_classes), np.float32)
+    out[np.arange(len(y)), y.astype(int)] = 1.0
+    return out
+
+
+def train_test_split(x, y, test_size: float, random_state: int):
+    """scikit-learn's `train_test_split(x, y, test_size=..., random_state=...)`
+    for a float `test_size`: (x_train, x_test, y_train, y_test)."""
+    n = len(x)
+    n_test = ceil(test_size * n)
+    perm = np.random.RandomState(random_state).permutation(n)
+    test, train = perm[:n_test], perm[n_test:]
+    return x[train], x[test], y[train], y[test]
+
+
+class Dataset:
+    """Container for one dataset + its model family."""
+
+    def __init__(self, dataset_name: str, input_shape: tuple, num_classes: int,
+                 x_train: np.ndarray, y_train: np.ndarray,
+                 x_test: np.ndarray, y_test: np.ndarray,
+                 model: Model | None = None, provenance: str = "user"):
+        self.name = dataset_name
+        self.input_shape = tuple(input_shape)
+        self.num_classes = num_classes
+        self.x_test = x_test
+        self.y_test = y_test
+        self.model = model
+        self.provenance = provenance
+        self.x_train, self.x_val, self.y_train, self.y_val = train_test_split(
+            x_train, y_train, test_size=0.1, random_state=42)
+
+    @staticmethod
+    def train_test_split_local(x, y):
+        return x, np.array([]), y, np.array([])
+
+    @staticmethod
+    def train_val_split_local(x, y):
+        return x, np.array([]), y, np.array([])
+
+
+class TitanicDataset(Dataset):
+    """Titanic keeps its local 10% test/val split hooks."""
+
+    @staticmethod
+    def train_test_split_local(x, y):
+        return train_test_split(x, y, test_size=0.1, random_state=42)
+
+    @staticmethod
+    def train_val_split_local(x, y):
+        return train_test_split(x, y, test_size=0.1, random_state=42)
+
+
+def load_mnist(scale: float | None = None, noise: float = 0.45) -> Dataset:
+    """Synthetic MNIST: sklearn-digits prototypes (upsampled to 28x28) plus
+    Gaussian noise, `scale` x 60000 train and x 10000 test samples."""
+    scale = constants.synth_scale() if scale is None else scale
+    rng = np.random.default_rng(42)
+    n_train = int(60000 * scale)
+    n_test = int(10000 * scale)
+    protos = np.load(_PROTOTYPES)
+    y_train = rng.integers(0, 10, size=n_train)
+    y_test = rng.integers(0, 10, size=n_test)
+
+    def make(y):
+        x = protos[y][..., None] + rng.normal(0, noise,
+                                              size=(len(y), 28, 28, 1))
+        return np.clip(x, 0, 1).astype(np.float32)
+
+    x_train, x_test = make(y_train), make(y_test)
+    return Dataset(constants.MNIST, (28, 28, 1), 10,
+                   x_train, to_categorical(y_train, 10),
+                   x_test, to_categorical(y_test, 10),
+                   model=model_zoo.MNIST_CNN,
+                   provenance="synthetic:sklearn-digits-prototypes")
+
+
+def load_titanic() -> Dataset:
+    """Synthetic 27-feature Titanic with a planted logistic rule."""
+    rng = np.random.default_rng(44)
+    n = 891
+    x = rng.normal(0, 1, size=(n, model_zoo.TITANIC_NUM_FEATURES)).astype(np.float32)
+    w = rng.normal(0, 1.5, size=(model_zoo.TITANIC_NUM_FEATURES,))
+    p = 1.0 / (1.0 + np.exp(-(x @ w)))
+    y = (rng.uniform(size=n) < p).astype(np.float32)
+    x_tr, x_te, y_tr, y_te = train_test_split(x, y, test_size=0.1, random_state=42)
+    return TitanicDataset(constants.TITANIC, (model_zoo.TITANIC_NUM_FEATURES,), 2,
+                          x_tr, y_tr, x_te, y_te,
+                          model=model_zoo.TITANIC_LOGREG,
+                          provenance="synthetic:planted-logistic")
+
+
+DATASET_LOADERS = {
+    constants.MNIST: load_mnist,
+    constants.TITANIC: load_titanic,
+}
+
+
+def load_dataset(name: str) -> Dataset:
+    if name in DATASET_LOADERS:
+        return DATASET_LOADERS[name]()
+    if name in constants.SUPPORTED_DATASETS_NAMES:
+        raise NotImplementedError(
+            f"dataset '{name}' is not ported yet (ROADMAP.md queue 1, "
+            "other datasets and models)")
+    raise ValueError(f"Dataset named '{name}' is not supported. You can "
+                     "construct your own Dataset object.")

@@ -1,0 +1,151 @@
+"""Data partitioning among partners, and the stacked device layout (port of
+`mplc_tpu/data/partition.py`: the basic split, batch sizes, stacking).
+
+`split_basic` and `compute_batch_sizes` are numpy and reproduce the JAX
+package's splits byte for byte (same seed-42 shuffle, same label order).
+`StackedPartners` pads every partner's train data to a common length and
+stacks it on a leading partner axis `[P, Nmax, ...]` with a validity mask,
+on the requested device: every multi-partner strategy is then a batch
+dimension over axis 0 and every coalition a length-P mask.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from .datasets import Dataset
+from .partner import Partner
+
+
+def _encode_labels(y) -> np.ndarray:
+    """scikit-learn's `LabelEncoder().fit_transform([str(v) for v in y])`:
+    each label's index among the sorted distinct label strings."""
+    return np.unique([str(v) for v in y], return_inverse=True)[1]
+
+
+def split_basic(dataset: Dataset, partners_list: Sequence[Partner],
+                amounts_per_partner: Sequence[float], description: str,
+                minibatch_count: int) -> None:
+    partners_count = len(partners_list)
+    y_train_enc = _encode_labels(dataset.y_train)
+
+    if len(amounts_per_partner) != partners_count:
+        raise ValueError("amounts_per_partner list should have a size equal "
+                         "to partners_count")
+    if abs(np.sum(amounts_per_partner) - 1.0) >= 1e-9:
+        raise ValueError("the sum of the amounts_per_partner proportions "
+                         "isn't equal to 1")
+
+    if partners_count == 1:
+        train_idx_list = [np.arange(len(y_train_enc))]
+    else:
+        cum = np.cumsum(amounts_per_partner)[:-1]
+        splitting_indices_train = (cum * len(y_train_enc)).astype(int)
+        if description == "stratified":
+            train_idx = np.asarray(y_train_enc).argsort()
+        elif description == "random":
+            train_idx = np.arange(len(y_train_enc))
+            np.random.RandomState(42).shuffle(train_idx)
+        else:
+            raise NameError(f"This samples_split option [{description}] is not recognized.")
+        train_idx_list = np.split(train_idx, splitting_indices_train)
+
+    for p, idx in zip(partners_list, train_idx_list):
+        p.x_train = np.asarray(dataset.x_train)[idx]
+        p.y_train = np.asarray(dataset.y_train)[idx]
+        p.x_train, p.x_test, p.y_train, p.y_test = dataset.train_test_split_local(
+            p.x_train, p.y_train)
+        p.x_train, p.x_val, p.y_train, p.y_val = dataset.train_val_split_local(
+            p.x_train, p.y_train)
+        p.final_nb_samples = len(p.x_train)
+        p.clusters_list = sorted(set(np.asarray(y_train_enc)[idx].tolist()))
+
+    if minibatch_count > min(amounts_per_partner) * len(y_train_enc):
+        raise ValueError("a partner doesn't have enough data samples to "
+                         "create the minibatches")
+
+
+def compute_batch_sizes(partners_list: Sequence[Partner], minibatch_count: int,
+                        gradient_updates_per_pass_count: int,
+                        max_batch_size: int) -> None:
+    if len(partners_list) == 1:
+        p = partners_list[0]
+        p.batch_size = int(np.clip(len(p.x_train) // gradient_updates_per_pass_count,
+                                   1, max_batch_size))
+    else:
+        for p in partners_list:
+            bs = len(p.x_train) // (minibatch_count * gradient_updates_per_pass_count)
+            p.batch_size = int(np.clip(bs, 1, max_batch_size))
+
+
+class StackedPartners(NamedTuple):
+    """All partners' train data as padded stacked tensors.
+
+    x:     [P, Nmax, ...]   float32
+    y:     [P, Nmax, L]     float32 (one-hot, or [.,1] binary)
+    mask:  [P, Nmax]        float32 validity
+    sizes: [P]              int64 true sample counts
+    """
+
+    x: torch.Tensor
+    y: torch.Tensor
+    mask: torch.Tensor
+    sizes: torch.Tensor
+
+    @property
+    def partners_count(self) -> int:
+        return int(self.x.shape[0])
+
+    @property
+    def n_max(self) -> int:
+        return int(self.x.shape[1])
+
+    @staticmethod
+    def build(partners_list: Sequence[Partner], label_dim: int,
+              device) -> "StackedPartners":
+        P = len(partners_list)
+        n_max = max(len(p.x_train) for p in partners_list)
+        x0 = np.asarray(partners_list[0].x_train)
+        if any(np.issubdtype(np.asarray(p.x_train).dtype, np.integer)
+               for p in partners_list):
+            raise NotImplementedError(
+                "integer (token) features are not ported yet (ROADMAP.md "
+                "queue 1, other datasets and models)")
+        x = np.zeros((P, n_max) + x0.shape[1:], np.float32)
+        y = np.zeros((P, n_max, label_dim), np.float32)
+        mask = np.zeros((P, n_max), np.float32)
+        sizes = np.zeros((P,), np.int64)
+        for i, p in enumerate(partners_list):
+            n = len(p.x_train)
+            x[i, :n] = p.x_train
+            yi = np.asarray(p.y_train, np.float32)
+            if yi.ndim == 1:
+                yi = yi[:, None]
+            y[i, :n] = yi
+            mask[i, :n] = 1.0
+            sizes[i] = n
+        return StackedPartners(*(torch.from_numpy(a).to(device)
+                                 for a in (x, y, mask, sizes)))
+
+
+def stack_eval_set(x: np.ndarray, y: np.ndarray, label_dim: int,
+                   chunk: int, device) -> tuple[torch.Tensor, ...]:
+    """Pad an eval set to a multiple of `chunk` and reshape it to
+    [n_chunks, chunk, ...]: (x, y, mask) tensors on `device`."""
+    n = len(x)
+    n_pad = (-n) % chunk
+    x = np.asarray(x, np.float32)
+    y = np.asarray(y, np.float32)
+    if y.ndim == 1:
+        y = y[:, None]
+    xp = np.concatenate([x, np.zeros((n_pad,) + x.shape[1:], np.float32)])
+    yp = np.concatenate([y, np.zeros((n_pad, y.shape[1]), np.float32)])
+    mask = np.concatenate([np.ones(n, np.float32), np.zeros(n_pad, np.float32)])
+    n_chunks = (n + n_pad) // chunk
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        xp.reshape((n_chunks, chunk) + x.shape[1:]),
+        yp.reshape(n_chunks, chunk, y.shape[1]),
+        mask.reshape(n_chunks, chunk)))

@@ -1,0 +1,52 @@
+"""Pure-functional layers (port of `mplc_tpu/models/layers.py`).
+
+Parameters are plain dicts of tensors in the JAX package's layouts: dense
+weights `[in, out]`, convolution kernels HWIO, activations NHWC, so
+parameters converted from the JAX package compute the same function.
+`conv2d` and `max_pool_2d` take NHWC and view it as NCHW for
+`F.conv2d`/`F.max_pool2d` (a permuted view: an NHWC tensor is channels-last
+NCHW memory). Initializers match Keras defaults (glorot-uniform kernels,
+zero biases) and draw from an explicit `torch.Generator`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _glorot_uniform(generator: torch.Generator, shape: tuple[int, ...],
+                    fan_in: int, fan_out: int) -> torch.Tensor:
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return torch.empty(shape, dtype=torch.float32).uniform_(
+        -limit, limit, generator=generator)
+
+
+def dense_init(generator: torch.Generator, in_dim: int, out_dim: int) -> dict:
+    return {"w": _glorot_uniform(generator, (in_dim, out_dim), in_dim, out_dim),
+            "b": torch.zeros((out_dim,), dtype=torch.float32)}
+
+
+def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["w"] + params["b"]
+
+
+def conv2d_init(generator: torch.Generator, kh: int, kw: int, cin: int,
+                cout: int) -> dict:
+    return {"w": _glorot_uniform(generator, (kh, kw, cin, cout),
+                                 kh * kw * cin, kh * kw * cout),
+            "b": torch.zeros((cout,), dtype=torch.float32)}
+
+
+def conv2d(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """VALID, stride-1 convolution: NHWC input, HWIO kernel, NHWC output."""
+    out = F.conv2d(x.permute(0, 3, 1, 2), params["w"].permute(3, 2, 0, 1),
+                   params["b"])
+    return out.permute(0, 2, 3, 1)
+
+
+def max_pool_2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """VALID max-pool over the spatial axes of an NHWC tensor."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), window).permute(0, 2, 3, 1)

@@ -1,0 +1,97 @@
+"""Host-side multi-partner learning classes (port of
+`mplc_tpu/mpl/approaches.py`, the fedavg approach).
+
+`Cls(scenario).fit()` stages the scenario's data on its device, trains the
+grand coalition through `MplTrainer` and fills the `History`.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from .. import constants
+from ..data.partition import StackedPartners, stack_eval_set
+from .engine import EvalSet, MplTrainer, TrainConfig
+from .history import History
+
+
+def _eval_chunk_size(n: int) -> int:
+    return int(min(constants.EVAL_CHUNK_SIZE, max(128, 1 << (max(n - 1, 1)).bit_length())))
+
+
+def stage_eval_set(x, y, label_dim: int, device) -> EvalSet:
+    """An eval set chunked as the JAX package chunks it."""
+    return EvalSet(*stack_eval_set(x, y, label_dim, _eval_chunk_size(len(x)), device))
+
+
+class MultiPartnerLearning:
+    """Base class: owns data staging, the trainer and `fit()`."""
+
+    approach_key = "fedavg"
+
+    def __init__(self, scenario):
+        self.dataset = scenario.dataset
+        self.partners_list = sorted(scenario.partners_list, key=lambda p: p.id)
+        self.device = scenario.device
+        self.epoch_count = scenario.epoch_count
+        self.minibatch_count = scenario.minibatch_count
+        self.seed = scenario.seed
+        self.model = self.dataset.model
+        self.cfg = TrainConfig(
+            approach=self.approach_key,
+            aggregator=scenario.aggregation_name,
+            epoch_count=self.epoch_count,
+            minibatch_count=self.minibatch_count,
+            gradient_updates_per_pass=scenario.gradient_updates_per_pass_count,
+            is_early_stopping=scenario.is_early_stopping,
+        )
+        self.trainer = MplTrainer(self.model, self.cfg)
+        self.history = History([p.id for p in self.partners_list],
+                               self.epoch_count, self.minibatch_count)
+        self.model_params = None
+        self.learning_computation_time = 0.0
+
+    @property
+    def partners_count(self) -> int:
+        return len(self.partners_list)
+
+    def _stage(self):
+        label_dim = self.model.label_dim()
+        stacked = StackedPartners.build(self.partners_list, label_dim, self.device)
+        val = stage_eval_set(self.dataset.x_val, self.dataset.y_val, label_dim,
+                             self.device)
+        test = stage_eval_set(self.dataset.x_test, self.dataset.y_test,
+                              label_dim, self.device)
+        return stacked, val, test
+
+    def fit(self):
+        t0 = time.perf_counter()
+        stacked, val, test = self._stage()
+        generator = torch.Generator().manual_seed(self.seed)
+        state = self.trainer.init_state(generator, self.partners_count, self.device)
+        coal_mask = torch.ones(self.partners_count, device=self.device)
+        self.trainer.epoch_chunk(state, stacked, val, coal_mask, generator,
+                                 self.epoch_count)
+        _, test_acc = self.trainer.finalize(state, test)
+        self.model_params = state.params
+        self.history.fill_from_state(
+            [p.id for p in self.partners_list], state.val_loss_h,
+            state.val_acc_h, state.partner_h, state.nb_epochs_done,
+            float(test_acc))
+        self.learning_computation_time = time.perf_counter() - t0
+        return self.history.score
+
+
+class FederatedAverageLearning(MultiPartnerLearning):
+    approach_key = "fedavg"
+
+    def __init__(self, scenario):
+        super().__init__(scenario)
+        if self.partners_count == 1:
+            raise ValueError("Only one partner is provided. Please use the "
+                             "dedicated SinglePartnerLearning class")
+
+
+MULTI_PARTNER_LEARNING_APPROACHES = {"fedavg": FederatedAverageLearning}

@@ -1,0 +1,162 @@
+"""The fused reconstruction contraction, K1 (port of
+`mplc_tpu/ops/recon_kernel.py`).
+
+Any coalition's model is rebuilt from one recorded grand-coalition run by
+replaying the recorded rounds restricted to the coalition. The renormalized
+weight of partner p in round r depends only on the mask and the recorded
+weights,
+
+    WN[b, r, p] = w[r, p] m[b, p] / sum_q w[r, q] m[b, q]   (0 when the
+                  denominator is 0: the zero-weight pass-through)
+
+so the whole replay is one contraction over the flattened recorded stream:
+
+    out[b, :] = init[:] + WN[b] (flattened to K = R*P) @ deltas [K, D]
+
+`fused_contract` computes it: on CUDA tensors with the hand-written kernel
+`csrc/recon_matmul.cu` (which replaces the Pallas TPU kernel
+`mplc_tpu/ops/recon_kernel.py::_recon_matmul_kernel`), on CPU tensors with
+its plain PyTorch version `fused_contract_reference`. The choice follows the
+tensors' device and nothing else; on any device other than the CPU the
+wrapper launches the kernel or raises, it never falls back.
+
+Numerics: the kernel sums in fp32 in another association than the plain
+version, so the two agree to rtol 1e-4 / atol 1e-5, not bit for bit. A
+coalition whose every round has zero surviving weight reproduces `init`
+bit-exactly on both (its WN rows are exact zeros).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+
+KERNEL = "recon_matmul"
+
+# Launches of the CUDA kernel in this process (a plain count; a run resets
+# it to 0 to see which kernels its main path went through).
+launches = 0
+
+
+def normalized_round_weights(masks: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """WN [B, R, P]: each round's masked weights renormalized to sum to 1;
+    rounds with a zero denominator (early-stopped tail, no surviving
+    member) give exact-zero rows."""
+    ws = weights[None, :, :] * masks[:, None, :]
+    denom = torch.sum(ws, dim=-1, keepdim=True)
+    return torch.where(denom > 0, ws / torch.clamp(denom, min=1e-12),
+                       torch.zeros((), dtype=ws.dtype, device=ws.device))
+
+
+def fused_contract_reference(wn2: torch.Tensor, d2: torch.Tensor,
+                             init: torch.Tensor) -> torch.Tensor:
+    """The plain version: init[None, :] + wn2 @ d2, in fp32."""
+    return init.reshape(1, -1) + wn2 @ d2
+
+
+def _kernel_fn():
+    fn = cuda_build.load(KERNEL).recon_matmul_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(wn2: torch.Tensor, d2: torch.Tensor, init: torch.Tensor) -> torch.Tensor:
+    """Launch K1 on the current CUDA stream; raises on any input the kernel
+    does not take."""
+    global launches
+    tensors = {"wn2": wn2, "d2": d2, "init": init}
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"the recon_matmul kernel needs CUDA tensors; "
+                             f"{name} is on {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if len({t.device for t in tensors.values()}) != 1:
+        raise ValueError("wn2, d2 and init must be on one device")
+    if wn2.ndim != 2 or d2.ndim != 2:
+        raise ValueError("wn2 must be [B, K] and d2 [K, D]")
+    B, K = wn2.shape
+    D = d2.shape[1]
+    if d2.shape[0] != K or init.numel() != D:
+        raise ValueError(f"shape mismatch: wn2 {tuple(wn2.shape)}, d2 "
+                         f"{tuple(d2.shape)}, init {tuple(init.shape)}")
+    if B >= 2 ** 31 or K >= 2 ** 31:
+        raise ValueError("B and K must fit in a 32-bit int")
+    out = torch.empty((B, D), dtype=torch.float32, device=wn2.device)
+    if B == 0 or D == 0:
+        return out
+    with torch.cuda.device(wn2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel_fn()(wn2.data_ptr(), d2.data_ptr(), init.data_ptr(),
+                           out.data_ptr(), B, K, D, stream)
+    if err != 0:
+        raise RuntimeError(f"recon_matmul launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+def fused_contract(wn2: torch.Tensor, d2: torch.Tensor,
+                   init: torch.Tensor) -> torch.Tensor:
+    """out[B, D] = init[None, :] + wn2 @ d2 (fp32): the CUDA kernel for
+    tensors on the card, the plain version for tensors on the CPU."""
+    if wn2.device.type == "cpu":
+        return fused_contract_reference(wn2, d2, init)
+    return _launch(wn2, d2, init)
+
+
+# ---------------------------------------------------------------------------
+# flattening the recorded stream to the kernel's [K, D] layout and back
+# ---------------------------------------------------------------------------
+
+def flatten_stream(init_params: dict, deltas: dict, K: int):
+    """(init [D], d2 [K, D], layout) from a parameter dict and its recorded
+    deltas ([R, P, ...] leaves, K = R*P): every leaf flattened and laid side
+    by side, so the whole stream is one contraction. `layout` lists
+    (group, name, shape) in that order, for `unflatten`."""
+    layout = [(g, k, tuple(t.shape)) for g, d in init_params.items()
+              for k, t in d.items()]
+    init = torch.cat([init_params[g][k].reshape(-1).float()
+                      for g, k, _ in layout])
+    d2 = torch.cat([deltas[g][k].reshape(K, -1).float()
+                    for g, k, _ in layout], dim=1)
+    return init, d2, layout
+
+
+def unflatten(out: torch.Tensor, layout) -> dict:
+    """Per-leaf [B, *shape] views of a flat [B, D] batch of parameters."""
+    B, off, params = out.shape[0], 0, {}
+    for g, k, shape in layout:
+        size = 1
+        for s in shape:
+            size *= s
+        params.setdefault(g, {})[k] = out[:, off:off + size].view((B,) + shape)
+        off += size
+    return params
+
+
+def reconstruct_flat(masks: torch.Tensor, init: torch.Tensor, d2: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """[B, D] reconstructed flat parameters of B coalitions (masks [B, P])
+    from an already flattened stream (init [D], d2 [K, D], weights [R, P])."""
+    B = masks.shape[0]
+    wn2 = normalized_round_weights(masks, weights).reshape(B, -1).contiguous()
+    return fused_contract(wn2, d2, init)
+
+
+def reconstruct_batch(masks: torch.Tensor, init_params: dict, deltas: dict,
+                      weights: torch.Tensor) -> dict:
+    """Reconstruct a batch of coalition models in one fused pass.
+
+    masks [B, P] float; init_params a parameter dict; deltas the same dict
+    with leaves [R, P, ...]; weights [R, P]. Returns the reconstructed
+    parameter dict with a leading batch axis [B, ...] (float32)."""
+    R, P = weights.shape
+    init, d2, layout = flatten_stream(init_params, deltas, R * P)
+    return unflatten(reconstruct_flat(masks, init, d2, weights), layout)

@@ -1,0 +1,147 @@
+"""Scenario: the orchestrator (port of `mplc_tpu/scenario.py`, the basic
+split + fedavg + GTG-Shapley path).
+
+Same parameter names and `run()` sequence as the JAX package: dataset
+selection, partner instantiation, basic data split, batch sizes, the
+grand-coalition training, then the configured contributivity methods.
+It runs on CUDA unless `device=` names another device (the tests pass
+`device="cpu"`); see `utils.resolve_device`. Options of the JAX package
+that are not ported yet raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import logging
+
+from . import constants
+from .contrib.contributivity import Contributivity
+from .data import datasets as dataset_module
+from .data.partition import compute_batch_sizes, split_basic
+from .data.partner import Partner
+from .mpl.approaches import MULTI_PARTNER_LEARNING_APPROACHES
+from .ops.aggregation import AGGREGATOR_NAMES
+from .utils import resolve_device
+
+logger = logging.getLogger("mplc_tpu_torch")
+
+_AGGREGATION_ALIASES = {
+    "uniform": "uniform",
+    "data-volume": "data-volume",
+    "data_volume": "data-volume",
+    "local-score": "local-score",
+    "local_score": "local-score",
+}
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1)")
+
+
+class Scenario:
+    def __init__(self,
+                 partners_count,
+                 amounts_per_partner,
+                 dataset=None,
+                 dataset_name=constants.MNIST,
+                 samples_split_option=None,
+                 corrupted_datasets=None,
+                 multi_partner_learning_approach="fedavg",
+                 aggregation_weighting="data-volume",
+                 gradient_updates_per_pass_count=constants.DEFAULT_GRADIENT_UPDATES_PER_PASS_COUNT,
+                 minibatch_count=constants.DEFAULT_BATCH_COUNT,
+                 epoch_count=constants.DEFAULT_EPOCH_COUNT,
+                 is_early_stopping=True,
+                 methods=None,
+                 seed=42,
+                 device=None):
+        self.device = resolve_device(device)
+
+        if isinstance(dataset, dataset_module.Dataset):
+            self.dataset = dataset
+        else:
+            self.dataset = dataset_module.load_dataset(dataset_name)
+
+        self.partners_list: list[Partner] = []
+        self.partners_count = partners_count
+        self.amounts_per_partner = amounts_per_partner
+        self.samples_split_type, self.samples_split_description = (
+            samples_split_option or ("basic", "random"))
+        if self.samples_split_type != "basic":
+            raise _not_ported(f"the '{self.samples_split_type}' split")
+        self.corrupted_datasets = (corrupted_datasets
+                                   or ["not_corrupted"] * partners_count)
+        if len(self.corrupted_datasets) != partners_count:
+            raise ValueError(f"corrupted_datasets has {len(self.corrupted_datasets)} "
+                             f"entries for {partners_count} partners")
+
+        if multi_partner_learning_approach not in MULTI_PARTNER_LEARNING_APPROACHES:
+            raise _not_ported(f"the '{multi_partner_learning_approach}' approach")
+        self.multi_partner_learning_approach = \
+            MULTI_PARTNER_LEARNING_APPROACHES[multi_partner_learning_approach]
+        self.multi_partner_learning_approach_key = multi_partner_learning_approach
+        try:
+            self.aggregation_name = _AGGREGATION_ALIASES[aggregation_weighting]
+        except KeyError:
+            raise ValueError(
+                f"aggregation approach '{aggregation_weighting}' is not a valid "
+                f"approach. Supported: {AGGREGATOR_NAMES}") from None
+
+        self.epoch_count = epoch_count
+        self.minibatch_count = minibatch_count
+        self.gradient_updates_per_pass_count = gradient_updates_per_pass_count
+        if min(epoch_count, minibatch_count, gradient_updates_per_pass_count) <= 0:
+            raise ValueError("epoch_count, minibatch_count and "
+                             "gradient_updates_per_pass_count must be > 0")
+        self.is_early_stopping = is_early_stopping
+        self.seed = seed
+
+        self.mpl = None
+        self._charac_engine = None
+        self.contributivity_list: list[Contributivity] = []
+        self.methods = list(methods or [])
+        for method in self.methods:
+            if method not in constants.CONTRIBUTIVITY_METHODS:
+                raise ValueError(f"Contributivity method '{method}' is not in "
+                                 "methods list.")
+
+    def instantiate_scenario_partners(self):
+        if self.partners_list:
+            raise RuntimeError("self.partners_list should be []")
+        self.partners_list = [Partner(i, seed=self.seed * 1000 + i)
+                              for i in range(self.partners_count)]
+
+    def split_data(self):
+        split_basic(self.dataset, self.partners_list, self.amounts_per_partner,
+                    self.samples_split_description, self.minibatch_count)
+        self.nb_samples_used = sum(len(p.x_train) for p in self.partners_list)
+        self.final_relative_nb_samples = [
+            p.final_nb_samples / self.nb_samples_used for p in self.partners_list]
+
+    def compute_batch_sizes(self):
+        compute_batch_sizes(self.partners_list, self.minibatch_count,
+                            self.gradient_updates_per_pass_count,
+                            constants.MAX_BATCH_SIZE)
+
+    def data_corruption(self):
+        """Label and feature corruption is not ported yet: every partner
+        must be "not_corrupted"."""
+        for idx, spec in enumerate(self.corrupted_datasets):
+            kind = spec[0] if isinstance(spec, (list, tuple)) else spec
+            if kind != "not_corrupted":
+                raise _not_ported(f"corruption '{kind}' (partner {idx})")
+
+    def run(self):
+        self.instantiate_scenario_partners()
+        self.split_data()
+        self.compute_batch_sizes()
+        self.data_corruption()
+
+        self.mpl = self.multi_partner_learning_approach(self)
+        self.mpl.fit()
+
+        for method in self.methods:
+            contrib = Contributivity(scenario=self)
+            contrib.compute_contributivity(method)
+            self.contributivity_list.append(contrib)
+            logger.info(f"## Evaluating contributivity with {method}: {contrib}")
+        return 0

@@ -1,0 +1,62 @@
+"""K1 on the card: the CUDA kernel against its plain version.
+
+These tests need a CUDA device and skip without one. They import no JAX,
+so they run on a machine that has only the port's dependencies:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mplc_tpu_torch.ops import recon_kernel as trk
+
+pytestmark = pytest.mark.cuda
+
+# K1's contract, from the JAX package's kernel tests: the same fp32 sum in
+# another association
+RTOL, ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(B, K, D, seed, device):
+    rng = np.random.default_rng(seed)
+    wn2 = rng.random((B, K)).astype(np.float32)
+    wn2[0] = 0.0                         # a coalition with no surviving weight
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        wn2, rng.standard_normal((K, D)).astype(np.float32),
+        rng.standard_normal(D).astype(np.float32)))
+
+
+# the odd fixture shape, ragged edges on every axis, more than one B tile,
+# and a slice of the main path's width
+@pytest.mark.parametrize("B,K,D", [(5, 12, 22), (70, 13, 129), (64, 200, 40000),
+                                   (1, 1, 1)])
+def test_kernel_matches_plain_version(cuda, B, K, D):
+    wn2, d2, init = _inputs(B, K, D, B + K, cuda)
+    before = trk.launches
+    got = trk.fused_contract(wn2, d2, init)
+    torch.cuda.synchronize()
+    assert trk.launches == before + 1
+    ref = trk.fused_contract_reference(wn2, d2, init)
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got[0], init)     # bit-exact pass-through
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    wn2, d2, init = _inputs(4, 6, 10, 0, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        trk.fused_contract(wn2.double(), d2, init)
+    with pytest.raises(ValueError, match="contiguous"):
+        trk.fused_contract(wn2, d2.t().contiguous().t(), init)
+    with pytest.raises(ValueError, match="shape"):
+        trk.fused_contract(wn2, d2, init[:-1])
+    with pytest.raises(ValueError, match="CUDA"):
+        trk.fused_contract(wn2, d2.cpu(), init)
