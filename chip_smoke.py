@@ -20,7 +20,15 @@ Phases, each of which fails the script (non-zero exit, no result line):
 5. stages: the slice's fit (warm) / record / reconstruct / evaluate
    seconds, each stage synchronized on its own;
 6. kernels: each kernel on the main path's own inputs against its plain
-   PyTorch version, plus an odd-shaped input; times from CUDA events.
+   PyTorch version, plus an odd-shaped input; times from CUDA events;
+7. precision: the main path again under MPLC_TORCH_PRECISION=bf16 (bf16
+   model compute, reconstruction through K1-bf16; its launch counts reset
+   just before and read just after), its values held against the fp32
+   phase's (ulp distances, Kendall tau-b, |dv|); Titanic under `mixed` on
+   the card against the CPU, and the MNIST CNN's bf16 logits on the card
+   against the CPU, each with an fp32 control that must fail its limit;
+   the bf16 stages; K1-bf16 against its plain version on the bf16 path's
+   own inputs and on an odd shape.
 
 The line before the last two is `{"kernels": [...]}`; then the card's
 `nvidia-smi` name and power limit; the last line is
@@ -29,7 +37,9 @@ The line before the last two is `{"kernels": [...]}`; then the card's
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -44,18 +54,28 @@ import torch  # noqa: E402
 from mplc_tpu_torch.contrib.contributivity import Contributivity  # noqa: E402
 from mplc_tpu_torch.contrib.reconstruct import record_updates  # noqa: E402
 from mplc_tpu_torch.contrib.shapley import powerset_order  # noqa: E402
+from mplc_tpu_torch import constants  # noqa: E402
 from mplc_tpu_torch.data.datasets import load_mnist, load_titanic  # noqa: E402
+from mplc_tpu_torch.obs import numerics  # noqa: E402
 from mplc_tpu_torch.ops import cuda_build, recon_kernel  # noqa: E402
 from mplc_tpu_torch.scenario import Scenario  # noqa: E402
 
 # Published peaks per card (NVIDIA data sheets, dense): fp32 outside the
-# tensor cores (FLOP/s) and device-memory bandwidth (bytes/s).
-PEAKS = {"H100 PCIe": (51e12, 2.0e12), "H100 NVL": (60e12, 3.9e12),
-         "H100": (67e12, 3.35e12)}
+# tensor cores and bf16 on the tensor cores (FLOP/s), device-memory
+# bandwidth (bytes/s).
+PEAKS = {"H100 PCIe": (51e12, 756e12, 2.0e12),
+         "H100 NVL": (60e12, 835e12, 3.9e12),
+         "H100": (67e12, 989e12, 3.35e12)}
 
-# Tolerance of K1 against its plain version: the same fp32 sum in another
-# association (the JAX package's kernel contract, tests/test_recon_kernel.py)
+# Tolerance of each kernel against its plain version: the same fp32 sum in
+# another association (the JAX package's kernel contract,
+# tests/test_recon_kernel.py); bf16 x bf16 products are exact in fp32, so
+# K1-bf16 is held to the same
 RTOL, ATOL = 1e-4, 1e-5
+
+# The JAX package's bf16 value bound (tests/test_precision.py): a bf16 v(S)
+# stays within 0.05 of the fp32 one
+BF16_VALUE_BOUND = 0.05
 
 PARTNERS = 10
 SCALE = 0.2     # synthetic MNIST: 12,000 train and 2,000 test samples
@@ -79,7 +99,7 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def peaks_for(name: str) -> tuple[float, float]:
+def peaks_for(name: str) -> tuple[float, float, float]:
     for key, peaks in PEAKS.items():
         if key in name:
             return peaks
@@ -102,6 +122,21 @@ def cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+@contextlib.contextmanager
+def precision_env(mode: str):
+    """MPLC_TORCH_PRECISION set to `mode` inside the block, restored after
+    (the mode is frozen into each TrainConfig built inside)."""
+    old = os.environ.get(constants.PRECISION_ENV)
+    os.environ[constants.PRECISION_ENV] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(constants.PRECISION_ENV, None)
+        else:
+            os.environ[constants.PRECISION_ENV] = old
+
+
 def mnist_scenario(methods) -> Scenario:
     """bench.py config 1's settings at 10 partners, (i+1)/55 split."""
     total = sum(range(1, PARTNERS + 1))
@@ -114,32 +149,41 @@ def mnist_scenario(methods) -> Scenario:
                     device=DEVICE)
 
 
-def phase_slice() -> dict:
-    recon_kernel.launches = 0
+def phase_slice(precision: str = "fp32") -> dict:
+    """The main path under `precision`, through the user entry points."""
+    tag = "slice" if precision == "fp32" else f"slice {precision}"
+    kernel = recon_kernel.KERNEL_BF16 if precision == "bf16" else recon_kernel.KERNEL
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
     t0 = time.perf_counter()
-    sc = mnist_scenario(["GTG-Shapley"])
-    sc.run()
+    with precision_env(precision):
+        sc = mnist_scenario(["GTG-Shapley"])
+        sc.run()
     gtg = sc.contributivity_list[0]
     exact = Contributivity(sc)
     exact.exact_reconstructed()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = recon_kernel.launches
+    launches = {recon_kernel.KERNEL: recon_kernel.launches,
+                recon_kernel.KERNEL_BF16: recon_kernel.launches_bf16}
 
     recon = exact._reconstructor()
     values = np.array([recon.values[s] for s in powerset_order(PARTNERS)])
     v_all = recon.values[tuple(range(PARTNERS))]
     sv = exact.contributivity_scores
-    print(f"[slice] mpl fit score {sc.mpl.history.score:.4f} in "
+    print(f"[{tag}] mpl fit score {sc.mpl.history.score:.4f} in "
           f"{sc.mpl.learning_computation_time:.2f} s; v(N) {v_all:.4f}")
-    print(f"[slice] GTG-Shapley {np.round(gtg.contributivity_scores, 4).tolist()} "
+    print(f"[{tag}] GTG-Shapley {np.round(gtg.contributivity_scores, 4).tolist()} "
           f"({gtg.computation_time_sec:.2f} s, recording included)")
-    print(f"[slice] exact (reconstructed) {np.round(sv, 4).tolist()} "
+    print(f"[{tag}] exact (reconstructed) {np.round(sv, 4).tolist()} "
           f"({exact.computation_time_sec:.2f} s)")
-    print(f"[slice] main path {wall:.2f} s; recon_matmul launches {launches}; "
+    print(f"[{tag}] main path {wall:.2f} s; launches {json.dumps(launches)}; "
           f"{recon.reconstructions} coalitions reconstructed; recording "
           f"{json.dumps(recon.recorded.describe())}")
-    check(launches > 0, "the main path never launched recon_matmul")
+    check(recon.precision == precision,
+          f"the evaluator runs {recon.precision}, not {precision}")
+    check(launches[kernel] > 0, f"the main path never launched {kernel}")
+    check(sum(launches.values()) == launches[kernel],
+          f"the {precision} main path launched another kernel than {kernel}")
     check(bool(np.isfinite(values).all() and np.isfinite(sv).all()
                and np.isfinite(gtg.contributivity_scores).all()),
           "non-finite values or scores")
@@ -148,37 +192,58 @@ def phase_slice() -> dict:
     check(sv[PARTNERS - 1] > sv[0],
           f"partner {PARTNERS - 1} (largest) does not outscore partner 0")
     rec = recon.recorded
+    check(all(t.dtype == torch.float32 for d in rec.deltas.values()
+              for t in d.values()) and rec.weights.dtype == torch.float32,
+          "the recorded stream is not float32")
     grand = recon_kernel.reconstruct_batch(
         torch.ones(1, PARTNERS, device=DEVICE), rec.init_params, rec.deltas,
-        rec.weights)
-    err = max((grand[g][k][0] - rec.final_params[g][k]).abs().max().item()
+        rec.weights, precision)
+    err = max((grand[g][k][0].float() - rec.final_params[g][k]).abs().max().item()
               for g in grand for k in grand[g])
-    print(f"[slice] reconstructed grand coalition vs recorded final params: "
-          f"max abs err {err:.3g}")
-    check(err <= 1e-4, "reconstructed grand coalition differs from the "
-                       "recording run's final params")
-    return {"launches": launches, "recon": recon}
+    scale = max(rec.final_params[g][k].abs().max().item()
+                for g in grand for k in grand[g])
+    # fp32: the same sum reassociated. bf16: the round weights and deltas
+    # are rounded to bf16 (2^-9 relative each) and the leaves cast to bf16
+    # (2^-9 relative), so allow 2^-7 of the largest parameter
+    bound = 1e-4 if precision != "bf16" else 2.0 ** -7 * scale
+    print(f"[{tag}] reconstructed grand coalition vs recorded final params: "
+          f"max abs err {err:.3g} (bound {bound:.3g})")
+    check(err <= bound, "reconstructed grand coalition differs from the "
+                        "recording run's final params")
+    return {"launches": launches[kernel], "recon": recon, "values": values}
 
 
-def phase_reference() -> None:
-    """Titanic recording + reconstruction on the card and on the CPU."""
-    out = {}
-    for device in (DEVICE, "cpu"):
+def titanic_recording(device: str, epochs: int, precision: str) -> tuple:
+    """(evaluator, test-set size) of a Titanic 3-partner game recorded and
+    valued on `device` under `precision`."""
+    with precision_env(precision):
         sc = Scenario(3, [0.2, 0.3, 0.5], dataset=load_titanic(),
-                      epoch_count=2, minibatch_count=2,
+                      epoch_count=epochs, minibatch_count=2,
                       gradient_updates_per_pass_count=2,
                       is_early_stopping=False, seed=0, device=device)
         sc.instantiate_scenario_partners()
         sc.split_data()
         c = Contributivity(sc)
         c.exact_reconstructed()
-        rec = c._reconstructor()
-        out[device] = (rec, len(sc.dataset.x_test))
-    (rg, n_test), (rc, _) = out[DEVICE], out["cpu"]
-    err = max((rg.recorded.final_params[g][k].cpu()
-               - rc.recorded.final_params[g][k]).abs().max().item()
-              for g in rc.recorded.final_params for k in rc.recorded.final_params[g])
-    dv = max(abs(rg.values[s] - rc.values[s]) for s in rc.values)
+    recon = c._reconstructor()
+    check(recon.precision == precision,
+          f"the Titanic evaluator runs {recon.precision}, not {precision}")
+    return recon, len(sc.dataset.x_test)
+
+
+def recording_diff(a, b) -> tuple[float, float]:
+    """(final params max abs err, v(S) max diff) of two Titanic evaluators."""
+    fa, fb = a.recorded.final_params, b.recorded.final_params
+    err = max((fa[g][k].cpu() - fb[g][k].cpu()).abs().max().item()
+              for g in fb for k in fb[g])
+    dv = max(abs(a.values[s] - b.values[s]) for s in b.values)
+    return err, dv
+
+
+def phase_reference() -> None:
+    """Titanic recording + reconstruction on the card and on the CPU."""
+    (card, n_test), (cpu, _) = (titanic_recording(d, 2, "fp32") for d in (DEVICE, "cpu"))
+    err, dv = recording_diff(card, cpu)
     print(f"[reference] titanic card vs cpu: final params max abs err {err:.3g}, "
           f"v(S) max diff {dv:.4f} (1/n_test {1 / n_test:.4f})")
     # float reassociation moves params by ~1e-6; one test sample at a
@@ -187,7 +252,75 @@ def phase_reference() -> None:
     check(dv <= 1.0 / n_test + 1e-6, "card and CPU v(S) differ by more than one sample")
 
 
-def phase_stages(recon) -> dict:
+# `mixed` on the card against `mixed` on the CPU: final params within this
+# limit (measured 5.96e-08 on an H100 80GB HBM3 at 700 W), v(S) within one
+# test sample. bf16 model compute moves the recorded deltas from fp32 by
+# more than 1e-3 (tests/test_torch_precision.py), so a card run that
+# computed in fp32 falls outside it: the phase checks that it does
+MIXED_PARAM_LIMIT = 1e-5
+
+
+def phase_reference_mixed() -> None:
+    """The reference phase under `mixed`, at 4 epochs (at 2, bf16 leaves
+    test samples on the decision boundary), with its control: the card
+    forced to fp32 must fail the same comparison."""
+    (card, n_test), (cpu, _), (card32, _) = (
+        titanic_recording(d, 4, mode)
+        for d, mode in ((DEVICE, "mixed"), ("cpu", "mixed"), (DEVICE, "fp32")))
+    err, dv = recording_diff(card, cpu)
+    err32, dv32 = recording_diff(card32, cpu)
+    print(f"[precision] titanic mixed, card vs cpu: final params max abs err "
+          f"{err:.3g}, v(S) max diff {dv:.4f} (1/n_test {1 / n_test:.4f}); "
+          f"control, card fp32 vs cpu mixed: {err32:.3g}, {dv32:.4f}")
+    check(err <= MIXED_PARAM_LIMIT, "mixed card and CPU recordings differ")
+    check(dv <= 1.0 / n_test + 1e-6,
+          "mixed card and CPU v(S) differ by more than one sample")
+    check(err32 > MIXED_PARAM_LIMIT, "an fp32 card recording passes the mixed "
+                                     "limit: it cannot tell bf16 compute from fp32")
+
+
+# The MNIST CNN's bf16 logits on the card against the CPU's: at least this
+# share bit-equal (both sides round the same values to bf16 at the same
+# points; an fp32 logit is a bf16 value only by chance, about 2^-16;
+# measured 0.558 on an H100 80GB HBM3 at 700 W, the fp32 control 0), and
+# none farther apart than two bf16 ulps of the largest logit (a rounding
+# that lands the other way in the last layer, plus one carried from the
+# layers before; measured one)
+MODEL_EQUAL_SHARE = 0.25
+MODEL_ULPS = 2
+
+
+def phase_model_bf16(recon, rows: int = 256) -> None:
+    """The MNIST CNN's bf16 forward pass (cuDNN convolutions, cuBLAS
+    matmuls) on the card against the same pass on the CPU, at the bf16
+    main path's trained parameters, with its control: the card's fp32 pass
+    must fall outside the limits."""
+    engine = recon.engine
+    params = recon.recorded.final_params
+    x = torch.from_numpy(engine.scenario.dataset.x_test[:rows])
+    cpu_params = {g: {k: t.cpu() for k, t in d.items()} for g, d in params.items()}
+    with torch.no_grad():
+        ref = engine.model.apply(cpu_params, x, torch.bfloat16)
+        got = engine.model.apply(params, x.to(DEVICE), torch.bfloat16).cpu()
+        got32 = engine.model.apply(params, x.to(DEVICE), torch.float32).cpu()
+    top = ref.abs().max().item()
+    limit = MODEL_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+    err, err32 = ((g - ref).abs().max().item() for g in (got, got32))
+    equal, equal32 = ((g == ref).double().mean().item() for g in (got, got32))
+    print(f"[precision] {engine.model.name} bf16 logits, card vs cpu ({rows} rows, "
+          f"max |logit| {top:.4g}): bit-equal share {equal:.4f} (at least "
+          f"{MODEL_EQUAL_SHARE}), max abs err {err:.3g} (limit {limit:.3g}); "
+          f"control, card fp32 vs cpu bf16: bit-equal share {equal32:.4f}, max "
+          f"abs err {err32:.3g}")
+    check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+          "the card's bf16 logits are not finite float32")
+    check(equal >= MODEL_EQUAL_SHARE and err <= limit,
+          "the card's bf16 MNIST CNN logits differ from the CPU's")
+    check(equal32 < MODEL_EQUAL_SHARE, "the card's fp32 logits pass the bf16 "
+                                       "limit: it cannot tell bf16 compute from fp32")
+
+
+def phase_stages(recon, tag: str = "stages") -> dict:
     """Fit, record, reconstruct and evaluate once more, each synchronized."""
     engine = recon.engine
     torch.cuda.synchronize()
@@ -205,8 +338,7 @@ def phase_stages(recon) -> dict:
     for i in range(0, len(subsets), width):
         masks = torch.from_numpy(masks_all[i:i + width]).to(DEVICE)
         t0 = time.perf_counter()
-        flat = recon_kernel.reconstruct_flat(masks, recon._init, recon._d2,
-                                             recon._weights)
+        flat = recon.reconstruct(masks)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         with torch.no_grad():
@@ -215,48 +347,103 @@ def phase_stages(recon) -> dict:
         torch.cuda.synchronize()
         rec_s += t1 - t0
         eval_s += time.perf_counter() - t1
-    stages = {"fit_s": fit_s, "record_s": record_s, "reconstruct_s": rec_s,
-              "evaluate_s": eval_s, "coalitions": len(subsets), "width": width}
-    print("[stages] " + json.dumps(stages))
+    stages = {"precision": recon.precision, "fit_s": fit_s, "record_s": record_s,
+              "reconstruct_s": rec_s, "evaluate_s": eval_s,
+              "coalitions": len(subsets), "width": width}
+    print(f"[{tag}] " + json.dumps(stages))
     return stages
 
 
-def kernel_entry(wn2, d2, init, launches, card) -> dict:
-    fp32_peak, bandwidth = peaks_for(card)
+def phase_value_pair(fp32_values: np.ndarray, bf16_values: np.ndarray) -> dict:
+    """The bf16 main path's v(S) against the fp32 main path's, over the
+    same 1023 coalitions."""
+    diff = numerics.diff_values(fp32_values, bf16_values)
+    dv = np.abs(bf16_values - fp32_values)
+    grand = powerset_order(PARTNERS).index(tuple(range(PARTNERS)))
+    pair = {"common": diff["common"], "kendall_tau_b": diff["kendall_tau"],
+            "ulp": diff["ulp"], "histogram": diff["histogram"],
+            "max_abs_dv": float(dv.max()), "median_abs_dv": float(np.median(dv)),
+            "abs_dv_grand": float(dv[grand])}
+    print("[precision] value pair bf16 vs fp32: " + json.dumps(pair))
+    check(diff["common"] == 2 ** PARTNERS - 1, "the value pair does not cover every coalition")
+    check(pair["abs_dv_grand"] <= BF16_VALUE_BOUND,
+          f"|v_bf16(N) - v_fp32(N)| = {pair['abs_dv_grand']} exceeds the bf16 bound")
+    check(pair["median_abs_dv"] <= BF16_VALUE_BOUND,
+          f"median |dv| = {pair['median_abs_dv']} exceeds the bf16 bound")
+    return pair
+
+
+# per kernel: wrapper, plain version, source, operand peak index in PEAKS,
+# and the yardstick: one PyTorch call computing the same function (timed
+# here only; the port never calls it)
+KERNEL_TABLE = {
+    recon_kernel.KERNEL: (
+        recon_kernel.fused_contract, recon_kernel.fused_contract_reference,
+        "mplc_tpu_torch/csrc/recon_matmul.cu", 0, "torch.addmm",
+        lambda wn2, d2, init: torch.addmm(init.reshape(1, -1), wn2, d2)),
+    recon_kernel.KERNEL_BF16: (
+        recon_kernel.fused_contract_bf16, recon_kernel.fused_contract_bf16_reference,
+        "mplc_tpu_torch/csrc/recon_matmul_bf16.cu", 1,
+        "torch.addmm(out_dtype=float32)",
+        lambda wn2, d2, init: torch.addmm(init.reshape(1, -1), wn2, d2,
+                                          out_dtype=torch.float32)),
+}
+
+
+def kernel_entry(name: str, wn2, d2, init, launches, card) -> dict:
+    fn, plain, source, peak_index, label, library = KERNEL_TABLE[name]
+    peaks = peaks_for(card)
+    op_peak, bandwidth = peaks[peak_index], peaks[2]
     B, K = wn2.shape
     D = d2.shape[1]
-    got = recon_kernel.fused_contract(wn2, d2, init)
+    got = fn(wn2, d2, init)
     torch.cuda.synchronize()
-    ref = recon_kernel.fused_contract_reference(wn2, d2, init)
+    ref = plain(wn2, d2, init)
     err = (got - ref).abs().max().item()
     check(torch.allclose(got, ref, rtol=RTOL, atol=ATOL),
-          f"recon_matmul disagrees with its plain version (max abs err {err})")
+          f"{name} disagrees with its plain version (max abs err {err})")
     zero = (wn2 == 0).all(dim=1)
     check(bool(zero.any()), "no zero-weight row in the kernel's inputs")
     check(torch.equal(got[zero], init.reshape(1, -1).expand(int(zero.sum()), -1)),
           "a zero-weight coalition does not return init bit-exactly")
     flops = 2 * B * K * D
-    nbytes = 4 * (B * K + K * D + D + B * D)
-    t_ops, t_bytes = flops / fp32_peak * 1e3, nbytes / bandwidth * 1e3
-    ms = cuda_ms(lambda: recon_kernel.fused_contract(wn2, d2, init))
+    nbytes = (wn2.element_size() * B * K + d2.element_size() * K * D
+              + init.element_size() * D + got.element_size() * B * D)
+    t_ops, t_bytes = flops / op_peak * 1e3, nbytes / bandwidth * 1e3
+    ms = cuda_ms(lambda: fn(wn2, d2, init))
     return {
-        "name": "recon_matmul", "route": "cuda",
-        "source": "mplc_tpu_torch/csrc/recon_matmul.cu",
+        "name": name, "route": "cuda", "source": source,
         "replaces": "mplc_tpu/ops/recon_kernel.py:130",
         "launches": launches, "max_abs_err": err,
         "ms": ms, "kernel_ms": ms,
-        "plain_ms": cuda_ms(lambda: recon_kernel.fused_contract_reference(wn2, d2, init)),
+        "plain_ms": cuda_ms(lambda: plain(wn2, d2, init)),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": cuda_ms(lambda: torch.addmm(init.reshape(1, -1), wn2, d2)),
+        "library_ms": cuda_ms(lambda: library(wn2, d2, init)), "library": label,
         "shape": {"B": B, "K": K, "D": D}, "flops": flops, "bytes": nbytes,
     }
 
 
+def odd_inputs(name: str):
+    """B=5, K=12, D=22 (ragged on every axis), row 0 of weight zero."""
+    g = np.random.default_rng(0)
+    odd_wn = g.random((5, 12)).astype(np.float32)
+    odd_wn[0] = 0.0
+    wn2, d2, init = (torch.from_numpy(a).to(DEVICE) for a in (
+        odd_wn, g.standard_normal((12, 22)).astype(np.float32),
+        g.standard_normal(22).astype(np.float32)))
+    if name == recon_kernel.KERNEL_BF16:
+        wn2, d2 = wn2.to(torch.bfloat16), d2.to(torch.bfloat16)
+    return wn2, d2, init
+
+
 def phase_kernels(recon, launches, card) -> list:
-    """K1 on the main path's own inputs: the recorded stream and a batch of
-    64 coalitions (the first 63 of the powerset and the empty coalition,
-    whose weights are all zero). Then an odd shape (B=5, K=12, D=22)."""
+    """The kernel of `recon`'s precision on the main path's own inputs: the
+    recorded stream and a batch of 64 coalitions (the first 63 of the
+    powerset and the empty coalition, whose weights are all zero). Then an
+    odd shape (B=5, K=12, D=22)."""
+    name = (recon_kernel.KERNEL_BF16 if recon.precision == "bf16"
+            else recon_kernel.KERNEL)
     subsets = powerset_order(PARTNERS)[:63] + [()]
     masks = torch.from_numpy(recon.engine._coalition_arrays(subsets)).to(DEVICE)
     wn = recon_kernel.normalized_round_weights(masks, recon._weights)
@@ -265,21 +452,27 @@ def phase_kernels(recon, launches, card) -> list:
     check(bool((wn[denom == 0] == 0).all()), "WN rows with zero denominator are not exact zeros")
     check(torch.allclose(sums[denom > 0], torch.ones_like(sums[denom > 0]), rtol=1e-6),
           "WN rows do not sum to 1")
-    entry = kernel_entry(wn.reshape(64, -1).contiguous(), recon._d2, recon._init,
-                         launches, card)
-
-    g = np.random.default_rng(0)
-    odd_wn = g.random((5, 12)).astype(np.float32)
-    odd_wn[0] = 0.0
-    odd = kernel_entry(*(torch.from_numpy(a).to(DEVICE) for a in (
-        odd_wn, g.standard_normal((12, 22)).astype(np.float32),
-        g.standard_normal(22).astype(np.float32))), launches, card)
-    print(f"[kernels] odd shape B=5 K=12 D=22: max abs err {odd['max_abs_err']:.3g}")
+    wn2 = wn.reshape(64, -1).to(recon._d2.dtype).contiguous()
+    entry = kernel_entry(name, wn2, recon._d2, recon._init, launches, card)
+    odd = kernel_entry(name, *odd_inputs(name), launches, card)
+    print(f"[kernels] {name} odd shape B=5 K=12 D=22: max abs err {odd['max_abs_err']:.3g}")
     for e in (entry, odd):
-        print(f"[kernels] recon_matmul {e['shape']}: {e['ms']:.4f} ms "
-              f"(plain {e['plain_ms']:.4f}, addmm {e['library_ms']:.4f}, "
+        print(f"[kernels] {name} {e['shape']}: {e['ms']:.4f} ms "
+              f"(plain {e['plain_ms']:.4f}, {e['library']} {e['library_ms']:.4f}, "
               f"bound {e['bound_ms']:.4f} by {e['bound_by']})")
     return [entry]
+
+
+def phase_precision(fp32_values: np.ndarray, card) -> list:
+    """The bf16 main path, its value pair against fp32, Titanic under
+    mixed and the MNIST CNN's bf16 forward pass on the card against the
+    CPU, the bf16 stages and K1-bf16's entry."""
+    sl = phase_slice("bf16")
+    phase_value_pair(fp32_values, sl["values"])
+    phase_reference_mixed()
+    phase_model_bf16(sl["recon"])
+    phase_stages(sl["recon"], tag="stages bf16")
+    return phase_kernels(sl["recon"], sl["launches"], card)
 
 
 def main() -> int:
@@ -292,13 +485,15 @@ def main() -> int:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
 
     t0 = time.perf_counter()
-    cuda_build.build([recon_kernel.KERNEL])
-    print(f"[build] recon_matmul built in {time.perf_counter() - t0:.2f} s")
+    cuda_build.build(recon_kernel.KERNELS)
+    print(f"[build] {', '.join(recon_kernel.KERNELS)} built in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     sl = phase_slice()
     phase_reference()
     phase_stages(sl["recon"])
     kernels = phase_kernels(sl["recon"], sl["launches"], card)
+    kernels += phase_precision(sl["values"], card)
 
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

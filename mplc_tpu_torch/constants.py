@@ -110,3 +110,30 @@ GTG_TRUNCATION_ENV = "MPLC_TORCH_GTG_TRUNCATION"
 
 def gtg_truncation() -> float:
     return _env_float(GTG_TRUNCATION_ENV, 0.05)
+
+
+# Precision modes, with the JAX package's semantics (its precision knob,
+# `mplc_tpu/constants.py`):
+#   fp32   (default) everything in float32.
+#   mixed  model compute (forward, backward, evaluation) in bf16; master
+#          parameters, Adam state, FedAvg aggregation, the recorded update
+#          stream and the reconstruction stay float32.
+#   bf16   `mixed`, plus reconstruction from bf16 round weights and bf16
+#          recorded deltas (fp32 accumulation in the kernel), its models
+#          cast to bf16 and evaluated in bf16.
+# Read when a TrainConfig is built and frozen into it.
+PRECISION_ENV = "MPLC_TORCH_PRECISION"
+PRECISION_MODES = ("fp32", "mixed", "bf16")
+
+
+def precision_mode() -> str:
+    """MPLC_TORCH_PRECISION: fp32 | mixed | bf16, case-insensitive; unset
+    gives fp32, any other value warns and gives fp32."""
+    raw = os.environ.get(PRECISION_ENV, "").strip().lower()
+    if not raw:
+        return "fp32"
+    if raw not in PRECISION_MODES:
+        warnings.warn(f"{PRECISION_ENV}={raw!r} is not one of {PRECISION_MODES}; "
+                      f"falling back to fp32", stacklevel=2)
+        return "fp32"
+    return raw

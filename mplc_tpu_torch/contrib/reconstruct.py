@@ -11,6 +11,12 @@ model is then rebuilt by replaying the recorded rounds restricted to S,
 which the fused contraction K1 (ops/recon_kernel.py) does for a whole batch
 of coalitions in one pass. v(S) then costs an evaluation, not a training
 run. Reconstructed values live in the evaluator's own memo.
+
+Precision: the evaluator answers for the engine's frozen mode. Under fp32
+and mixed it reconstructs in fp32 (K1); under bf16 it keeps the flattened
+stream in bf16 only and reconstructs through K1-bf16 (fp32 accumulation),
+casting the models to bf16. Models are evaluated in the trainer's
+`cfg.dtype`.
 """
 
 from __future__ import annotations
@@ -77,27 +83,34 @@ class ReconstructionEvaluator:
     """Memoizing, batching v(S) over reconstructed coalition models.
 
     The recorded stream is flattened once to K1's layout (init [D],
-    deltas [K = R*P, D]); each batch of up to RECON_BATCH coalitions is one
-    K1 launch followed by a vmapped evaluation of the batch's models on the
-    test set. Values are row-independent, so the batch width never changes
-    them."""
+    deltas [K = R*P, D], in the precision's stream dtype); each batch of up
+    to RECON_BATCH coalitions is one kernel launch followed by a vmapped
+    evaluation of the batch's models on the test set. Values are
+    row-independent, so the batch width never changes them."""
 
     def __init__(self, engine, recorded: RecordedRun | None = None):
         self.engine = engine
+        # the engine's frozen precision: every memoized value answers for it
+        self.precision = engine._multi_cfg.precision
         self.recorded = recorded if recorded is not None else record_updates(engine)
         self.values: dict[tuple, float] = {(): 0.0}
         self.reconstructions = 0
         rec = self.recorded
         R, P = rec.weights.shape
         self._init, self._d2, self._layout = recon_kernel.flatten_stream(
-            rec.init_params, rec.deltas, R * P)
+            rec.init_params, rec.deltas, R * P,
+            recon_kernel.stream_dtype(self.precision))
         self._weights = rec.weights.float()
+
+    def reconstruct(self, masks: torch.Tensor) -> torch.Tensor:
+        """[B, D] flat parameters of the coalitions `masks` [B, P], in the
+        evaluator's precision."""
+        return recon_kernel.reconstruct_flat(masks, self._init, self._d2,
+                                             self._weights, self.precision)
 
     def _apply(self, masks: torch.Tensor) -> torch.Tensor:
         """Test accuracy of each reconstructed coalition model ([B])."""
-        flat = recon_kernel.reconstruct_flat(masks, self._init, self._d2,
-                                             self._weights)
-        params = recon_kernel.unflatten(flat, self._layout)
+        params = recon_kernel.unflatten(self.reconstruct(masks), self._layout)
         with torch.no_grad():
             return self.engine.trainer.evaluate_models(params, self.engine.test)[1]
 

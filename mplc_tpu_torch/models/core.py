@@ -1,8 +1,9 @@
 """The Model contract and the optimizer (port of `mplc_tpu/models/core.py`).
 
 A model is a frozen bundle of pure functions over a parameter dict:
-`init(generator)` builds the parameters on the CPU, `apply(params, x)`
-maps a batch to float32 logits. Because parameters are plain dicts of
+`init(generator)` builds the parameters on the CPU, `apply(params, x,
+compute_dtype=torch.float32)` maps a batch to float32 logits, computing in
+`compute_dtype`. Because parameters are plain dicts of
 tensors, a stack of per-partner or per-coalition replicas is the same dict
 with a leading axis, driven by `torch.func.vmap`.
 """
@@ -59,7 +60,7 @@ class Model:
     Attributes:
         name: model family tag.
         init: torch.Generator -> params dict (float32, on the CPU).
-        apply: (params, x) -> logits (float32).
+        apply: (params, x, compute_dtype) -> logits (float32).
         loss_kind: "categorical" (softmax CE over one-hot labels) or
             "binary" (sigmoid CE over a single logit).
         num_outputs: logits dimensionality (1 for binary).

@@ -1,6 +1,11 @@
 """The model families of this slice (port of `mplc_tpu/models/zoo.py`):
 the MNIST CNN at its published width and the Titanic logistic regression.
 CIFAR10, IMDB and ESC50 come with a later slice (ROADMAP.md).
+
+Every `apply` takes `compute_dtype`: the parameters and the input are cast
+to it inside `apply` and the logits come back float32, so the carried
+parameters never leave float32 and their gradient through the cast is
+float32. Under float32 the casts are no-ops and the function is unchanged.
 """
 
 from __future__ import annotations
@@ -24,14 +29,19 @@ def _mnist_init(generator: torch.Generator) -> dict:
     }
 
 
-def _mnist_apply(params, x):
-    h = torch.relu(L.conv2d(params["c1"], x))
-    h = torch.relu(L.conv2d(params["c2"], h))
+def _cast(params: dict, dtype: torch.dtype) -> dict:
+    return {g: {k: t.to(dtype) for k, t in d.items()} for g, d in params.items()}
+
+
+def _mnist_apply(params, x, compute_dtype=torch.float32):
+    p = _cast(params, compute_dtype)
+    h = torch.relu(L.conv2d(p["c1"], x.to(compute_dtype)))
+    h = torch.relu(L.conv2d(p["c2"], h))
     h = L.max_pool_2d(h)
     # NHWC flatten, as the JAX model: d1's input rows are (h, w, c)-ordered
     h = h.reshape(h.shape[0], -1)
-    h = torch.relu(L.dense(params["d1"], h))
-    return L.dense(params["d2"], h)
+    h = torch.relu(L.dense(p["d1"], h))
+    return L.dense(p["d2"], h).float()
 
 
 # ---------------------------------------------------------------------------
@@ -45,8 +55,9 @@ def _titanic_init(generator: torch.Generator) -> dict:
     return {"d1": L.dense_init(generator, TITANIC_NUM_FEATURES, 1)}
 
 
-def _titanic_apply(params, x):
-    return L.dense(params["d1"], x)
+def _titanic_apply(params, x, compute_dtype=torch.float32):
+    p = _cast(params, compute_dtype)
+    return L.dense(p["d1"], x.to(compute_dtype)).float()
 
 
 MNIST_CNN = Model("mnist_cnn", _mnist_init, _mnist_apply, "categorical", 10,

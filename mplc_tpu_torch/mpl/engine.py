@@ -20,6 +20,10 @@ caller's `torch.Generator` (a CPU generator, so a run is the same on every
 device), or injected through `streams` (the tests feed the JAX package's
 permutations). The ported models have no dropout, so the permutations and
 the initial parameters are the only randomness.
+
+Precision (`TrainConfig.precision`): the model computes in `cfg.dtype`
+(bf16 under `mixed` and `bf16`); parameters, Adam state, aggregation
+weights and the recorded deltas stay float32 in every mode.
 """
 
 from __future__ import annotations
@@ -58,8 +62,19 @@ class TrainConfig:
     # actually applied: `upd_h` [R, P, ...] leaves and `w_h` [R, P],
     # R = epoch_count x minibatch_count (retrain-free contributivity)
     record_updates: bool = False
+    # MPLC_TORCH_PRECISION mode (constants.py): fp32 | mixed | bf16. None
+    # resolves it from the environment at construction; the resolved mode
+    # is frozen into the config. mixed and bf16 compute the model in bf16;
+    # parameters, Adam state, aggregation and the recorded stream stay
+    # float32 in every mode.
+    precision: str | None = None
 
     def __post_init__(self):
+        if self.precision is None:
+            object.__setattr__(self, "precision", constants.precision_mode())
+        if self.precision not in constants.PRECISION_MODES:
+            raise ValueError(f"precision must be one of "
+                             f"{constants.PRECISION_MODES}, got {self.precision!r}")
         if self.approach != "fedavg":
             if self.approach in APPROACH_NAMES:
                 raise NotImplementedError(
@@ -71,6 +86,11 @@ class TrainConfig:
         if self.aggregator not in AGGREGATOR_NAMES:
             raise KeyError(f"aggregation approach '{self.aggregator}' is not a "
                            f"valid approach. Supported: {AGGREGATOR_NAMES}")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The model compute dtype."""
+        return torch.float32 if self.precision == "fp32" else torch.bfloat16
 
 
 @dataclasses.dataclass
@@ -137,7 +157,7 @@ class MplTrainer:
     # ------------------------------------------------------------------
 
     def _chunk_sums(self, params, x, y, m):
-        logits = self.model.apply(params, x)
+        logits = self.model.apply(params, x, self.cfg.dtype)
         loss, acc, cnt = masked_loss_and_metrics(self.model.loss_kind, logits, y, m)
         return loss * cnt, acc * cnt, cnt
 
@@ -196,7 +216,7 @@ class MplTrainer:
     # ------------------------------------------------------------------
 
     def _loss_fn(self, params, x, y, m):
-        logits = self.model.apply(params, x)
+        logits = self.model.apply(params, x, self.cfg.dtype)
         loss, acc, cnt = masked_loss_and_metrics(self.model.loss_kind, logits, y, m)
         return loss, (acc, cnt)
 

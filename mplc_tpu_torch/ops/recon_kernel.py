@@ -20,10 +20,16 @@ its plain PyTorch version `fused_contract_reference`. The choice follows the
 tensors' device and nothing else; on any device other than the CPU the
 wrapper launches the kernel or raises, it never falls back.
 
-Numerics: the kernel sums in fp32 in another association than the plain
+`fused_contract_bf16` is the same function on bf16 WN and bf16 deltas with
+fp32 `init`, fp32 accumulation and an fp32 result: the Pallas kernel's
+instantiation under `precision="bf16"`, on the card the kernel
+`csrc/recon_matmul_bf16.cu`. Every bf16 x bf16 product is exact in fp32,
+so its plain version upcasts both operands and does one fp32 product.
+
+Numerics: each kernel sums in fp32 in another association than its plain
 version, so the two agree to rtol 1e-4 / atol 1e-5, not bit for bit. A
 coalition whose every round has zero surviving weight reproduces `init`
-bit-exactly on both (its WN rows are exact zeros).
+bit-exactly on both (its WN rows are exact zeros, in bf16 too).
 """
 
 from __future__ import annotations
@@ -35,10 +41,13 @@ import torch
 from . import cuda_build
 
 KERNEL = "recon_matmul"
+KERNEL_BF16 = "recon_matmul_bf16"
+KERNELS = (KERNEL, KERNEL_BF16)
 
-# Launches of the CUDA kernel in this process (a plain count; a run resets
-# it to 0 to see which kernels its main path went through).
+# Launches of each CUDA kernel in this process (plain counts; a run resets
+# them to 0 to see which kernels its main path went through).
 launches = 0
+launches_bf16 = 0
 
 
 def normalized_round_weights(masks: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -57,27 +66,36 @@ def fused_contract_reference(wn2: torch.Tensor, d2: torch.Tensor,
     return init.reshape(1, -1) + wn2 @ d2
 
 
-def _kernel_fn():
-    fn = cuda_build.load(KERNEL).recon_matmul_f32
+def fused_contract_bf16_reference(wn2: torch.Tensor, d2: torch.Tensor,
+                                  init: torch.Tensor) -> torch.Tensor:
+    """The plain version of the bf16 variant: both operands upcast (exact),
+    one fp32 product, plus init; fp32 [B, D]."""
+    return init.reshape(1, -1) + wn2.float() @ d2.float()
+
+
+def _kernel_fn(name: str, symbol: str):
+    fn = getattr(cuda_build.load(name), symbol)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(wn2: torch.Tensor, d2: torch.Tensor, init: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on the current CUDA stream; raises on any input the kernel
-    does not take."""
-    global launches
+def _launch_checked(name: str, symbol: str, wn2: torch.Tensor, d2: torch.Tensor,
+                    init: torch.Tensor, operand_dtype: torch.dtype) -> torch.Tensor:
+    """Launch `name`'s kernel on the current CUDA stream after checking its
+    inputs: wn2 [B, K] and d2 [K, D] of `operand_dtype`, init [D] float32,
+    all contiguous CUDA tensors on one device. Raises on anything else."""
     tensors = {"wn2": wn2, "d2": d2, "init": init}
-    for name, t in tensors.items():
+    for tname, t in tensors.items():
         if t.device.type != "cuda":
-            raise ValueError(f"the recon_matmul kernel needs CUDA tensors; "
-                             f"{name} is on {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+            raise ValueError(f"the {name} kernel needs CUDA tensors; "
+                             f"{tname} is on {t.device}")
+        want = torch.float32 if tname == "init" else operand_dtype
+        if t.dtype != want:
+            raise ValueError(f"{name}: {tname} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{name}: {tname} must be contiguous")
     if len({t.device for t in tensors.values()}) != 1:
         raise ValueError("wn2, d2 and init must be on one device")
     if wn2.ndim != 2 or d2.ndim != 2:
@@ -94,11 +112,29 @@ def _launch(wn2: torch.Tensor, d2: torch.Tensor, init: torch.Tensor) -> torch.Te
         return out
     with torch.cuda.device(wn2.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn()(wn2.data_ptr(), d2.data_ptr(), init.data_ptr(),
-                           out.data_ptr(), B, K, D, stream)
+        err = _kernel_fn(name, symbol)(wn2.data_ptr(), d2.data_ptr(),
+                                       init.data_ptr(), out.data_ptr(), B, K,
+                                       D, stream)
     if err != 0:
-        raise RuntimeError(f"recon_matmul launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
+
+
+def _launch(wn2: torch.Tensor, d2: torch.Tensor, init: torch.Tensor) -> torch.Tensor:
+    """Launch K1 (fp32 operands); raises on any input it does not take."""
+    global launches
+    out = _launch_checked(KERNEL, "recon_matmul_f32", wn2, d2, init, torch.float32)
     launches += 1
+    return out
+
+
+def _launch_bf16(wn2: torch.Tensor, d2: torch.Tensor, init: torch.Tensor) -> torch.Tensor:
+    """Launch K1-bf16 (bf16 operands, fp32 init and result); raises on any
+    input it does not take."""
+    global launches_bf16
+    out = _launch_checked(KERNEL_BF16, "recon_matmul_bf16", wn2, d2, init,
+                          torch.bfloat16)
+    launches_bf16 += 1
     return out
 
 
@@ -111,20 +147,37 @@ def fused_contract(wn2: torch.Tensor, d2: torch.Tensor,
     return _launch(wn2, d2, init)
 
 
+def fused_contract_bf16(wn2: torch.Tensor, d2: torch.Tensor,
+                        init: torch.Tensor) -> torch.Tensor:
+    """out[B, D] = init[None, :] + wn2 @ d2 from bf16 wn2 and d2 and fp32
+    init, summed in fp32 to an fp32 result: the CUDA kernel for tensors on
+    the card, the plain version for tensors on the CPU."""
+    if wn2.device.type == "cpu":
+        return fused_contract_bf16_reference(wn2, d2, init)
+    return _launch_bf16(wn2, d2, init)
+
+
 # ---------------------------------------------------------------------------
 # flattening the recorded stream to the kernel's [K, D] layout and back
 # ---------------------------------------------------------------------------
 
-def flatten_stream(init_params: dict, deltas: dict, K: int):
-    """(init [D], d2 [K, D], layout) from a parameter dict and its recorded
-    deltas ([R, P, ...] leaves, K = R*P): every leaf flattened and laid side
-    by side, so the whole stream is one contraction. `layout` lists
-    (group, name, shape) in that order, for `unflatten`."""
+def stream_dtype(precision: str) -> torch.dtype:
+    """The dtype reconstruction reads the recorded deltas in."""
+    return torch.bfloat16 if precision == "bf16" else torch.float32
+
+
+def flatten_stream(init_params: dict, deltas: dict, K: int,
+                   dtype: torch.dtype = torch.float32):
+    """(init [D] float32, d2 [K, D] in `dtype`, layout) from a parameter
+    dict and its recorded deltas ([R, P, ...] leaves, K = R*P): every leaf
+    flattened and laid side by side, so the whole stream is one
+    contraction. `layout` lists (group, name, shape) in that order, for
+    `unflatten`."""
     layout = [(g, k, tuple(t.shape)) for g, d in init_params.items()
               for k, t in d.items()]
     init = torch.cat([init_params[g][k].reshape(-1).float()
                       for g, k, _ in layout])
-    d2 = torch.cat([deltas[g][k].reshape(K, -1).float()
+    d2 = torch.cat([deltas[g][k].reshape(K, -1).to(dtype)
                     for g, k, _ in layout], dim=1)
     return init, d2, layout
 
@@ -142,21 +195,30 @@ def unflatten(out: torch.Tensor, layout) -> dict:
 
 
 def reconstruct_flat(masks: torch.Tensor, init: torch.Tensor, d2: torch.Tensor,
-                     weights: torch.Tensor) -> torch.Tensor:
+                     weights: torch.Tensor, precision: str = "fp32") -> torch.Tensor:
     """[B, D] reconstructed flat parameters of B coalitions (masks [B, P])
-    from an already flattened stream (init [D], d2 [K, D], weights [R, P])."""
+    from an already flattened stream (init [D] float32, d2 [K, D] in
+    `stream_dtype(precision)`, weights [R, P]), in one fused contraction.
+    float32 under fp32 and mixed; under bf16 the round weights are cast to
+    bf16, the contraction sums in fp32 and the result is cast to bf16."""
     B = masks.shape[0]
-    wn2 = normalized_round_weights(masks, weights).reshape(B, -1).contiguous()
-    return fused_contract(wn2, d2, init)
+    wn2 = normalized_round_weights(masks, weights).reshape(B, -1)
+    if precision != "bf16":
+        return fused_contract(wn2.contiguous(), d2, init)
+    wn2 = wn2.to(torch.bfloat16).contiguous()
+    return fused_contract_bf16(wn2, d2, init).to(torch.bfloat16)
 
 
 def reconstruct_batch(masks: torch.Tensor, init_params: dict, deltas: dict,
-                      weights: torch.Tensor) -> dict:
+                      weights: torch.Tensor, precision: str = "fp32") -> dict:
     """Reconstruct a batch of coalition models in one fused pass.
 
     masks [B, P] float; init_params a parameter dict; deltas the same dict
     with leaves [R, P, ...]; weights [R, P]. Returns the reconstructed
-    parameter dict with a leading batch axis [B, ...] (float32)."""
+    parameter dict with a leading batch axis [B, ...]: float32 leaves, bf16
+    under `precision="bf16"`."""
     R, P = weights.shape
-    init, d2, layout = flatten_stream(init_params, deltas, R * P)
-    return unflatten(reconstruct_flat(masks, init, d2, weights), layout)
+    init, d2, layout = flatten_stream(init_params, deltas, R * P,
+                                      stream_dtype(precision))
+    return unflatten(reconstruct_flat(masks, init, d2, weights, precision),
+                     layout)

@@ -1,4 +1,4 @@
-"""K1 on the card: the CUDA kernel against its plain version.
+"""K1 and K1-bf16 on the card: each CUDA kernel against its plain version.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -15,7 +15,8 @@ from mplc_tpu_torch.ops import recon_kernel as trk
 pytestmark = pytest.mark.cuda
 
 # K1's contract, from the JAX package's kernel tests: the same fp32 sum in
-# another association
+# another association. K1-bf16 is held to the same: its bf16 x bf16
+# products are exact in fp32, so only the order of the fp32 sum differs
 RTOL, ATOL = 1e-4, 1e-5
 
 
@@ -60,3 +61,40 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         trk.fused_contract(wn2, d2, init[:-1])
     with pytest.raises(ValueError, match="CUDA"):
         trk.fused_contract(wn2, d2.cpu(), init)
+
+
+def _inputs_bf16(B, K, D, seed, device):
+    wn2, d2, init = _inputs(B, K, D, seed, device)
+    return wn2.to(torch.bfloat16), d2.to(torch.bfloat16), init
+
+
+# as for K1, plus an odd D (the kernel's one-value-at-a-time path) and a
+# K that is a whole number of staged steps
+@pytest.mark.parametrize("B,K,D", [(5, 12, 22), (70, 13, 129), (64, 200, 40000),
+                                   (1, 1, 1), (64, 64, 40001)])
+def test_bf16_kernel_matches_plain_version(cuda, B, K, D):
+    wn2, d2, init = _inputs_bf16(B, K, D, B + K, cuda)
+    before, before_f32 = trk.launches_bf16, trk.launches
+    got = trk.fused_contract_bf16(wn2, d2, init)
+    torch.cuda.synchronize()
+    assert trk.launches_bf16 == before + 1 and trk.launches == before_f32
+    assert got.dtype == torch.float32 and got.shape == (B, D)
+    ref = trk.fused_contract_bf16_reference(wn2, d2, init)
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got[0], init)     # bit-exact pass-through
+
+
+def test_bf16_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    wn2, d2, init = _inputs_bf16(4, 6, 10, 0, cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        trk.fused_contract_bf16(wn2.float(), d2, init)
+    with pytest.raises(ValueError, match="bfloat16"):
+        trk.fused_contract_bf16(wn2, d2.float(), init)
+    with pytest.raises(ValueError, match="float32"):
+        trk.fused_contract_bf16(wn2, d2, init.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        trk.fused_contract_bf16(wn2, d2.t().contiguous().t(), init)
+    with pytest.raises(ValueError, match="shape"):
+        trk.fused_contract_bf16(wn2, d2, init[:-1])
+    with pytest.raises(ValueError, match="CUDA"):
+        trk.fused_contract_bf16(wn2, d2.cpu(), init)

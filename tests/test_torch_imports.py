@@ -24,7 +24,12 @@ def _imported_modules(path: Path):
 
 def test_port_files_found():
     assert len(FILES) > 20
-    assert (REPO / "mplc_tpu_torch" / "csrc" / "recon_matmul.cu").exists()
+    for name in ("recon_matmul.cu", "recon_matmul_bf16.cu"):
+        assert (REPO / "mplc_tpu_torch" / "csrc" / name).exists()
+    # the modules the scan below must cover, the precision slice's included
+    for module in ("obs/numerics.py", "ops/recon_kernel.py", "constants.py",
+                   "contrib/reconstruct.py", "models/zoo.py", "mpl/engine.py"):
+        assert REPO / "mplc_tpu_torch" / module in FILES, module
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
