@@ -20,7 +20,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
 5. stages: the slice's fit (warm) / record / reconstruct / evaluate
    seconds, each stage synchronized on its own;
 6. kernels: each kernel on the main path's own inputs against its plain
-   PyTorch version, plus an odd-shaped input; times from CUDA events;
+   PyTorch version (K1 at the batch widths B = 64, 32 and 16, one for
+   each of its coalition tiles), plus odd shapes, and K1 on
+   standard-normal inputs against the exact sum; times from CUDA events;
 7. precision: the main path again under MPLC_TORCH_PRECISION=bf16 (bf16
    model compute, reconstruction through K1-bf16; its launch counts reset
    just before and read just after), its values held against the fp32
@@ -61,11 +63,11 @@ from mplc_tpu_torch.ops import cuda_build, recon_kernel  # noqa: E402
 from mplc_tpu_torch.scenario import Scenario  # noqa: E402
 
 # Published peaks per card (NVIDIA data sheets, dense): fp32 outside the
-# tensor cores and bf16 on the tensor cores (FLOP/s), device-memory
+# tensor cores, bf16 and TF32 on the tensor cores (FLOP/s), device-memory
 # bandwidth (bytes/s).
-PEAKS = {"H100 PCIe": (51e12, 756e12, 2.0e12),
-         "H100 NVL": (60e12, 835e12, 3.9e12),
-         "H100": (67e12, 989e12, 3.35e12)}
+PEAKS = {"H100 PCIe": {"fp32": 51e12, "bf16": 756e12, "tf32": 378e12, "bytes": 2.0e12},
+         "H100 NVL": {"fp32": 60e12, "bf16": 835e12, "tf32": 417.5e12, "bytes": 3.9e12},
+         "H100": {"fp32": 67e12, "bf16": 989e12, "tf32": 494.7e12, "bytes": 3.35e12}}
 
 # Tolerance of each kernel against its plain version: the same fp32 sum in
 # another association (the JAX package's kernel contract,
@@ -99,27 +101,31 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def peaks_for(name: str) -> tuple[float, float, float]:
-    for key, peaks in PEAKS.items():
-        if key in name:
-            return peaks
-    raise PhaseFailed(f"no published peaks for card {name!r}")
-
-
-def cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
-    """Median milliseconds of `fn` over `reps` runs, CUDA events around each."""
+def cuda_ms(fn, runs: int = 5, calls: int = 10, warmup: int = 3) -> float:
+    """Milliseconds per call of `fn`: the median over `runs` runs of `calls`
+    back-to-back calls, CUDA events around each run (the host enqueues
+    ahead of the card, so its per-call overhead hides as it does on the
+    main path)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def peaks_for(name: str) -> dict:
+    for key, peaks in PEAKS.items():
+        if key in name:
+            return peaks
+    raise PhaseFailed(f"no published peaks for card {name!r}")
 
 
 @contextlib.contextmanager
@@ -154,6 +160,7 @@ def phase_slice(precision: str = "fp32") -> dict:
     tag = "slice" if precision == "fp32" else f"slice {precision}"
     kernel = recon_kernel.KERNEL_BF16 if precision == "bf16" else recon_kernel.KERNEL
     recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    recon_kernel.launch_widths = {}
     t0 = time.perf_counter()
     with precision_env(precision):
         sc = mnist_scenario(["GTG-Shapley"])
@@ -165,6 +172,7 @@ def phase_slice(precision: str = "fp32") -> dict:
     wall = time.perf_counter() - t0
     launches = {recon_kernel.KERNEL: recon_kernel.launches,
                 recon_kernel.KERNEL_BF16: recon_kernel.launches_bf16}
+    widths = dict(sorted(recon_kernel.launch_widths.items()))
 
     recon = exact._reconstructor()
     values = np.array([recon.values[s] for s in powerset_order(PARTNERS)])
@@ -177,6 +185,7 @@ def phase_slice(precision: str = "fp32") -> dict:
     print(f"[{tag}] exact (reconstructed) {np.round(sv, 4).tolist()} "
           f"({exact.computation_time_sec:.2f} s)")
     print(f"[{tag}] main path {wall:.2f} s; launches {json.dumps(launches)}; "
+          f"{recon_kernel.KERNEL} launches by batch width {json.dumps(widths)}; "
           f"{recon.reconstructions} coalitions reconstructed; recording "
           f"{json.dumps(recon.recorded.describe())}")
     check(recon.precision == precision,
@@ -210,7 +219,8 @@ def phase_slice(precision: str = "fp32") -> dict:
           f"max abs err {err:.3g} (bound {bound:.3g})")
     check(err <= bound, "reconstructed grand coalition differs from the "
                         "recording run's final params")
-    return {"launches": launches[kernel], "recon": recon, "values": values}
+    return {"launches": launches[kernel], "widths": widths, "recon": recon,
+            "values": values}
 
 
 def titanic_recording(device: str, epochs: int, precision: str) -> tuple:
@@ -373,27 +383,31 @@ def phase_value_pair(fp32_values: np.ndarray, bf16_values: np.ndarray) -> dict:
     return pair
 
 
-# per kernel: wrapper, plain version, source, operand peak index in PEAKS,
-# and the yardstick: one PyTorch call computing the same function (timed
-# here only; the port never calls it)
+# per kernel: wrapper, plain version, source, how the card can at best do
+# its operations (peak in PEAKS, operations per FLOP of the product), and
+# the yardstick: one PyTorch call computing the same function (timed here
+# only; the port never calls it). K1's fp32-accurate product at its least
+# cost is 3xTF32 on the tensor cores: three TF32 products per product
 KERNEL_TABLE = {
     recon_kernel.KERNEL: (
         recon_kernel.fused_contract, recon_kernel.fused_contract_reference,
-        "mplc_tpu_torch/csrc/recon_matmul.cu", 0, "torch.addmm",
+        "mplc_tpu_torch/csrc/recon_matmul.cu", ("tf32", 3), "torch.addmm",
         lambda wn2, d2, init: torch.addmm(init.reshape(1, -1), wn2, d2)),
     recon_kernel.KERNEL_BF16: (
         recon_kernel.fused_contract_bf16, recon_kernel.fused_contract_bf16_reference,
-        "mplc_tpu_torch/csrc/recon_matmul_bf16.cu", 1,
+        "mplc_tpu_torch/csrc/recon_matmul_bf16.cu", ("bf16", 1),
         "torch.addmm(out_dtype=float32)",
         lambda wn2, d2, init: torch.addmm(init.reshape(1, -1), wn2, d2,
                                           out_dtype=torch.float32)),
 }
 
 
-def kernel_entry(name: str, wn2, d2, init, launches, card) -> dict:
-    fn, plain, source, peak_index, label, library = KERNEL_TABLE[name]
+def kernel_entry(name: str, wn2, d2, init, launches, card, timed: bool = True) -> dict:
+    """`name`'s kernel on these inputs against its plain version (rtol/atol,
+    zero-weight rows bit-exact); with `timed`, its time, the plain
+    version's, the library call's and the bound."""
+    fn, plain, source, (peak, passes), label, library = KERNEL_TABLE[name]
     peaks = peaks_for(card)
-    op_peak, bandwidth = peaks[peak_index], peaks[2]
     B, K = wn2.shape
     D = d2.shape[1]
     got = fn(wn2, d2, init)
@@ -401,66 +415,122 @@ def kernel_entry(name: str, wn2, d2, init, launches, card) -> dict:
     ref = plain(wn2, d2, init)
     err = (got - ref).abs().max().item()
     check(torch.allclose(got, ref, rtol=RTOL, atol=ATOL),
-          f"{name} disagrees with its plain version (max abs err {err})")
+          f"{name} {(B, K, D)} disagrees with its plain version (max abs err {err})")
     zero = (wn2 == 0).all(dim=1)
     check(bool(zero.any()), "no zero-weight row in the kernel's inputs")
     check(torch.equal(got[zero], init.reshape(1, -1).expand(int(zero.sum()), -1)),
           "a zero-weight coalition does not return init bit-exactly")
+    entry = {"name": name, "max_abs_err": err, "shape": {"B": B, "K": K, "D": D}}
+    if not timed:
+        return entry
     flops = 2 * B * K * D
     nbytes = (wn2.element_size() * B * K + d2.element_size() * K * D
               + init.element_size() * D + got.element_size() * B * D)
-    t_ops, t_bytes = flops / op_peak * 1e3, nbytes / bandwidth * 1e3
+    t_ops = passes * flops / peaks[peak] * 1e3
+    t_bytes = nbytes / peaks["bytes"] * 1e3
     ms = cuda_ms(lambda: fn(wn2, d2, init))
     return {
-        "name": name, "route": "cuda", "source": source,
+        **entry, "route": "cuda", "source": source,
         "replaces": "mplc_tpu/ops/recon_kernel.py:130",
-        "launches": launches, "max_abs_err": err,
-        "ms": ms, "kernel_ms": ms,
+        "launches": launches, "ms": ms, "kernel_ms": ms,
         "plain_ms": cuda_ms(lambda: plain(wn2, d2, init)),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": cuda_ms(lambda: library(wn2, d2, init)), "library": label,
-        "shape": {"B": B, "K": K, "D": D}, "flops": flops, "bytes": nbytes,
+        "flops": flops, "bytes": nbytes,
     }
 
 
-def odd_inputs(name: str):
-    """B=5, K=12, D=22 (ragged on every axis), row 0 of weight zero."""
-    g = np.random.default_rng(0)
+def odd_inputs(name: str, D: int = 22):
+    """B=5, K=12 and D (ragged on every axis), row 0 of weight zero."""
+    g = np.random.default_rng(D)
     odd_wn = g.random((5, 12)).astype(np.float32)
     odd_wn[0] = 0.0
     wn2, d2, init = (torch.from_numpy(a).to(DEVICE) for a in (
-        odd_wn, g.standard_normal((12, 22)).astype(np.float32),
-        g.standard_normal(22).astype(np.float32)))
+        odd_wn, g.standard_normal((12, D)).astype(np.float32),
+        g.standard_normal(D).astype(np.float32)))
     if name == recon_kernel.KERNEL_BF16:
         wn2, d2 = wn2.to(torch.bfloat16), d2.to(torch.bfloat16)
     return wn2, d2, init
 
 
-def phase_kernels(recon, launches, card) -> list:
-    """The kernel of `recon`'s precision on the main path's own inputs: the
-    recorded stream and a batch of 64 coalitions (the first 63 of the
-    powerset and the empty coalition, whose weights are all zero). Then an
-    odd shape (B=5, K=12, D=22)."""
+def exact_check(B: int, K: int, D: int) -> None:
+    """K1 on standard-normal inputs at the main path's depth and width,
+    held against the exact (float64) sum: no farther from it than the
+    plain fp32 product is (or ATOL, where that one is nearly exact). The
+    main path's own inputs (round weights summing to 1, deltas near 1e-3)
+    would pass one TF32 product, or MMAs chained over all of K, within the
+    tolerance; these inputs do not (tests/test_torch_recon_kernel.py
+    emulates both). Against the plain version at rtol/atol these inputs
+    sit at the tolerance's edge, through the plain version's own error, so
+    that reading is printed, not gated."""
+    gen = torch.Generator(device=DEVICE).manual_seed(B)
+    wn2 = torch.rand(B, K, device=DEVICE, generator=gen)
+    wn2[0] = 0.0
+    d2 = torch.randn(K, D, device=DEVICE, generator=gen)
+    init = torch.randn(D, device=DEVICE, generator=gen)
+    got = recon_kernel.fused_contract(wn2, d2, init)
+    ref = recon_kernel.fused_contract_reference(wn2, d2, init)
+    exact = torch.addmm(init.double().reshape(1, -1), wn2.double(), d2.double())
+    err, err_plain = ((t.double() - exact).abs().max().item() for t in (got, ref))
+    worst = ((got - ref).abs() / (ATOL + RTOL * ref.abs())).max().item()
+    print(f"[kernels] {recon_kernel.KERNEL} standard normal {(B, K, D)}: max abs err "
+          f"from the exact sum {err:.3g} (plain version {err_plain:.3g}); against "
+          f"the plain version {worst:.3f} of the tolerance")
+    check(err <= max(err_plain, ATOL),
+          f"{recon_kernel.KERNEL} {(B, K, D)} is farther from the exact sum than "
+          f"the plain version")
+    check(torch.equal(got[0], init), "a zero-weight coalition does not return init "
+                                     "bit-exactly")
+
+
+def phase_kernels(sl, card) -> list:
+    """The kernel of the slice's precision on the main path's own inputs:
+    the recorded stream and a batch of 64 coalitions (the first 63 of the
+    powerset and the empty coalition, whose weights are all zero); for K1
+    also batches of 32 and 16 (the first 31 or 15 and the empty one), one
+    for each of its coalition tiles (16 is the width of GTG's wavefront).
+    Then odd shapes (B=5, K=12, D=22; for K1 also D=23), and for K1 each
+    width on standard-normal inputs against the exact sum."""
+    recon = sl["recon"]
     name = (recon_kernel.KERNEL_BF16 if recon.precision == "bf16"
             else recon_kernel.KERNEL)
-    subsets = powerset_order(PARTNERS)[:63] + [()]
-    masks = torch.from_numpy(recon.engine._coalition_arrays(subsets)).to(DEVICE)
-    wn = recon_kernel.normalized_round_weights(masks, recon._weights)
-    sums = wn.sum(-1)
-    denom = (recon._weights[None] * masks[:, None]).sum(-1)
-    check(bool((wn[denom == 0] == 0).all()), "WN rows with zero denominator are not exact zeros")
-    check(torch.allclose(sums[denom > 0], torch.ones_like(sums[denom > 0]), rtol=1e-6),
-          "WN rows do not sum to 1")
-    wn2 = wn.reshape(64, -1).to(recon._d2.dtype).contiguous()
-    entry = kernel_entry(name, wn2, recon._d2, recon._init, launches, card)
-    odd = kernel_entry(name, *odd_inputs(name), launches, card)
-    print(f"[kernels] {name} odd shape B=5 K=12 D=22: max abs err {odd['max_abs_err']:.3g}")
-    for e in (entry, odd):
-        print(f"[kernels] {name} {e['shape']}: {e['ms']:.4f} ms "
+    widths = (64,) if name == recon_kernel.KERNEL_BF16 else (64, 32, 16)
+    entries = []
+    for B in widths:
+        subsets = powerset_order(PARTNERS)[:B - 1] + [()]
+        masks = torch.from_numpy(recon.engine._coalition_arrays(subsets)).to(DEVICE)
+        wn = recon_kernel.normalized_round_weights(masks, recon._weights)
+        sums = wn.sum(-1)
+        denom = (recon._weights[None] * masks[:, None]).sum(-1)
+        check(bool((wn[denom == 0] == 0).all()),
+              "WN rows with zero denominator are not exact zeros")
+        check(torch.allclose(sums[denom > 0], torch.ones_like(sums[denom > 0]), rtol=1e-6),
+              "WN rows do not sum to 1")
+        wn2 = wn.reshape(B, -1).to(recon._d2.dtype).contiguous()
+        # the 64-wide entry carries all the kernel's launches, a narrower
+        # one those of batches up to its width
+        launches = (sl["launches"] if B == 64 else
+                    sum(n for w, n in sl["widths"].items() if w <= B))
+        entry = kernel_entry(name, wn2, recon._d2, recon._init, launches, card)
+        if B != 64:
+            entry["name"] = f"{name}[B={B}]"
+        if name == recon_kernel.KERNEL:
+            entry["launch_widths"] = sl["widths"]
+        entries.append(entry)
+    for D in (22, 23) if name == recon_kernel.KERNEL else (22,):
+        odd = kernel_entry(name, *odd_inputs(name, D), 0, card, timed=False)
+        print(f"[kernels] {name} odd shape {odd['shape']}: max abs err "
+              f"{odd['max_abs_err']:.3g}")
+    for e in entries:
+        print(f"[kernels] {e['name']} {e['shape']}: {e['ms']:.4f} ms "
               f"(plain {e['plain_ms']:.4f}, {e['library']} {e['library_ms']:.4f}, "
-              f"bound {e['bound_ms']:.4f} by {e['bound_by']})")
-    return [entry]
+              f"bound {e['bound_ms']:.4f} by {e['bound_by']}), "
+              f"{e['launches']} launches")
+    if name == recon_kernel.KERNEL:
+        for B in widths:
+            exact_check(B, *recon._d2.shape)
+    return entries
 
 
 def phase_precision(fp32_values: np.ndarray, card) -> list:
@@ -472,7 +542,7 @@ def phase_precision(fp32_values: np.ndarray, card) -> list:
     phase_reference_mixed()
     phase_model_bf16(sl["recon"])
     phase_stages(sl["recon"], tag="stages bf16")
-    return phase_kernels(sl["recon"], sl["launches"], card)
+    return phase_kernels(sl, card)
 
 
 def main() -> int:
@@ -492,7 +562,7 @@ def main() -> int:
     sl = phase_slice()
     phase_reference()
     phase_stages(sl["recon"])
-    kernels = phase_kernels(sl["recon"], sl["launches"], card)
+    kernels = phase_kernels(sl, card)
     kernels += phase_precision(sl["values"], card)
 
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")

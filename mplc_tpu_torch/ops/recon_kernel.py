@@ -27,14 +27,18 @@ instantiation under `precision="bf16"`, on the card the kernel
 so its plain version upcasts both operands and does one fp32 product.
 
 Numerics: each kernel sums in fp32 in another association than its plain
-version, so the two agree to rtol 1e-4 / atol 1e-5, not bit for bit. A
-coalition whose every round has zero surviving weight reproduces `init`
-bit-exactly on both (its WN rows are exact zeros, in bf16 too).
+version, so the two agree to rtol 1e-4 / atol 1e-5, not bit for bit. K1
+forms its products on the tensor cores from TF32 pieces (3xTF32) and sums
+them with compensation, which keeps it nearer the exact sum than the plain
+fp32 product. A coalition whose every round has zero surviving weight
+reproduces `init` bit-exactly on both (its WN rows are exact zeros, in
+bf16 too).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,9 +49,11 @@ KERNEL_BF16 = "recon_matmul_bf16"
 KERNELS = (KERNEL, KERNEL_BF16)
 
 # Launches of each CUDA kernel in this process (plain counts; a run resets
-# them to 0 to see which kernels its main path went through).
+# them to 0 to see which kernels its main path went through), and K1's
+# launches by batch width B (reset with them, to {}).
 launches = 0
 launches_bf16 = 0
+launch_widths: dict[int, int] = {}
 
 
 def normalized_round_weights(masks: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -73,7 +79,9 @@ def fused_contract_bf16_reference(wn2: torch.Tensor, d2: torch.Tensor,
     return init.reshape(1, -1) + wn2.float() @ d2.float()
 
 
+@functools.cache
 def _kernel_fn(name: str, symbol: str):
+    """`symbol` of `name`'s library, bound once per process."""
     fn = getattr(cuda_build.load(name), symbol)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_longlong, ctypes.c_void_p]
@@ -125,6 +133,8 @@ def _launch(wn2: torch.Tensor, d2: torch.Tensor, init: torch.Tensor) -> torch.Te
     global launches
     out = _launch_checked(KERNEL, "recon_matmul_f32", wn2, d2, init, torch.float32)
     launches += 1
+    B = wn2.shape[0]
+    launch_widths[B] = launch_widths.get(B, 0) + 1
     return out
 
 

@@ -37,18 +37,47 @@ def _inputs(B, K, D, seed, device):
 
 
 # the odd fixture shape, ragged edges on every axis, more than one B tile,
-# and a slice of the main path's width
+# a slice of the main path's width at B = 64, 32 and 16 (four, two and one
+# m16 fragments a block), and an odd D (4-byte copies of d). The inputs
+# are standard normal: on them one TF32 product instead of K1's three, or
+# MMAs chained over all of K = 200, lands farther from the exact sum than
+# the plain fp32 product (tests/test_torch_recon_kernel.py emulates both)
 @pytest.mark.parametrize("B,K,D", [(5, 12, 22), (70, 13, 129), (64, 200, 40000),
-                                   (1, 1, 1)])
+                                   (1, 1, 1), (16, 200, 40000), (64, 200, 40001),
+                                   (32, 200, 40000)])
 def test_kernel_matches_plain_version(cuda, B, K, D):
     wn2, d2, init = _inputs(B, K, D, B + K, cuda)
-    before = trk.launches
+    before, widths = trk.launches, dict(trk.launch_widths)
     got = trk.fused_contract(wn2, d2, init)
     torch.cuda.synchronize()
     assert trk.launches == before + 1
+    assert trk.launch_widths[B] == widths.get(B, 0) + 1
     ref = trk.fused_contract_reference(wn2, d2, init)
     torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
     assert torch.equal(got[0], init)     # bit-exact pass-through
+    # K1 no farther from the exact (float64) sum than the plain fp32
+    # product, or ATOL where that one is nearly exact: at K = 200 K1 lands
+    # about 4x nearer, a chained or one-product kernel 3x to 400x farther
+    exact = torch.addmm(init.double().reshape(1, -1), wn2.double(), d2.double())
+    err, err_plain = ((t.double() - exact).abs().max().item() for t in (got, ref))
+    assert err <= max(err_plain, ATOL)
+
+
+def test_kernel_takes_a_view_that_is_only_4_byte_aligned(cuda):
+    """d2 a contiguous view whose base pointer is 4 bytes past an 8-byte
+    boundary, with D even: the kernel must see the pointer, not just D,
+    and copy d in 4-byte pieces."""
+    B, K, D = 16, 200, 40000
+    wn2, d2, init = _inputs(B, K, D, 3, cuda)
+    flat = torch.empty(K * D + 1, device=cuda)
+    view = flat[1:].view(K, D)
+    view.copy_(d2)
+    assert view.is_contiguous() and view.data_ptr() % 8 == 4
+    got = trk.fused_contract(wn2, view, init)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, trk.fused_contract_reference(wn2, d2, init),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(got[0], init)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

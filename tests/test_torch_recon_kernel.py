@@ -86,14 +86,14 @@ def test_kernel_route_raises_without_the_card():
     wrapper raises and never runs the plain version."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the kernel would launch")
-    launches = trk.launches
+    launches, widths = trk.launches, dict(trk.launch_widths)
     meta = [torch.empty(s, device="meta") for s in ((3, 4), (4, 7), (7,))]
     with pytest.raises(ValueError, match="CUDA"):
         trk.fused_contract(*meta)
     cpu = [torch.zeros(s) for s in ((3, 4), (4, 7), (7,))]
     with pytest.raises(ValueError, match="CUDA"):
         trk._launch(*cpu)
-    assert trk.launches == launches
+    assert trk.launches == launches and trk.launch_widths == widths
 
 
 # ---------------------------------------------------------------------------
@@ -182,3 +182,133 @@ def test_flatten_stream_in_the_stream_dtype():
     assert flat_init.dtype == torch.float32 and d2.dtype == torch.bfloat16
     _, d32, _ = trk.flatten_stream(_t(init), _t(deltas), R * P)
     assert torch.equal(d2, d32.to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# K1's numerical design (3xTF32 on the tensor cores), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _tf32(x, nearest=True):
+    """fp32 rounded to TF32 (10 mantissa bits): to nearest, ties away from
+    zero, as `cvt.rna.tf32.f32` does; else toward zero, as the tensor cores
+    read an fp32 operand."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    if nearest:
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    """K1's split: hi the nearest TF32 value, lo = x - hi as the tensor
+    cores read it."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi, nearest=False)
+
+
+def _rz(v):
+    """float64 to float32, rounded toward zero: how the tensor cores round
+    the sum of an MMA's exact products and its accumulator input."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _tf32_contract(wn2, d2, init, passes, fresh=True):
+    """init + wn2 @ d2 as K1 forms it on the tensor cores: per k8 step,
+    `passes` TF32 products (3: a_lo*b_hi, a_hi*b_lo, a_hi*b_hi, in that
+    order; 1: a_hi*b_hi alone), each MMA rounding its sum toward zero.
+    `fresh` (K1): every step's MMAs start from the error carried by a
+    compensated (Kahan) sum, not from the accumulator, and the step's sum
+    joins the fp32 accumulator in a compensated add; else the MMAs chain
+    through one accumulator over all of K."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split(wn2), _split(d2)
+    terms = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)) if passes == 3 else ((a_hi, b_hi),)
+    acc = np.zeros((wn2.shape[0], d2.shape[1]), np.float32)
+    err = np.zeros_like(acc)
+    for k0 in range(0, wn2.shape[1], 8):
+        k = slice(k0, k0 + 8)
+        part = err if fresh else acc
+        for a, b in terms:
+            part = _rz(part.astype(np.float64)
+                       + a[:, k].astype(np.float64) @ b[k].astype(np.float64))
+        if fresh:
+            s = acc + part
+            err, acc = part - (s - acc), s
+        else:
+            acc = part
+    return init[None, :] + (acc + err)
+
+
+def _normal_inputs(B, K, D, seed):
+    """tests/test_torch_cuda.py's inputs: uniform weights with a zero row,
+    standard-normal deltas and init."""
+    rng = np.random.default_rng(seed)
+    wn2 = rng.random((B, K)).astype(np.float32)
+    wn2[0] = 0.0
+    return (wn2, rng.standard_normal((K, D)).astype(np.float32),
+            rng.standard_normal(D).astype(np.float32))
+
+
+def _stream_inputs(B, R, P, D, seed):
+    """Inputs like the recorded stream: round weights renormalized over
+    random coalitions (each round's row sums to 1; coalition 0 is empty,
+    so its row is zero), deltas around 1e-3, init around N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    masks = (rng.random((B, P)) < 0.5).astype(np.float32)
+    masks[0] = 0.0
+    weights = rng.random((R, P)).astype(np.float32)
+    wn2 = trk.normalized_round_weights(torch.from_numpy(masks),
+                                       torch.from_numpy(weights)).reshape(B, -1).numpy()
+    return (wn2, (1e-3 * rng.standard_normal((R * P, D))).astype(np.float32),
+            (0.1 * rng.standard_normal(D)).astype(np.float32))
+
+
+# (inputs, shape, one TF32 product fails, MMAs chained over all of K fail)
+@pytest.mark.parametrize("inputs,shape,one_fails,chained_fails", [
+    ("normal", (64, 200, 4000), True, True), ("normal", (32, 200, 4000), True, True),
+    ("normal", (5, 12, 22), True, False),
+    ("stream", (64, 20, 10, 4000), False, False), ("stream", (5, 4, 3, 22), False, False)])
+def test_3xtf32_design_holds_the_kernel_tolerance(inputs, shape, one_fails, chained_fails):
+    """K1 forms its products on the tensor cores in 3xTF32; each k8 step's
+    MMAs start from the error carried by a compensated (Kahan) sum, and the
+    step's sum joins the accumulator in a compensated add. Emulated here,
+    that design stays within the kernel's tolerance against the plain fp32
+    version (rtol 1e-4 / atol 1e-5, the same fp32 sum reassociated) on
+    both input sets, the zero-weight row returns init bit-exactly, and on
+    the standard-normal set it lands nearer the exact (float64) sum than
+    the plain version does. Two designs it rejects break the tolerance on
+    the standard-normal set: one TF32 product alone (about 3 decimal
+    digits), and, at the main path's depth K = 200, MMAs that chain their
+    round-toward-zero sums through one accumulator (the error then grows
+    with the accumulator, not with the terms); both land farther from the
+    exact sum than the plain version there. On the main path's own kind of
+    inputs (weights summing to 1 per round, deltas near 1e-3) both pass,
+    so those inputs alone cannot tell them apart. This test checks the
+    design, not the kernel: only the `cuda`-marked tests
+    (tests/test_torch_cuda.py) and chip_smoke.py check the kernel's own
+    arithmetic, on standard-normal inputs."""
+    make = _normal_inputs if inputs == "normal" else _stream_inputs
+    wn2, d2, init = make(*shape, seed=sum(shape))
+    ref = trk.fused_contract_reference(*(torch.from_numpy(a) for a in (wn2, d2, init)))
+    ref = ref.numpy()
+
+    def within(got):
+        return bool(np.all(np.abs(got - ref) <= 1e-5 + 1e-4 * np.abs(ref)))
+
+    got = _tf32_contract(wn2, d2, init, passes=3)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got[0], init)
+    one = _tf32_contract(wn2, d2, init, passes=1)
+    chained = _tf32_contract(wn2, d2, init, passes=3, fresh=False)
+    assert within(one) != one_fails
+    assert within(chained) != chained_fails
+    if inputs == "normal":
+        # the card's check: no farther from the exact sum than the plain
+        # version, or atol where that one is nearly exact
+        exact = init.astype(np.float64)[None] + wn2.astype(np.float64) @ d2.astype(np.float64)
+        limit = max(np.abs(ref - exact).max(), 1e-5)
+        assert np.abs(got - exact).max() <= limit
+        assert np.abs(one - exact).max() > limit
+        assert (np.abs(chained - exact).max() > limit) == chained_fails
