@@ -30,7 +30,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
    the card against the CPU, and the MNIST CNN's bf16 logits on the card
    against the CPU, each with an fp32 control that must fail its limit;
    the bf16 stages; K1-bf16 against its plain version on the bf16 path's
-   own inputs and on an odd shape.
+   own inputs at the batch widths B = 64, 32 and 16 and on odd shapes, and
+   on standard-normal inputs against its plain version (the distance from
+   the exact sum printed beside the plain version's).
 
 The line before the last two is `{"kernels": [...]}`; then the card's
 `nvidia-smi` name and power limit; the last line is
@@ -161,6 +163,7 @@ def phase_slice(precision: str = "fp32") -> dict:
     kernel = recon_kernel.KERNEL_BF16 if precision == "bf16" else recon_kernel.KERNEL
     recon_kernel.launches = recon_kernel.launches_bf16 = 0
     recon_kernel.launch_widths = {}
+    recon_kernel.launch_widths_bf16 = {}
     t0 = time.perf_counter()
     with precision_env(precision):
         sc = mnist_scenario(["GTG-Shapley"])
@@ -172,7 +175,8 @@ def phase_slice(precision: str = "fp32") -> dict:
     wall = time.perf_counter() - t0
     launches = {recon_kernel.KERNEL: recon_kernel.launches,
                 recon_kernel.KERNEL_BF16: recon_kernel.launches_bf16}
-    widths = dict(sorted(recon_kernel.launch_widths.items()))
+    widths = dict(sorted((recon_kernel.launch_widths_bf16 if precision == "bf16"
+                          else recon_kernel.launch_widths).items()))
 
     recon = exact._reconstructor()
     values = np.array([recon.values[s] for s in powerset_order(PARTNERS)])
@@ -185,7 +189,7 @@ def phase_slice(precision: str = "fp32") -> dict:
     print(f"[{tag}] exact (reconstructed) {np.round(sv, 4).tolist()} "
           f"({exact.computation_time_sec:.2f} s)")
     print(f"[{tag}] main path {wall:.2f} s; launches {json.dumps(launches)}; "
-          f"{recon_kernel.KERNEL} launches by batch width {json.dumps(widths)}; "
+          f"{kernel} launches by batch width {json.dumps(widths)}; "
           f"{recon.reconstructions} coalitions reconstructed; recording "
           f"{json.dumps(recon.recorded.describe())}")
     check(recon.precision == precision,
@@ -454,48 +458,61 @@ def odd_inputs(name: str, D: int = 22):
     return wn2, d2, init
 
 
-def exact_check(B: int, K: int, D: int) -> None:
-    """K1 on standard-normal inputs at the main path's depth and width,
-    held against the exact (float64) sum: no farther from it than the
-    plain fp32 product is (or ATOL, where that one is nearly exact). The
-    main path's own inputs (round weights summing to 1, deltas near 1e-3)
-    would pass one TF32 product, or MMAs chained over all of K, within the
-    tolerance; these inputs do not (tests/test_torch_recon_kernel.py
+def normal_check(name: str, B: int, K: int, D: int) -> None:
+    """`name`'s kernel on standard-normal inputs at the main path's depth
+    and width, beside the exact (float64) sum and the plain version.
+
+    K1 (uniform weights) is held against the exact sum: no farther from it
+    than the plain fp32 product is (or ATOL, where that one is nearly
+    exact). The main path's own inputs (round weights summing to 1, deltas
+    near 1e-3) would pass one TF32 product, or MMAs chained over all of K,
+    within the tolerance; these inputs do not (tests/test_torch_recon_kernel.py
     emulates both). Against the plain version at rtol/atol these inputs
     sit at the tolerance's edge, through the plain version's own error, so
-    that reading is printed, not gated."""
+    that reading is printed, not gated.
+
+    K1-bf16 (standard-normal weights and deltas in bf16; its products are
+    exact in fp32) is held against the plain version at rtol/atol; its
+    distance from the exact sum is printed beside the plain version's."""
+    bf16 = name == recon_kernel.KERNEL_BF16
+    fn, plain = KERNEL_TABLE[name][:2]
     gen = torch.Generator(device=DEVICE).manual_seed(B)
-    wn2 = torch.rand(B, K, device=DEVICE, generator=gen)
+    wn2 = (torch.randn if bf16 else torch.rand)(B, K, device=DEVICE, generator=gen)
     wn2[0] = 0.0
     d2 = torch.randn(K, D, device=DEVICE, generator=gen)
     init = torch.randn(D, device=DEVICE, generator=gen)
-    got = recon_kernel.fused_contract(wn2, d2, init)
-    ref = recon_kernel.fused_contract_reference(wn2, d2, init)
+    if bf16:
+        wn2, d2 = wn2.to(torch.bfloat16), d2.to(torch.bfloat16)
+    got = fn(wn2, d2, init)
+    ref = plain(wn2, d2, init)
     exact = torch.addmm(init.double().reshape(1, -1), wn2.double(), d2.double())
     err, err_plain = ((t.double() - exact).abs().max().item() for t in (got, ref))
     worst = ((got - ref).abs() / (ATOL + RTOL * ref.abs())).max().item()
-    print(f"[kernels] {recon_kernel.KERNEL} standard normal {(B, K, D)}: max abs err "
+    print(f"[kernels] {name} standard normal {(B, K, D)}: max abs err "
           f"from the exact sum {err:.3g} (plain version {err_plain:.3g}); against "
           f"the plain version {worst:.3f} of the tolerance")
-    check(err <= max(err_plain, ATOL),
-          f"{recon_kernel.KERNEL} {(B, K, D)} is farther from the exact sum than "
-          f"the plain version")
+    if bf16:
+        check(torch.allclose(got, ref, rtol=RTOL, atol=ATOL),
+              f"{name} {(B, K, D)} disagrees with its plain version")
+    else:
+        check(err <= max(err_plain, ATOL),
+              f"{name} {(B, K, D)} is farther from the exact sum than the plain "
+              f"version")
     check(torch.equal(got[0], init), "a zero-weight coalition does not return init "
                                      "bit-exactly")
 
 
 def phase_kernels(sl, card) -> list:
     """The kernel of the slice's precision on the main path's own inputs:
-    the recorded stream and a batch of 64 coalitions (the first 63 of the
-    powerset and the empty coalition, whose weights are all zero); for K1
-    also batches of 32 and 16 (the first 31 or 15 and the empty one), one
-    for each of its coalition tiles (16 is the width of GTG's wavefront).
-    Then odd shapes (B=5, K=12, D=22; for K1 also D=23), and for K1 each
-    width on standard-normal inputs against the exact sum."""
+    the recorded stream and batches of 64, 32 and 16 coalitions (the first
+    63, 31 or 15 of the powerset and the empty coalition, whose weights are
+    all zero), one for each coalition tile (16 is the width of GTG's
+    wavefront). Then odd shapes (B=5, K=12, D=22 and 23: the kernels'
+    narrow routes), and each width on standard-normal inputs."""
     recon = sl["recon"]
     name = (recon_kernel.KERNEL_BF16 if recon.precision == "bf16"
             else recon_kernel.KERNEL)
-    widths = (64,) if name == recon_kernel.KERNEL_BF16 else (64, 32, 16)
+    widths = (64, 32, 16)
     entries = []
     for B in widths:
         subsets = powerset_order(PARTNERS)[:B - 1] + [()]
@@ -515,10 +532,9 @@ def phase_kernels(sl, card) -> list:
         entry = kernel_entry(name, wn2, recon._d2, recon._init, launches, card)
         if B != 64:
             entry["name"] = f"{name}[B={B}]"
-        if name == recon_kernel.KERNEL:
-            entry["launch_widths"] = sl["widths"]
+        entry["launch_widths"] = sl["widths"]
         entries.append(entry)
-    for D in (22, 23) if name == recon_kernel.KERNEL else (22,):
+    for D in (22, 23):
         odd = kernel_entry(name, *odd_inputs(name, D), 0, card, timed=False)
         print(f"[kernels] {name} odd shape {odd['shape']}: max abs err "
               f"{odd['max_abs_err']:.3g}")
@@ -527,9 +543,8 @@ def phase_kernels(sl, card) -> list:
               f"(plain {e['plain_ms']:.4f}, {e['library']} {e['library_ms']:.4f}, "
               f"bound {e['bound_ms']:.4f} by {e['bound_by']}), "
               f"{e['launches']} launches")
-    if name == recon_kernel.KERNEL:
-        for B in widths:
-            exact_check(B, *recon._d2.shape)
+    for B in widths:
+        normal_check(name, B, *recon._d2.shape)
     return entries
 
 

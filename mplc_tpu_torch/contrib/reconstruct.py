@@ -82,8 +82,9 @@ def record_updates(engine) -> RecordedRun:
 class ReconstructionEvaluator:
     """Memoizing, batching v(S) over reconstructed coalition models.
 
-    The recorded stream is flattened once to K1's layout (init [D],
-    deltas [K = R*P, D], in the precision's stream dtype); each batch of up
+    The recorded stream is flattened once to K1's layout (init [Dp],
+    deltas [K = R*P, Dp], rows zero-padded to a multiple of 8 values, in
+    the precision's stream dtype); each batch of up
     to RECON_BATCH coalitions is one kernel launch followed by a vmapped
     evaluation of the batch's models on the test set. Values are
     row-independent, so the batch width never changes them."""
@@ -103,8 +104,8 @@ class ReconstructionEvaluator:
         self._weights = rec.weights.float()
 
     def reconstruct(self, masks: torch.Tensor) -> torch.Tensor:
-        """[B, D] flat parameters of the coalitions `masks` [B, P], in the
-        evaluator's precision."""
+        """[B, Dp] flat parameters of the coalitions `masks` [B, P], in the
+        evaluator's precision (the tail past the layout's D is zeros)."""
         return recon_kernel.reconstruct_flat(masks, self._init, self._d2,
                                              self._weights, self.precision)
 

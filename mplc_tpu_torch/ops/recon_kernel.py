@@ -30,9 +30,12 @@ Numerics: each kernel sums in fp32 in another association than its plain
 version, so the two agree to rtol 1e-4 / atol 1e-5, not bit for bit. K1
 forms its products on the tensor cores from TF32 pieces (3xTF32) and sums
 them with compensation, which keeps it nearer the exact sum than the plain
-fp32 product. A coalition whose every round has zero surviving weight
-reproduces `init` bit-exactly on both (its WN rows are exact zeros, in
-bf16 too).
+fp32 product; K1-bf16 sums each 32-row step's exact products from zero and
+adds the step's sum to its fp32 accumulator, which keeps it nearer too.
+The flattened stream's rows are zero-padded to a multiple of 8 values
+(`flatten_stream`), so K1-bf16 copies them in 16-byte pieces. A
+coalition whose every round has zero surviving weight reproduces `init`
+bit-exactly on both (its WN rows are exact zeros, in bf16 too).
 """
 
 from __future__ import annotations
@@ -49,11 +52,17 @@ KERNEL_BF16 = "recon_matmul_bf16"
 KERNELS = (KERNEL, KERNEL_BF16)
 
 # Launches of each CUDA kernel in this process (plain counts; a run resets
-# them to 0 to see which kernels its main path went through), and K1's
-# launches by batch width B (reset with them, to {}).
+# them to 0 to see which kernels its main path went through), and each
+# kernel's launches by batch width B (reset with them, to {}).
 launches = 0
 launches_bf16 = 0
 launch_widths: dict[int, int] = {}
+launch_widths_bf16: dict[int, int] = {}
+
+# Every row of the flattened stream is padded with zeros to a multiple of
+# this many values, so that a bf16 row is a whole number of 16-byte units
+# (K1-bf16 copies d in 16-byte pieces) and an fp32 row of 32 bytes
+ROW_ALIGN = 8
 
 
 def normalized_round_weights(masks: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -145,6 +154,8 @@ def _launch_bf16(wn2: torch.Tensor, d2: torch.Tensor, init: torch.Tensor) -> tor
     out = _launch_checked(KERNEL_BF16, "recon_matmul_bf16", wn2, d2, init,
                           torch.bfloat16)
     launches_bf16 += 1
+    B = wn2.shape[0]
+    launch_widths_bf16[B] = launch_widths_bf16.get(B, 0) + 1
     return out
 
 
@@ -178,22 +189,26 @@ def stream_dtype(precision: str) -> torch.dtype:
 
 def flatten_stream(init_params: dict, deltas: dict, K: int,
                    dtype: torch.dtype = torch.float32):
-    """(init [D] float32, d2 [K, D] in `dtype`, layout) from a parameter
+    """(init [Dp] float32, d2 [K, Dp] in `dtype`, layout) from a parameter
     dict and its recorded deltas ([R, P, ...] leaves, K = R*P): every leaf
     flattened and laid side by side, so the whole stream is one
-    contraction. `layout` lists (group, name, shape) in that order, for
-    `unflatten`."""
+    contraction, then zero columns up to Dp = D rounded up to ROW_ALIGN
+    (they reconstruct to exact zeros, which `unflatten` never reads).
+    `layout` lists (group, name, shape) in that order, for `unflatten`."""
     layout = [(g, k, tuple(t.shape)) for g, d in init_params.items()
               for k, t in d.items()]
-    init = torch.cat([init_params[g][k].reshape(-1).float()
-                      for g, k, _ in layout])
-    d2 = torch.cat([deltas[g][k].reshape(K, -1).to(dtype)
-                    for g, k, _ in layout], dim=1)
-    return init, d2, layout
+    inits = [init_params[g][k].reshape(-1).float() for g, k, _ in layout]
+    d_cols = [deltas[g][k].reshape(K, -1).to(dtype) for g, k, _ in layout]
+    pad = -sum(t.numel() for t in inits) % ROW_ALIGN
+    if pad:
+        inits.append(inits[0].new_zeros(pad))
+        d_cols.append(d_cols[0].new_zeros((K, pad)))
+    return torch.cat(inits), torch.cat(d_cols, dim=1), layout
 
 
 def unflatten(out: torch.Tensor, layout) -> dict:
-    """Per-leaf [B, *shape] views of a flat [B, D] batch of parameters."""
+    """Per-leaf [B, *shape] views of a flat [B, Dp] batch of parameters
+    (each leaf sliced at its offset; the padded tail is never read)."""
     B, off, params = out.shape[0], 0, {}
     for g, k, shape in layout:
         size = 1
@@ -206,8 +221,8 @@ def unflatten(out: torch.Tensor, layout) -> dict:
 
 def reconstruct_flat(masks: torch.Tensor, init: torch.Tensor, d2: torch.Tensor,
                      weights: torch.Tensor, precision: str = "fp32") -> torch.Tensor:
-    """[B, D] reconstructed flat parameters of B coalitions (masks [B, P])
-    from an already flattened stream (init [D] float32, d2 [K, D] in
+    """[B, Dp] reconstructed flat parameters of B coalitions (masks [B, P])
+    from an already flattened stream (init [Dp] float32, d2 [K, Dp] in
     `stream_dtype(precision)`, weights [R, P]), in one fused contraction.
     float32 under fp32 and mixed; under bf16 the round weights are cast to
     bf16, the contraction sums in fp32 and the result is cast to bf16."""

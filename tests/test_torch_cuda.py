@@ -97,20 +97,44 @@ def _inputs_bf16(B, K, D, seed, device):
     return wn2.to(torch.bfloat16), d2.to(torch.bfloat16), init
 
 
-# as for K1, plus an odd D (the kernel's one-value-at-a-time path) and a
-# K that is a whole number of staged steps
+# as for K1, plus odd D (the kernel's narrow route, 2-byte loads of d) and
+# a K that is a whole number of staged steps; at K = 200, B = 64, 32 and 16
+# (four, two and one m16 fragments a block) on both the 16-byte route (D a
+# multiple of 8) and the narrow one; and a K past the 256 columns of wn the
+# kernel stages at once
 @pytest.mark.parametrize("B,K,D", [(5, 12, 22), (70, 13, 129), (64, 200, 40000),
-                                   (1, 1, 1), (64, 64, 40001)])
+                                   (1, 1, 1), (64, 64, 40001), (16, 200, 40000),
+                                   (32, 200, 40000), (16, 200, 40001),
+                                   (5, 600, 1000), (20, 600, 1003)])
 def test_bf16_kernel_matches_plain_version(cuda, B, K, D):
     wn2, d2, init = _inputs_bf16(B, K, D, B + K, cuda)
     before, before_f32 = trk.launches_bf16, trk.launches
+    widths = dict(trk.launch_widths_bf16)
     got = trk.fused_contract_bf16(wn2, d2, init)
     torch.cuda.synchronize()
     assert trk.launches_bf16 == before + 1 and trk.launches == before_f32
+    assert trk.launch_widths_bf16[B] == widths.get(B, 0) + 1
     assert got.dtype == torch.float32 and got.shape == (B, D)
     ref = trk.fused_contract_bf16_reference(wn2, d2, init)
     torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
     assert torch.equal(got[0], init)     # bit-exact pass-through
+
+
+def test_bf16_kernel_takes_a_view_that_is_only_4_byte_aligned(cuda):
+    """d2 a contiguous view whose base pointer is 4 bytes past a 16-byte
+    boundary, with D a multiple of 8: the kernel must see the pointer, not
+    just D, and take its narrow route."""
+    B, K, D = 16, 200, 40000
+    wn2, d2, init = _inputs_bf16(B, K, D, 3, cuda)
+    flat = torch.empty(K * D + 2, device=cuda, dtype=torch.bfloat16)
+    view = flat[2:].view(K, D)
+    view.copy_(d2)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    got = trk.fused_contract_bf16(wn2, view, init)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, trk.fused_contract_bf16_reference(wn2, d2, init),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(got[0], init)
 
 
 def test_bf16_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -63,14 +63,62 @@ def test_reconstruct_batch_matches_interpret_kernel_and_replay(B, R, P):
         np.testing.assert_array_equal(g[0], init[k])
 
 
+def _round_up(n, m):
+    return -(-n // m) * m
+
+
 def test_flatten_unflatten_round_trip():
     _, init, deltas, weights = _fixture_game()
     R, P = weights.shape
     flat_init, d2, layout = trk.flatten_stream(_t(init), _t(deltas), R * P)
-    assert d2.shape == (R * P, sum(v.size for v in init.values()))
+    D = sum(v.size for v in init.values())
+    assert d2.shape == (R * P, _round_up(D, 8))
     back = trk.unflatten(flat_init.reshape(1, -1), layout)["p"]
     for k, v in init.items():
         np.testing.assert_array_equal(back[k][0].numpy(), v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,R,P", SHAPES)
+def test_flatten_stream_pads_rows_with_exact_zeros(B, R, P, dtype):
+    """Every row of the flattened stream is padded to a multiple of 8
+    values (16 bytes in bf16, 32 in fp32), with exact zeros, in d2 and in
+    init; the columns before the padding are the leaves, in order."""
+    _, init, deltas, weights = _fixture_game(B=B, R=R, P=P, seed=B)
+    K = R * P
+    flat_init, d2, layout = trk.flatten_stream(_t(init), _t(deltas), K, dtype)
+    D = sum(v.size for v in init.values())
+    Dp = _round_up(D, 8)
+    assert Dp > D                        # the fixture's D = 22 is padded
+    assert d2.shape == (K, Dp) and d2.dtype == dtype and d2.is_contiguous()
+    assert flat_init.shape == (Dp,) and flat_init.dtype == torch.float32
+    assert torch.equal(d2[:, D:], torch.zeros(K, Dp - D, dtype=dtype))
+    assert torch.equal(flat_init[D:], torch.zeros(Dp - D))
+    ref = np.concatenate([deltas[k].reshape(K, -1) for k in init], axis=1)
+    assert torch.equal(d2[:, :D], torch.from_numpy(ref).to(dtype))
+    assert [(g, k) for g, k, _ in layout] == [("p", k) for k in init]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,R,P", SHAPES)
+def test_reconstruct_flat_tail_is_exact_zeros(B, R, P, precision):
+    """The padded columns reconstruct to exact zeros (init's tail plus WN
+    times zero deltas) and unflatten never reads them: the leaves equal
+    those of a reconstruction from the unpadded columns alone."""
+    masks, init, deltas, weights = _fixture_game(B=B, R=R, P=P, seed=B)
+    K = R * P
+    flat_init, d2, layout = trk.flatten_stream(_t(init), _t(deltas), K,
+                                               trk.stream_dtype(precision))
+    D = sum(v.size for v in init.values())
+    m, w = torch.from_numpy(masks), torch.from_numpy(weights)
+    out = trk.reconstruct_flat(m, flat_init, d2, w, precision)
+    assert out.shape == (B, _round_up(D, 8))
+    assert torch.equal(out[:, D:], torch.zeros(B, out.shape[1] - D, dtype=out.dtype))
+    unpadded = trk.reconstruct_flat(m, flat_init[:D].contiguous(),
+                                    d2[:, :D].contiguous(), w, precision)
+    got, ref = trk.unflatten(out, layout)["p"], trk.unflatten(unpadded, layout)["p"]
+    for k in init:
+        assert torch.equal(got[k], ref[k])
 
 
 def test_cpu_wrapper_is_the_plain_version():
@@ -163,7 +211,7 @@ def test_bf16_reconstruct_batch_matches_interpret_kernel(B, R, P):
 def test_bf16_kernel_route_raises_without_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the kernel would launch")
-    launches = trk.launches_bf16
+    launches, widths = trk.launches_bf16, dict(trk.launch_widths_bf16)
     shapes = ((3, 4), (4, 7), (7,))
     dtypes = (torch.bfloat16, torch.bfloat16, torch.float32)
     meta = [torch.empty(s, device="meta", dtype=d) for s, d in zip(shapes, dtypes)]
@@ -172,7 +220,7 @@ def test_bf16_kernel_route_raises_without_the_card():
     cpu = [torch.zeros(s, dtype=d) for s, d in zip(shapes, dtypes)]
     with pytest.raises(ValueError, match="CUDA"):
         trk._launch_bf16(*cpu)
-    assert trk.launches_bf16 == launches
+    assert trk.launches_bf16 == launches and trk.launch_widths_bf16 == widths
 
 
 def test_flatten_stream_in_the_stream_dtype():
