@@ -32,7 +32,17 @@ Phases, each of which fails the script (non-zero exit, no result line):
    the bf16 stages; K1-bf16 against its plain version on the bf16 path's
    own inputs at the batch widths B = 64, 32 and 16 and on odd shapes, and
    on standard-normal inputs against its plain version (the distance from
-   the exact sum printed beside the plain version's).
+   the exact sum printed beside the plain version's);
+8. sweep: the retraining exact-Shapley sweep through the user entry point,
+   `Scenario(methods=["Shapley values", "Independent scores"]).run()`, on
+   the MNIST CNN at full width and 5 partners (31 coalitions retrained),
+   with its seconds per batch and peak memory; then the Titanic sweep on
+   the card twice, which must be bit-equal, and on the CPU, which the
+   card's must match within one test sample.
+
+fp32 runs on the card are deterministic (`utils.resolve_device`): the
+stages phase's recording of the grand coalition must be bit-equal to the
+slice phase's, in every delta, weight and final parameter.
 
 The line before the last two is `{"kernels": [...]}`; then the card's
 `nvidia-smi` name and power limit; the last line is
@@ -145,10 +155,11 @@ def precision_env(mode: str):
             os.environ[constants.PRECISION_ENV] = old
 
 
-def mnist_scenario(methods) -> Scenario:
-    """bench.py config 1's settings at 10 partners, (i+1)/55 split."""
-    total = sum(range(1, PARTNERS + 1))
-    return Scenario(PARTNERS, [(i + 1) / total for i in range(PARTNERS)],
+def mnist_scenario(methods, partners: int = PARTNERS) -> Scenario:
+    """bench.py config 1's settings, partner i holding (i+1)/sum of the
+    data (10 partners: (i+1)/55)."""
+    total = sum(range(1, partners + 1))
+    return Scenario(partners, [(i + 1) / total for i in range(partners)],
                     dataset=load_mnist(scale=SCALE, noise=NOISE),
                     multi_partner_learning_approach="fedavg",
                     aggregation_weighting="data-volume", epoch_count=2,
@@ -342,9 +353,10 @@ def phase_stages(recon, tag: str = "stages") -> dict:
     engine.scenario.mpl.fit()          # warm: the first fit paid CUDA start-up
     fit_s = time.perf_counter() - t0   # fit() ends in a host read of the score
     t0 = time.perf_counter()
-    record_updates(engine)
+    again = record_updates(engine)
     torch.cuda.synchronize()
     record_s = time.perf_counter() - t0
+    check_same_recording(recon.recorded, again, tag)
     subsets = powerset_order(PARTNERS)
     width = 64
     masks_all = engine._coalition_arrays(subsets)
@@ -366,6 +378,18 @@ def phase_stages(recon, tag: str = "stages") -> dict:
               "coalitions": len(subsets), "width": width}
     print(f"[{tag}] " + json.dumps(stages))
     return stages
+
+
+def check_same_recording(a, b, tag: str) -> None:
+    """Two recordings of one seed on the card must be bit-equal: every
+    delta, every weight and the final params (deterministic mode)."""
+    pairs = [(a.weights, b.weights)] + [
+        (x[g][k], y[g][k]) for x, y in ((a.deltas, b.deltas), (a.final_params, b.final_params))
+        for g in x for k in x[g]]
+    differ = sum(not torch.equal(x, y) for x, y in pairs)
+    print(f"[{tag}] recording again, against the slice's: {len(pairs) - differ} of "
+          f"{len(pairs)} tensors bit-equal (weights, deltas, final params)")
+    check(differ == 0, "two recordings of one seed on the card differ")
 
 
 def phase_value_pair(fp32_values: np.ndarray, bf16_values: np.ndarray) -> dict:
@@ -560,6 +584,97 @@ def phase_precision(fp32_values: np.ndarray, card) -> list:
     return phase_kernels(sl, card)
 
 
+# The sweep phase: bench config 1's training at 5 partners, cut from its
+# 10 (see phase_sweep)
+SWEEP_PARTNERS = 5
+SWEEP_METHODS = ["Shapley values", "Independent scores"]
+
+
+def phase_sweep() -> None:
+    """The retraining exact-Shapley sweep through the user entry point:
+    the MNIST CNN at full width on the slice's data, bench config 1's
+    training, 5 partners split (i+1)/15. 31 coalitions are retrained: the
+    5 singles in one batch (width 8) and the 26 others in two batches of
+    16; "Independent scores" then reads the singles' memoized values.
+
+    Cut from bench config 1's 10 partners: every masked coalition trains
+    on all the data (masked partners compute too), and a batch of 16
+    takes about four warm recordings' time (4.3 s on an H100), so the
+    1023 coalitions of 10 partners, 64 batches, would take several times
+    the rest of the script. The 10-partner sweep waits for slot execution
+    and a bench cell."""
+    P = SWEEP_PARTNERS
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sc = mnist_scenario(SWEEP_METHODS, P)
+    sc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    sv_c, ind_c = sc.contributivity_list
+    eng = sc._charac_engine
+    subsets = powerset_order(P)
+    values = np.array([eng.charac_fct_values[s] for s in subsets])
+    v_all = eng.charac_fct_values[tuple(range(P))]
+    sv, ind = sv_c.contributivity_scores, ind_c.contributivity_scores
+    batches = [(b["kind"], b["width"], b["coalitions"]) for b in eng.batch_log]
+    print(f"[sweep] MNIST CNN, {P} partners, {len(subsets)} coalitions retrained: "
+          f"{wall:.2f} s for Scenario.run() (fit {sc.mpl.learning_computation_time:.2f} s, "
+          f"Shapley {sv_c.computation_time_sec:.2f} s, independent "
+          f"{ind_c.computation_time_sec:.4f} s); peak memory {peak / 2 ** 30:.2f} GiB "
+          f"({(peak - base) / 2 ** 30:.2f} GiB above the phase's start)")
+    for b in eng.batch_log:
+        print(f"[sweep] batch {b['kind']} width {b['width']}: {b['coalitions']} "
+              f"coalitions in {b['seconds']:.3f} s")
+    print("[sweep] v(S) " + json.dumps(
+        {",".join(map(str, s)): round(float(v), 4) for s, v in zip(subsets, values)}))
+    print(f"[sweep] Shapley values {np.round(sv, 4).tolist()} (sum {sv.sum():.6f}, "
+          f"v(N) {v_all:.4f}); independent scores {np.round(ind, 4).tolist()}; "
+          f"launches {recon_kernel.launches} / {recon_kernel.launches_bf16}")
+    check(bool(np.isfinite(values).all() and (values >= 0).all() and (values <= 1).all()),
+          "a v(S) of the sweep is not finite in [0, 1]")
+    check(v_all > 0.3, f"v(N) = {v_all} is not above three times chance")
+    check(sv[P - 1] > sv[0], f"partner {P - 1} (largest) does not outscore partner 0")
+    check(abs(sv.sum() - v_all) <= 1e-6, "the Shapley values do not sum to v(N)")
+    check(list(ind) == [eng.charac_fct_values[(i,)] for i in range(P)],
+          "the independent scores are not the singles' values")
+    check(batches == [("single", 8, 5), ("multi", 16, 16), ("multi", 16, 10)],
+          f"the sweep trained other batches than its 31 coalitions need: {batches}")
+    check(recon_kernel.launches == recon_kernel.launches_bf16 == 0,
+          "the retraining sweep launched a reconstruction kernel")
+
+
+def titanic_sweep(device: str) -> tuple:
+    """(v(S) over the powerset, the scenario, test-set size) of the
+    Titanic 3-partner retraining sweep (fp32) on `device`."""
+    sc = Scenario(3, [0.2, 0.3, 0.5], dataset=load_titanic(), epoch_count=2,
+                  minibatch_count=2, gradient_updates_per_pass_count=2,
+                  is_early_stopping=False, methods=["Shapley values"], seed=0,
+                  device=device)
+    sc.run()
+    values = np.array([sc._charac_engine.charac_fct_values[s] for s in powerset_order(3)])
+    return values, sc, len(sc.dataset.x_test)
+
+
+def phase_sweep_reference() -> None:
+    """The Titanic sweep twice on the card, which must be bit-equal (and
+    so must the two grand-coalition fits), and on the CPU, which the
+    card's must match within one test sample."""
+    (a, sca, n_test), (b, scb, _), (c, _, _) = (
+        titanic_sweep(d) for d in (DEVICE, DEVICE, "cpu"))
+    same = [numerics.float_bits(x) == numerics.float_bits(y) for x, y in zip(a, b)]
+    fa, fb = sca.mpl.model_params, scb.mpl.model_params
+    same_fit = all(torch.equal(fa[g][k], fb[g][k]) for g in fa for k in fa[g])
+    dv = float(np.abs(a - c).max())
+    print(f"[sweep] titanic card twice: {sum(same)} of {len(same)} v(S) bit-equal, "
+          f"fit params bit-equal {same_fit}; card vs cpu: v(S) max diff {dv:.4f} "
+          f"(1/n_test {1 / n_test:.4f}); v(S) {np.round(a, 4).tolist()}")
+    check(all(same) and same_fit, "two Titanic sweeps of one seed on the card differ")
+    check(dv <= 1.0 / n_test + 1e-6, "card and CPU sweeps differ by more than one sample")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -579,6 +694,8 @@ def main() -> int:
     phase_stages(sl["recon"])
     kernels = phase_kernels(sl, card)
     kernels += phase_precision(sl["values"], card)
+    phase_sweep()
+    phase_sweep_reference()
 
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -19,8 +19,9 @@ DEFAULT_BATCH_COUNT = 20
 DEFAULT_EPOCH_COUNT = 40
 
 # Contributivity method registry names: every method the JAX package knows.
-# The port computes "GTG-Shapley" (and `Contributivity.exact_reconstructed`);
-# the others raise NotImplementedError until their slice lands (ROADMAP.md).
+# The port computes "Shapley values", "Independent scores" and
+# "GTG-Shapley" (and `Contributivity.exact_reconstructed`); the others
+# raise NotImplementedError until their slice lands (ROADMAP.md).
 CONTRIBUTIVITY_METHODS = [
     "Shapley values",
     "Independent scores",
@@ -98,6 +99,10 @@ EVAL_CHUNK_SIZE = 2048
 # one eval set: bounds the activation memory of a reconstruction batch
 # (the MNIST CNN's second conv alone holds 147 KB per sample).
 EVAL_ROWS_IN_FLIGHT = 16384
+
+# Coalitions trained per batch by the retraining sweep
+# (contrib/engine.py): the JAX package's default ceiling per device.
+MAX_COALITIONS_PER_DEVICE_BATCH = 16
 
 # Coalitions reconstructed and evaluated per batch by the retrain-free
 # evaluator (contrib/reconstruct.py).

@@ -1,12 +1,12 @@
-"""Contributivity measurement, the retrain-free estimators (port of
-`mplc_tpu/contrib/contributivity.py`: GTG-Shapley and exact Shapley over
-reconstructed models).
+"""Contributivity measurement (port of `mplc_tpu/contrib/contributivity.py`:
+exact Shapley values and independent scores over retrained coalitions,
+GTG-Shapley and exact Shapley over reconstructed models).
 
 Same API as the JAX package: `Contributivity(scenario)` +
 `compute_contributivity(method_name)`, filling `contributivity_scores`,
 `scores_std`, `normalized_scores` and `computation_time_sec`. The other
 methods the JAX package knows raise NotImplementedError until their slice
-is ported (ROADMAP.md).
+is ported (ROADMAP.md); a name it does not know is logged and ignored.
 """
 
 from __future__ import annotations
@@ -52,6 +52,10 @@ class Contributivity:
         out += f"Std of the contributivity scores: {np.round(self.scores_std, 3)}\n"
         out += f"Normalized contributivity scores: {np.round(self.normalized_scores, 3)}\n"
         return out
+
+    @property
+    def first_charac_fct_calls_count(self):
+        return self.engine.first_charac_fct_calls_count
 
     def _finish(self, name, scores, std, t0):
         self.name = name
@@ -114,6 +118,27 @@ class Contributivity:
             v_max = np.max(np.var(contributions, axis=0))
         return contributions, t
 
+    def compute_SV(self):
+        """Exact Shapley values over retrained coalitions: all 2^n - 1
+        coalitions valued in one batched sweep, then the closed-form
+        Shapley sum; scores_std is exactly zero."""
+        t0 = time.perf_counter()
+        logger.info("# Launching computation of Shapley Value of all partners")
+        n = self._n
+        self.engine.evaluate(powerset_order(n))
+        sv = shapley_from_characteristic(n, self.engine.charac_fct_values)
+        self._finish("Shapley", sv, np.zeros(n), t0)
+
+    def compute_independent_scores(self):
+        """v({i}) of every partner: a model trained on its data alone
+        (memo hits after a Shapley sweep)."""
+        t0 = time.perf_counter()
+        logger.info("# Launching computation of perf. scores of models trained "
+                    "independently on each partner")
+        n = self._n
+        scores = self.engine.evaluate([(i,) for i in range(n)])
+        self._finish("Independent scores raw", scores, np.zeros(n), t0)
+
     def _reconstructor(self):
         """The engine's shared ReconstructionEvaluator, recording the grand
         coalition on first use: one training run per scenario, reused by
@@ -175,7 +200,11 @@ class Contributivity:
 
     def compute_contributivity(self, method_to_compute, sv_accuracy=0.01,
                                alpha=0.95):
-        if method_to_compute == "GTG-Shapley":
+        if method_to_compute == "Shapley values":
+            self.compute_SV()
+        elif method_to_compute == "Independent scores":
+            self.compute_independent_scores()
+        elif method_to_compute == "GTG-Shapley":
             # truncation=None: GTG's own within-round threshold
             self.GTG_Shapley(sv_accuracy=sv_accuracy, alpha=alpha)
         elif method_to_compute in constants.CONTRIBUTIVITY_METHODS:
@@ -183,5 +212,4 @@ class Contributivity:
                 f"contributivity method '{method_to_compute}' is not ported "
                 "yet (ROADMAP.md queue 1)")
         else:
-            raise ValueError(f"Unrecognized contributivity method "
-                             f"'{method_to_compute}'")
+            logger.warning("Unrecognized name of method, statement ignored!")

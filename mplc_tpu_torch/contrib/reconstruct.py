@@ -60,23 +60,24 @@ def record_updates(engine) -> RecordedRun:
     trainer = MplTrainer(engine.model, cfg)
     P = engine.partners_count
     full = tuple(range(P))
-    generator = engine.coalition_generator(engine._effective_subset(full))
-    mask = torch.from_numpy(engine._coalition_arrays([full])[0]).to(engine.device)
-    state = trainer.init_state(generator, P, engine.device)
-    init_params = {g: {k: t.clone() for k, t in d.items()}
+    generators = [engine.coalition_generator(engine._effective_subset(full))]
+    mask = torch.from_numpy(engine._coalition_arrays([full])).to(engine.device)
+    state = trainer.init_state(generators, P, engine.device)
+    init_params = {g: {k: t[0].clone() for k, t in d.items()}
                    for g, d in state.params.items()}
-    trainer.epoch_chunk(state, engine.stacked, engine.val, mask, generator,
+    trainer.epoch_chunk(state, engine.stacked, engine.val, mask, generators,
                         cfg.epoch_count)
-    epochs = state.nb_epochs_done
+    run = state.row(0)
+    epochs = run.nb_epochs_done
     mem = sum(t.numel() * t.element_size()
-              for d in state.upd_h.values() for t in d.values())
-    mem += state.w_h.numel() * state.w_h.element_size()
-    return RecordedRun(init_params=init_params, deltas=state.upd_h,
-                       weights=state.w_h,
+              for d in run.upd_h.values() for t in d.values())
+    mem += run.w_h.numel() * run.w_h.element_size()
+    return RecordedRun(init_params=init_params, deltas=run.upd_h,
+                       weights=run.w_h,
                        rounds=cfg.epoch_count * cfg.minibatch_count,
                        partners_count=P, epochs_done=epochs,
                        training_passes=epochs * cfg.minibatch_count * P,
-                       memory_bytes=mem, final_params=state.params)
+                       memory_bytes=mem, final_params=run.params)
 
 
 class ReconstructionEvaluator:

@@ -69,17 +69,18 @@ class MultiPartnerLearning:
     def fit(self):
         t0 = time.perf_counter()
         stacked, val, test = self._stage()
-        generator = torch.Generator().manual_seed(self.seed)
-        state = self.trainer.init_state(generator, self.partners_count, self.device)
-        coal_mask = torch.ones(self.partners_count, device=self.device)
-        self.trainer.epoch_chunk(state, stacked, val, coal_mask, generator,
+        generators = [torch.Generator().manual_seed(self.seed)]
+        state = self.trainer.init_state(generators, self.partners_count, self.device)
+        coal_mask = torch.ones(1, self.partners_count, device=self.device)
+        self.trainer.epoch_chunk(state, stacked, val, coal_mask, generators,
                                  self.epoch_count)
         _, test_acc = self.trainer.finalize(state, test)
-        self.model_params = state.params
+        run = state.row(0)
+        self.model_params = run.params
         self.history.fill_from_state(
-            [p.id for p in self.partners_list], state.val_loss_h,
-            state.val_acc_h, state.partner_h, state.nb_epochs_done,
-            float(test_acc))
+            [p.id for p in self.partners_list], run.val_loss_h,
+            run.val_acc_h, run.partner_h, run.nb_epochs_done,
+            float(test_acc[0]))
         self.learning_computation_time = time.perf_counter() - t0
         return self.history.score
 

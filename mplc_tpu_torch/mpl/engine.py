@@ -1,22 +1,34 @@
-"""The multi-partner training engine, masked FedAvg (port of
-`mplc_tpu/mpl/engine.py`).
+"""The multi-partner training engine, masked FedAvg and the single-partner
+trainer (port of `mplc_tpu/mpl/engine.py`).
 
-Partners are a batch dimension: every partner's local pass is one
-`torch.func.vmap` over `torch.func.grad_and_value` of the functional forward, on
-parameters stacked `[P, ...]`. A coalition is a length-P 0/1 mask that
-multiplies every per-sample loss mask (inactive partners get exactly-zero
-gradients, hence exactly-zero Adam updates) and gates the aggregation
-weights. Python loops take the place of the JAX package's `lax.scan`s.
+Coalitions and partners are batch dimensions. Every tensor of the carried
+`TrainState` leads with the coalition axis B (one training run is B = 1),
+the port's counterpart of the JAX package's vmap of `init_state`,
+`epoch_chunk` and `finalize` over coalitions. Every partner's local pass
+of every coalition is one `torch.func.vmap` over `grad_and_value` of the
+functional forward, on parameters stacked `[B*P, ...]`. A coalition is a
+length-P 0/1 mask row that multiplies every per-sample loss mask (inactive
+partners get exactly-zero gradients, hence exactly-zero Adam updates) and
+gates the aggregation weights. Python loops take the place of the JAX
+package's `lax.scan`s.
 
 Loop semantics kept from the JAX package:
-  - a fresh optimizer for every partner pass;
-  - per round (minibatch): global val eval (column 0), partner passes,
-    aggregation weights, the recorded row (recording runs), aggregation;
-  - early stopping compares val_loss[e, 0] with val_loss[e - patience, 0];
-  - the remainder of n_p mod minibatch_count samples is dropped per epoch.
+  - fedavg: a fresh optimizer for every partner pass; per round
+    (minibatch): global val eval (column 0), partner passes, aggregation
+    weights, the recorded row (recording runs), aggregation; early stopping
+    compares val_loss[e, 0] with val_loss[e - patience, 0]; the remainder
+    of n_p mod minibatch_count samples is dropped per epoch;
+  - single (`approach="single"`, one active partner a coalition):
+    minibatch_count x gradient_updates_per_pass steps of one persistent
+    Adam per epoch over the partner's shuffled rows, then a val eval, with
+    Keras-style early stopping (no improvement of the val loss for
+    `patience` epochs);
+  - a coalition that has stopped is frozen (`torch.where`, the JAX
+    package's `tree_where(state.done, ...)`): its parameters stay and its
+    later history rows stay NaN while the others train on.
 
-Randomness: each epoch's per-partner permutations are drawn from the
-caller's `torch.Generator` (a CPU generator, so a run is the same on every
+Randomness: each epoch's permutations of a coalition are drawn from its
+own `torch.Generator` (a CPU generator, so a run is the same on every
 device), or injected through `streams` (the tests feed the JAX package's
 permutations). The ported models have no dropout, so the permutations and
 the initial parameters are the only randomness.
@@ -36,10 +48,11 @@ from torch.func import grad_and_value, vmap
 
 from .. import constants
 from ..models.core import Model
-from ..ops.aggregation import AGGREGATOR_NAMES, aggregate, aggregation_weights, broadcast
+from ..ops.aggregation import AGGREGATOR_NAMES, aggregate, aggregation_weights
 from ..ops.metrics import masked_loss_and_metrics
 
 APPROACH_NAMES = ("fedavg", "seq-pure", "seq-with-final-agg", "seqavg", "lflip", "single")
+PORTED_APPROACHES = ("fedavg", "single")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +72,7 @@ class TrainConfig:
     record_val_history: bool = True
     # capture every round's per-partner parameter delta (local params -
     # round-start global params) and the normalized aggregation weights
-    # actually applied: `upd_h` [R, P, ...] leaves and `w_h` [R, P],
+    # actually applied: `upd_h` [B, R, P, ...] leaves and `w_h` [B, R, P],
     # R = epoch_count x minibatch_count (retrain-free contributivity)
     record_updates: bool = False
     # MPLC_TORCH_PRECISION mode (constants.py): fp32 | mixed | bf16. None
@@ -75,7 +88,7 @@ class TrainConfig:
         if self.precision not in constants.PRECISION_MODES:
             raise ValueError(f"precision must be one of "
                              f"{constants.PRECISION_MODES}, got {self.precision!r}")
-        if self.approach != "fedavg":
+        if self.approach not in PORTED_APPROACHES:
             if self.approach in APPROACH_NAMES:
                 raise NotImplementedError(
                     f"the '{self.approach}' approach is not ported yet "
@@ -86,6 +99,10 @@ class TrainConfig:
         if self.aggregator not in AGGREGATOR_NAMES:
             raise KeyError(f"aggregation approach '{self.aggregator}' is not a "
                            f"valid approach. Supported: {AGGREGATOR_NAMES}")
+        if self.record_updates and self.approach != "fedavg":
+            raise ValueError("update recording (record_updates) captures FedAvg "
+                             "aggregation-round deltas; it supports the fedavg "
+                             f"approach only, got '{self.approach}'")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -95,16 +112,32 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    """One training run's carried state (mutated in place by the epochs)."""
-    params: dict             # global model parameters
-    val_loss_h: torch.Tensor  # [E, MB] global val loss history
-    val_acc_h: torch.Tensor   # [E, MB]
-    partner_h: torch.Tensor   # [4, P, E, MB]: loss, acc, val_loss, val_acc
-    epoch: int = 0           # next epoch index
-    done: bool = False       # early-stopped or finished
-    nb_epochs_done: int = 0
-    upd_h: dict | None = None        # [R, P, ...] recorded deltas
-    w_h: torch.Tensor | None = None  # [R, P] recorded weights
+    """B coalition runs' carried state, stacked on a leading axis (mutated
+    in place by the epochs). `row(i)` is one run's state alone."""
+    params: dict             # global model parameters, leaves [B, ...]
+    val_loss_h: torch.Tensor  # [B, E, MB] global val loss history
+    val_acc_h: torch.Tensor   # [B, E, MB]
+    partner_h: torch.Tensor   # [B, 4, P, E, MB]: loss, acc, val_loss, val_acc
+    done: torch.Tensor        # [B] bool: early-stopped or finished
+    nb_epochs_done: torch.Tensor  # [B] int64
+    best_val_loss: torch.Tensor   # [B] ('single' early stopping)
+    es_wait: torch.Tensor         # [B] int64 ('single' early stopping)
+    epoch: int = 0           # next epoch index of the runs still training
+    opt_state: dict | None = None    # persistent Adam state ('single' only)
+    upd_h: dict | None = None        # [B, R, P, ...] recorded deltas
+    w_h: torch.Tensor | None = None  # [B, R, P] recorded weights
+
+    def row(self, i: int) -> "TrainState":
+        """Run i's state without the coalition axis: views of its tensors,
+        `done` a bool and `nb_epochs_done` an int."""
+        take = lambda tree: None if tree is None else _tree_map(lambda t: t[i], tree)  # noqa: E731
+        return TrainState(
+            params=take(self.params), val_loss_h=self.val_loss_h[i],
+            val_acc_h=self.val_acc_h[i], partner_h=self.partner_h[i],
+            done=bool(self.done[i]), nb_epochs_done=int(self.nb_epochs_done[i]),
+            best_val_loss=self.best_val_loss[i], es_wait=self.es_wait[i],
+            epoch=self.epoch, opt_state=None, upd_h=take(self.upd_h),
+            w_h=None if self.w_h is None else self.w_h[i])
 
 
 class EvalSet(NamedTuple):
@@ -118,38 +151,69 @@ def _tree_map(fn, *trees) -> dict:
             for g in trees[0]}
 
 
+def _rows(flag: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A [B] flag shaped to broadcast against t's leading B axis."""
+    return flag.reshape(flag.shape + (1,) * (t.ndim - flag.ndim))
+
+
+def _keep_frozen(frozen: torch.Tensor, old, new):
+    """new, with the rows of the frozen runs taken from old (a tensor or a
+    parameter dict, leading axis B)."""
+    if isinstance(old, dict):
+        return _tree_map(lambda o, n: torch.where(_rows(frozen, n), o, n), old, new)
+    return torch.where(_rows(frozen, new), old, new)
+
+
+def _write(view: torch.Tensor, value, frozen: torch.Tensor) -> None:
+    """Write value into a history view, except in the rows of frozen runs."""
+    view.copy_(_keep_frozen(frozen, view, torch.as_tensor(value).to(view)))
+
+
 class MplTrainer:
-    """Masked FedAvg trainer for one (model, config) pair."""
+    """The masked FedAvg or single-partner trainer of one (model, config)
+    pair, over a batch of coalitions."""
 
     def __init__(self, model: Model, cfg: TrainConfig):
         self.model = model
         self.cfg = cfg
-        self._partner_grads = vmap(grad_and_value(self._loss_fn, has_aux=True))
+        self._grads = vmap(grad_and_value(self._loss_fn, has_aux=True))
         self._model_sums = vmap(self._chunk_sums, in_dims=(0, None, None, None))
 
     # ------------------------------------------------------------------
     # state init
     # ------------------------------------------------------------------
 
-    def init_state(self, generator: torch.Generator, partners_count: int,
-                   device, init_params: dict | None = None) -> TrainState:
+    def init_state(self, generators, partners_count: int, device,
+                   init_params: dict | None = None) -> TrainState:
+        """The state of B runs: initial parameters drawn from each run's
+        generator (a list of B), or injected (`init_params`, leaves
+        [B, ...]; `generators` may then be None)."""
         cfg = self.cfg
-        params = self.model.init(generator) if init_params is None else init_params
+        if init_params is None:
+            drawn = [self.model.init(g) for g in generators]
+            init_params = _tree_map(lambda *ts: torch.stack(ts), *drawn)
         params = _tree_map(lambda t: t.detach().to(device, torch.float32).clone(),
-                           params)
+                           init_params)
+        B = next(iter(next(iter(params.values())).values())).shape[0]
         E, MB = cfg.epoch_count, cfg.minibatch_count
         nan = lambda *shape: torch.full(shape, float("nan"), device=device)  # noqa: E731
-        state = TrainState(params=params, val_loss_h=nan(E, MB),
-                           val_acc_h=nan(E, MB),
-                           partner_h=nan(4, partners_count, E, MB))
+        state = TrainState(
+            params=params, val_loss_h=nan(B, E, MB), val_acc_h=nan(B, E, MB),
+            partner_h=nan(B, 4, partners_count, E, MB),
+            done=torch.zeros(B, dtype=torch.bool, device=device),
+            nb_epochs_done=torch.zeros(B, dtype=torch.int64, device=device),
+            best_val_loss=torch.full((B,), float("inf"), device=device),
+            es_wait=torch.zeros(B, dtype=torch.int64, device=device))
+        if cfg.approach == "single":
+            state.opt_state = self.model.optimizer.init(params)
         if cfg.record_updates:
             # rounds the run never reaches (early stopping) stay all-zero,
             # which reconstruction skips via its zero-denominator rule
             R = E * MB
             state.upd_h = _tree_map(
-                lambda t: torch.zeros((R, partners_count) + t.shape, device=device),
-                params)
-            state.w_h = torch.zeros((R, partners_count), device=device)
+                lambda t: torch.zeros((B, R, partners_count) + t.shape[1:],
+                                      device=device), params)
+            state.w_h = torch.zeros((B, R, partners_count), device=device)
         return state
 
     # ------------------------------------------------------------------
@@ -160,11 +224,6 @@ class MplTrainer:
         logits = self.model.apply(params, x, self.cfg.dtype)
         loss, acc, cnt = masked_loss_and_metrics(self.model.loss_kind, logits, y, m)
         return loss * cnt, acc * cnt, cnt
-
-    def evaluate(self, params: dict, ev: EvalSet) -> tuple[torch.Tensor, torch.Tensor]:
-        """(mean_loss, accuracy) of one model over a chunked eval set."""
-        loss, acc = self.evaluate_models(broadcast(params, 1), ev)
-        return loss[0], acc[0]
 
     def evaluate_models(self, params_b: dict, ev: EvalSet) -> tuple[torch.Tensor, torch.Tensor]:
         """([B] mean_loss, [B] accuracy) of B models stacked on a leading
@@ -184,23 +243,31 @@ class MplTrainer:
     def _maybe_val_eval(self, params: dict, val: EvalSet, mb_i: int):
         cfg = self.cfg
         if cfg.record_val_history or (cfg.is_early_stopping and mb_i == 0):
-            return self.evaluate(params, val)
+            return self.evaluate_models(params, val)
         return float("nan"), float("nan")
 
     # ------------------------------------------------------------------
-    # data selection (static shapes, all partners at once)
+    # data selection (static shapes, all runs and partners at once)
     # ------------------------------------------------------------------
 
-    def epoch_perms(self, generator: torch.Generator, mask_pn: torch.Tensor) -> torch.Tensor:
-        """[P, Nmax] per-partner permutations, every partner's valid rows
-        first, in random order (drawn on the CPU, moved to mask's device)."""
-        mask = mask_pn.cpu()
+    @staticmethod
+    def epoch_perms(generator: torch.Generator, mask: torch.Tensor) -> torch.Tensor:
+        """Permutations of the last axis of a (CPU) validity mask, its valid
+        rows first, in random order, drawn from `generator`."""
         keys = torch.rand(mask.shape, generator=generator) + (1.0 - mask) * 1e9
-        return torch.argsort(keys, dim=1, stable=True).to(mask_pn.device)
+        return torch.argsort(keys, dim=-1, stable=True)
+
+    def _perms(self, generators, mask: torch.Tensor, streams) -> torch.Tensor:
+        """This epoch's permutations of every run: injected, or drawn from
+        each run's generator over its rows of `mask` ([B, ...])."""
+        if streams is not None:
+            return streams.to(mask.device, torch.int64)
+        return torch.stack([self.epoch_perms(g, m) for g, m in
+                            zip(generators, mask.cpu())]).to(mask.device)
 
     def _subbatch(self, perms, sizes, mb_i: int, g: int, sb_cap: int):
-        """Indices [P, sb_cap] + validity mask of gradient step g of
-        minibatch mb_i, for every partner."""
+        """Indices [B, P, sb_cap] + validity mask [P, sb_cap] of gradient
+        step g of minibatch mb_i, for every run and partner."""
         cfg = self.cfg
         mbc, gup = cfg.minibatch_count, cfg.gradient_updates_per_pass
         valid_mb = (sizes // mbc)[:, None]             # samples per minibatch
@@ -208,11 +275,11 @@ class MplTrainer:
         ar = torch.arange(sb_cap, device=perms.device)[None, :]
         local = g * sb + ar
         valid = (ar < sb) & (local < valid_mb)
-        pos = torch.clamp(mb_i * valid_mb + local, 0, perms.shape[1] - 1)
-        return torch.gather(perms, 1, pos), valid.float()
+        pos = torch.clamp(mb_i * valid_mb + local, 0, perms.shape[-1] - 1)
+        return torch.gather(perms, 2, pos.expand(perms.shape[0], -1, -1)), valid.float()
 
     # ------------------------------------------------------------------
-    # one local pass of every partner over its minibatch (fresh optimizer)
+    # masked Adam steps of N models at once
     # ------------------------------------------------------------------
 
     def _loss_fn(self, params, x, y, m):
@@ -220,98 +287,165 @@ class MplTrainer:
         loss, acc, cnt = masked_loss_and_metrics(self.model.loss_kind, logits, y, m)
         return loss, (acc, cnt)
 
-    def _partner_pass(self, start_params: dict, stacked, perms, active,
-                      mb_i: int):
-        """Every partner's `gup` masked Adam steps on minibatch mb_i, from
-        stacked start params [P, ...]. Returns (params [P, ...],
-        pass_loss [P], pass_acc [P])."""
-        cfg = self.cfg
-        P, n_max = stacked.x.shape[0], stacked.x.shape[1]
-        gup = cfg.gradient_updates_per_pass
-        mb_cap = max(n_max // cfg.minibatch_count, 1)
-        sb_cap = (mb_cap + gup - 1) // gup
-        rows = torch.arange(P, device=perms.device)[:, None]
+    def _steps(self, params: dict, opt_state: dict, batches):
+        """One masked Adam step of N models (params [N, ...]) for each
+        (x [N, sb, ...], y, m [N, sb]) of `batches`. Returns (params,
+        opt_state, mean loss [N], mean accuracy [N]) over the steps."""
         opt = self.model.optimizer
-        opt_state = opt.init(start_params)
-        params = start_params
         loss_sum = acc_sum = cnt_sum = 0.0
-        for g in range(gup):
-            idx, valid = self._subbatch(perms, stacked.sizes, mb_i, g, sb_cap)
-            m = valid * active[:, None]
-            grads, (loss, (acc, cnt)) = self._partner_grads(
-                params, stacked.x[rows, idx], stacked.y[rows, idx], m)
+        for x, y, m in batches:
+            grads, (loss, (acc, cnt)) = self._grads(params, x, y, m)
             params, opt_state = opt.step(params, grads, opt_state)
             loss_sum = loss_sum + loss * cnt
             acc_sum = acc_sum + acc * cnt
             cnt_sum = cnt_sum + cnt
         denom = torch.clamp(cnt_sum, min=1.0)
-        return params, loss_sum / denom, acc_sum / denom
+        return params, opt_state, loss_sum / denom, acc_sum / denom
 
     # ------------------------------------------------------------------
     # epochs + early stopping
     # ------------------------------------------------------------------
 
     def _fedavg_epoch(self, state: TrainState, stacked, val: EvalSet,
-                      coal_mask: torch.Tensor, generator: torch.Generator,
-                      streams: torch.Tensor | None = None) -> None:
+                      masks: torch.Tensor, generators, streams, frozen) -> dict:
+        """One FedAvg epoch of every run; returns the new params. Every
+        partner pass of every run is one vmapped step over B*P models."""
         cfg = self.cfg
-        P = stacked.x.shape[0]
+        B, P = masks.shape
         e = state.epoch
-        perms = (self.epoch_perms(generator, stacked.mask) if streams is None
-                 else streams.to(stacked.mask.device, torch.int64))
+        gup = cfg.gradient_updates_per_pass
+        perms = self._perms(generators, stacked.mask.expand(B, -1, -1),
+                            streams)                                # [B, P, Nmax]
+        mb_cap = max(stacked.x.shape[1] // cfg.minibatch_count, 1)
+        sb_cap = (mb_cap + gup - 1) // gup
+        rows = torch.arange(P, device=masks.device)[None, :, None]
         need_pval = cfg.record_partner_val or cfg.aggregator == "local-score"
+        flat = lambda t: t.reshape((B * P,) + t.shape[2:])  # noqa: E731
         params = state.params
         for mb_i in range(cfg.minibatch_count):
             vl, va = self._maybe_val_eval(params, val, mb_i)
-            state.val_loss_h[e, mb_i] = vl
-            state.val_acc_h[e, mb_i] = va
-            new_params, losses, accs = self._partner_pass(
-                broadcast(params, P), stacked, perms, coal_mask, mb_i)
+            _write(state.val_loss_h[:, e, mb_i], vl, frozen)
+            _write(state.val_acc_h[:, e, mb_i], va, frozen)
+
+            def batches():
+                for g in range(gup):
+                    idx, valid = self._subbatch(perms, stacked.sizes, mb_i, g, sb_cap)
+                    m = valid[None] * masks[:, :, None]
+                    yield (flat(stacked.x[rows, idx]), flat(stacked.y[rows, idx]),
+                           flat(m))
+            start = _tree_map(lambda t: flat(t[:, None].expand((B, P) + t.shape[1:])),
+                              params)
+            new_flat, _, losses, accs = self._steps(
+                start, self.model.optimizer.init(start), batches())
             if need_pval:
-                pvl, pva = self.evaluate_models(new_params, val)
+                pvl, pva = (t.reshape(B, P) for t in self.evaluate_models(new_flat, val))
             else:
-                pvl = pva = torch.full((P,), float("nan"), device=coal_mask.device)
-            state.partner_h[:, :, e, mb_i] = torch.stack([losses, accs, pvl, pva])
-            w = aggregation_weights(cfg.aggregator, coal_mask, stacked.sizes,
+                pvl = pva = torch.full((B, P), float("nan"), device=masks.device)
+            _write(state.partner_h[:, :, :, e, mb_i],
+                   torch.stack([losses.reshape(B, P), accs.reshape(B, P), pvl, pva], 1),
+                   frozen)
+            new_params = _tree_map(lambda t: t.reshape((B, P) + t.shape[1:]), new_flat)
+            w = aggregation_weights(cfg.aggregator, masks, stacked.sizes,
                                     torch.nan_to_num(pva))
             if cfg.record_updates:
                 r_idx = e * cfg.minibatch_count + mb_i
                 for g, d in new_params.items():
                     for k, t in d.items():
-                        state.upd_h[g][k][r_idx] = t - params[g][k]
-                state.w_h[r_idx] = w
+                        _write(state.upd_h[g][k][:, r_idx], t - params[g][k][:, None],
+                               frozen)
+                _write(state.w_h[:, r_idx], w, frozen)
             params = aggregate(new_params, w)
-        state.params = params
+        return params
 
-    def _early_stop_flag(self, state: TrainState) -> bool:
+    def _single_epoch(self, state: TrainState, stacked, val: EvalSet,
+                      masks: torch.Tensor, generators, streams, frozen) -> dict:
+        """One epoch of single-partner training of every run:
+        minibatch_count x gradient_updates_per_pass steps of its persistent
+        Adam over its lone active partner's shuffled rows, then a val eval
+        (reference SinglePartnerLearning, multi_partner_learning.py:230-275).
+        Updates the optimizer state; returns the new params."""
+        cfg = self.cfg
+        B = masks.shape[0]
+        e = state.epoch
+        p = torch.argmax(masks, dim=1)                 # the lone active partner
+        x_p, y_p = stacked.x[p], stacked.y[p]          # [B, Nmax, ...]
+        size_p = stacked.sizes[p]
+        n_max = x_p.shape[1]
+        perm = self._perms(generators, stacked.mask[p], streams)   # [B, Nmax]
+        steps = cfg.minibatch_count * cfg.gradient_updates_per_pass
+        sb_cap = max((n_max + steps - 1) // steps, 1)
+        sb = ((size_p + steps - 1) // steps)[:, None]
+        ar = torch.arange(sb_cap, device=masks.device)[None, :]
+        runs = torch.arange(B, device=masks.device)[:, None]
+
+        def batches():
+            for g in range(steps):
+                local = g * sb + ar
+                valid = (ar < sb) & (local < size_p[:, None])
+                idx = torch.gather(perm, 1, torch.clamp(local, 0, n_max - 1))
+                yield x_p[runs, idx], y_p[runs, idx], valid.float()
+        params, opt_state, loss, acc = self._steps(state.params, state.opt_state,
+                                                   batches())
+        state.opt_state = {"mu": _keep_frozen(frozen, state.opt_state["mu"], opt_state["mu"]),
+                           "nu": _keep_frozen(frozen, state.opt_state["nu"], opt_state["nu"]),
+                           "count": opt_state["count"]}
+        if cfg.record_val_history or cfg.is_early_stopping:
+            vl, va = self.evaluate_models(params, val)
+        else:
+            vl = va = torch.full((B,), float("nan"), device=masks.device)
+        _write(state.val_loss_h[:, e, 0], vl, frozen)
+        _write(state.val_acc_h[:, e, 0], va, frozen)
+        _write(state.partner_h[:, :, 0, e, 0], torch.stack([loss, acc, vl, va], 1), frozen)
+        # Keras-style early-stopping bookkeeping
+        improved = vl < state.best_val_loss
+        state.best_val_loss = _keep_frozen(frozen, state.best_val_loss,
+                                           torch.where(improved, vl, state.best_val_loss))
+        state.es_wait = _keep_frozen(frozen, state.es_wait,
+                                     torch.where(improved, 0, state.es_wait + 1))
+        return params
+
+    def _early_stop_flag(self, state: TrainState) -> torch.Tensor:
+        """[B]: the runs whose epoch `state.epoch` triggers early stopping."""
         cfg = self.cfg
         e = state.epoch
-        if not cfg.is_early_stopping or e < cfg.patience:
-            return False
-        return bool(state.val_loss_h[e, 0] > state.val_loss_h[e - cfg.patience, 0])
+        if not cfg.is_early_stopping:
+            return torch.zeros_like(state.done)
+        if cfg.approach == "single":
+            return state.es_wait >= cfg.patience
+        if e < cfg.patience:
+            return torch.zeros_like(state.done)
+        return state.val_loss_h[:, e, 0] > state.val_loss_h[:, e - cfg.patience, 0]
 
-    def run_epoch(self, state: TrainState, stacked, val: EvalSet, coal_mask,
-                  generator, streams=None) -> TrainState:
-        """One epoch; an already stopped run is left unchanged."""
-        if state.done:
+    def run_epoch(self, state: TrainState, stacked, val: EvalSet, masks,
+                  generators, streams=None) -> TrainState:
+        """One epoch of every run still training (`masks` [B, P]); a run
+        that has stopped is left unchanged. `streams` ([B, P, Nmax] fedavg,
+        [B, Nmax] single permutations) replaces the generators' draws."""
+        cfg = self.cfg
+        if state.epoch >= cfg.epoch_count or (
+                cfg.is_early_stopping and bool(state.done.all())):
             return state
-        self._fedavg_epoch(state, stacked, val, coal_mask, generator, streams)
+        frozen = state.done.clone()
+        epoch_fn = self._single_epoch if cfg.approach == "single" else self._fedavg_epoch
+        params = epoch_fn(state, stacked, val, masks, generators, streams, frozen)
+        state.params = _keep_frozen(frozen, state.params, params)
         stop = self._early_stop_flag(state)
         state.epoch += 1
-        state.nb_epochs_done += 1
-        state.done = stop or state.epoch >= self.cfg.epoch_count
+        state.nb_epochs_done = torch.where(frozen, state.nb_epochs_done,
+                                           state.nb_epochs_done + 1)
+        state.done = frozen | stop | (state.epoch >= cfg.epoch_count)
         return state
 
-    def epoch_chunk(self, state: TrainState, stacked, val: EvalSet, coal_mask,
-                    generator, n_epochs: int, streams_all=None) -> TrainState:
-        """Up to `n_epochs` epochs, stopping early once the run is done
-        (early stopping, or epoch_count reached); `streams_all`
-        ([n_epochs, P, Nmax] permutations) replaces the generator's draws."""
+    def epoch_chunk(self, state: TrainState, stacked, val: EvalSet, masks,
+                    generators, n_epochs: int, streams_all=None) -> TrainState:
+        """Up to `n_epochs` epochs, ending once every run is done (early
+        stopping, or epoch_count reached); `streams_all` ([B, n_epochs,
+        ...] permutations) replaces the generators' draws."""
         for i in range(n_epochs):
-            self.run_epoch(state, stacked, val, coal_mask, generator,
-                           None if streams_all is None else streams_all[i])
+            self.run_epoch(state, stacked, val, masks, generators,
+                           None if streams_all is None else streams_all[:, i])
         return state
 
     def finalize(self, state: TrainState, test: EvalSet) -> tuple[torch.Tensor, torch.Tensor]:
-        """(test_loss, test_accuracy) of the final global model."""
-        return self.evaluate(state.params, test)
+        """([B] test_loss, [B] test_accuracy) of the final global models."""
+        return self.evaluate_models(state.params, test)

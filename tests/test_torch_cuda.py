@@ -1,4 +1,5 @@
-"""K1 and K1-bf16 on the card: each CUDA kernel against its plain version.
+"""The port on the card: K1 and K1-bf16 against their plain versions, the
+retraining sweep against the CPU, and fp32 reproducibility.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -10,7 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from mplc_tpu_torch.contrib.contributivity import Contributivity
+from mplc_tpu_torch.contrib.reconstruct import record_updates
+from mplc_tpu_torch.contrib.shapley import powerset_order
+from mplc_tpu_torch.data.datasets import load_mnist, load_titanic
 from mplc_tpu_torch.ops import recon_kernel as trk
+from mplc_tpu_torch.scenario import Scenario
 
 pytestmark = pytest.mark.cuda
 
@@ -151,3 +157,36 @@ def test_bf16_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         trk.fused_contract_bf16(wn2, d2, init[:-1])
     with pytest.raises(ValueError, match="CUDA"):
         trk.fused_contract_bf16(wn2, d2.cpu(), init)
+
+
+def _titanic_sweep(device):
+    sc = Scenario(3, [0.2, 0.3, 0.5], dataset=load_titanic(), epoch_count=2,
+                  minibatch_count=2, gradient_updates_per_pass_count=2,
+                  is_early_stopping=False, methods=["Shapley values"], seed=0,
+                  device=device)
+    sc.run()
+    return (np.array([sc._charac_engine.charac_fct_values[s] for s in powerset_order(3)]),
+            len(sc.dataset.x_test))
+
+
+def test_titanic_sweep_on_the_card_matches_the_cpu(cuda):
+    (card, n_test), (cpu, _) = _titanic_sweep("cuda"), _titanic_sweep("cpu")
+    # one test sample may flip at a decision boundary
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1.0 / n_test + 1e-6)
+
+
+def test_two_fp32_recordings_on_the_card_are_bit_equal(cuda):
+    """The MNIST CNN (cuDNN convolutions, cuBLAS products) recorded twice
+    from one seed: every delta, weight and final parameter bit-equal."""
+    sc = Scenario(3, [0.2, 0.3, 0.5], dataset=load_mnist(scale=0.02), epoch_count=1,
+                  minibatch_count=2, gradient_updates_per_pass_count=2,
+                  is_early_stopping=False, seed=0, device="cuda")
+    sc.instantiate_scenario_partners()
+    sc.split_data()
+    c = Contributivity(sc)
+    a, b = c._reconstructor().recorded, record_updates(c.engine)
+    assert torch.equal(a.weights, b.weights)
+    for x, y in ((a.deltas, b.deltas), (a.final_params, b.final_params)):
+        for g in x:
+            for k in x[g]:
+                assert torch.equal(x[g][k], y[g][k]), (g, k)

@@ -231,12 +231,13 @@ def _recordings(mode):
     perms, _ = jtrainer.gen_epoch_streams(rng, jstacked.mask, 0, EPOCHS)
 
     trainer = MplTrainer(tzoo.TITANIC_LOGREG, TrainConfig(precision=mode, **_TRAIN))
-    state = trainer.init_state(None, 3, "cpu", init_params=params_from_numpy(init_np))
+    state = trainer.init_state(None, 3, "cpu", init_params=params_from_numpy(
+        jax.tree_util.tree_map(lambda a: a[None], init_np)))
     trainer.epoch_chunk(state, StackedPartners.build(tp, 1, "cpu"),
                         stage_eval_set(td.x_val, td.y_val, 1, "cpu"),
-                        torch.ones(3), None, EPOCHS,
-                        streams_all=torch.from_numpy(np.array(perms)))
-    return jstate, state, init_np
+                        torch.ones(1, 3), None, EPOCHS,
+                        streams_all=torch.from_numpy(np.array(perms))[None])
+    return jstate, state.row(0), init_np
 
 
 @pytest.fixture(scope="module")

@@ -72,11 +72,13 @@ def test_titanic_recording_trajectory_matches_jax():
     perms, _ = jtrainer.gen_epoch_streams(rng, jstacked.mask, 0, 2)
 
     trainer = MplTrainer(tzoo.TITANIC_LOGREG, TrainConfig(**cfg))
-    state = trainer.init_state(None, 3, "cpu", init_params=params_from_numpy(init_np))
+    state = trainer.init_state(None, 3, "cpu", init_params=params_from_numpy(
+        jax.tree_util.tree_map(lambda a: a[None], init_np)))
     trainer.epoch_chunk(state, StackedPartners.build(tp, 1, "cpu"),
                         stage_eval_set(td.x_val, td.y_val, 1, "cpu"),
-                        torch.ones(3), None, 2,
-                        streams_all=torch.from_numpy(np.array(perms)))
+                        torch.ones(1, 3), None, 2,
+                        streams_all=torch.from_numpy(np.array(perms))[None])
+    state = state.row(0)
     assert state.done and state.nb_epochs_done == 2
 
     # data-volume weights are ratios of integer sizes
@@ -164,7 +166,7 @@ def test_scenario_without_cuda_raises():
         Scenario(3, AMOUNTS, dataset=tdatasets.load_titanic())
 
 
-@pytest.mark.parametrize("method", ["Shapley values", "TMCS", "SVARM", "auto"])
+@pytest.mark.parametrize("method", ["ITMCS", "TMCS", "SVARM", "auto"])
 def test_unported_methods_raise(method):
     sc = Scenario(3, AMOUNTS, dataset=tdatasets.load_titanic(), device="cpu", **GAME)
     sc.instantiate_scenario_partners()
