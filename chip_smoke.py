@@ -35,10 +35,21 @@ Phases, each of which fails the script (non-zero exit, no result line):
    the exact sum printed beside the plain version's);
 8. sweep: the retraining exact-Shapley sweep through the user entry point,
    `Scenario(methods=["Shapley values", "Independent scores"]).run()`, on
-   the MNIST CNN at full width and 5 partners (31 coalitions retrained),
-   with its seconds per batch and peak memory; then the Titanic sweep on
-   the card twice, which must be bit-equal, and on the CPU, which the
-   card's must match within one test sample.
+   the MNIST CNN at full width and 5 partners (31 coalitions retrained, the
+   multi-partner ones on merged slot buckets), with its seconds per batch
+   and peak memory; then the Titanic sweep on the card twice, which must
+   be bit-equal, and on the CPU, which the card's must match within one
+   test sample;
+9. slots: the MNIST CNN at bench config 1's 10 partners, the 45 pairs and
+   the 10 nine-partner coalitions on slots, the first 16 pairs again
+   masked (`MPLC_TORCH_NO_SLOTS=1`), which must agree within one test
+   sample and rank alike; then, under MPLC_TORCH_DETERMINISTIC_REDUCE=1, a
+   Titanic batch of coalitions through the slot trainer and the masked
+   trainer, whose parameters must agree within 1e-6;
+10. cache: the sweep's coalition cache saved, a fresh scenario resumed
+   from it (no batch trained, the same Shapley values bit for bit), and
+   the file with one byte flipped quarantined on the next resume, which
+   starts cold.
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -52,11 +63,13 @@ The line before the last two is `{"kernels": [...]}`; then the card's
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -66,11 +79,13 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from mplc_tpu_torch.contrib.contributivity import Contributivity  # noqa: E402
+from mplc_tpu_torch.contrib.engine import CharacteristicEngine  # noqa: E402
 from mplc_tpu_torch.contrib.reconstruct import record_updates  # noqa: E402
 from mplc_tpu_torch.contrib.shapley import powerset_order  # noqa: E402
 from mplc_tpu_torch import constants  # noqa: E402
 from mplc_tpu_torch.data.datasets import load_mnist, load_titanic  # noqa: E402
 from mplc_tpu_torch.obs import numerics  # noqa: E402
+from mplc_tpu_torch.mpl.engine import MplTrainer  # noqa: E402
 from mplc_tpu_torch.ops import cuda_build, recon_kernel  # noqa: E402
 from mplc_tpu_torch.scenario import Scenario  # noqa: E402
 
@@ -141,31 +156,37 @@ def peaks_for(name: str) -> dict:
 
 
 @contextlib.contextmanager
-def precision_env(mode: str):
-    """MPLC_TORCH_PRECISION set to `mode` inside the block, restored after
-    (the mode is frozen into each TrainConfig built inside)."""
-    old = os.environ.get(constants.PRECISION_ENV)
-    os.environ[constants.PRECISION_ENV] = mode
+def knob(name: str, value: str):
+    """Environment knob `name` set to `value` inside the block, restored
+    after (the port reads its knobs when a config or an engine is built)."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop(constants.PRECISION_ENV, None)
+            os.environ.pop(name, None)
         else:
-            os.environ[constants.PRECISION_ENV] = old
+            os.environ[name] = old
 
 
-def mnist_scenario(methods, partners: int = PARTNERS) -> Scenario:
+def precision_env(mode: str):
+    """MPLC_TORCH_PRECISION set to `mode` inside the block (the mode is
+    frozen into each TrainConfig built inside)."""
+    return knob(constants.PRECISION_ENV, mode)
+
+
+def mnist_scenario(methods, partners: int = PARTNERS, **kw) -> Scenario:
     """bench.py config 1's settings, partner i holding (i+1)/sum of the
-    data (10 partners: (i+1)/55)."""
+    data (10 partners: (i+1)/55); a dry run, which writes no files."""
     total = sum(range(1, partners + 1))
-    return Scenario(partners, [(i + 1) / total for i in range(partners)],
+    return Scenario(partners, [(i + 1) / total for i in range(partners)], is_dry_run=True,
                     dataset=load_mnist(scale=SCALE, noise=NOISE),
                     multi_partner_learning_approach="fedavg",
                     aggregation_weighting="data-volume", epoch_count=2,
                     minibatch_count=10, gradient_updates_per_pass_count=8,
                     is_early_stopping=False, methods=methods, seed=0,
-                    device=DEVICE)
+                    device=DEVICE, **kw)
 
 
 def phase_slice(precision: str = "fp32") -> dict:
@@ -242,7 +263,7 @@ def titanic_recording(device: str, epochs: int, precision: str) -> tuple:
     """(evaluator, test-set size) of a Titanic 3-partner game recorded and
     valued on `device` under `precision`."""
     with precision_env(precision):
-        sc = Scenario(3, [0.2, 0.3, 0.5], dataset=load_titanic(),
+        sc = Scenario(3, [0.2, 0.3, 0.5], is_dry_run=True, dataset=load_titanic(),
                       epoch_count=epochs, minibatch_count=2,
                       gradient_updates_per_pass_count=2,
                       is_early_stopping=False, seed=0, device=device)
@@ -590,19 +611,27 @@ SWEEP_PARTNERS = 5
 SWEEP_METHODS = ["Shapley values", "Independent scores"]
 
 
-def phase_sweep() -> None:
+def batch_lines(tag: str, eng) -> None:
+    for b in eng.batch_log:
+        slots = "masked" if b["slot_count"] is None else f"{b['slot_count']} slots"
+        if b["kind"] == "single":
+            slots = "single"
+        print(f"[{tag}] batch {slots}, width {b['width']}: {b['coalitions']} "
+              f"coalitions in {b['seconds']:.3f} s "
+              f"({b['seconds'] / b['coalitions']:.3f} s a coalition)")
+
+
+def phase_sweep() -> dict:
     """The retraining exact-Shapley sweep through the user entry point:
     the MNIST CNN at full width on the slice's data, bench config 1's
     training, 5 partners split (i+1)/15. 31 coalitions are retrained: the
-    5 singles in one batch (width 8) and the 26 others in two batches of
-    16; "Independent scores" then reads the singles' memoized values.
+    5 singles in one batch (width 8), then the others on merged slot
+    buckets: sizes 2 and 3 at 3 slots (20 coalitions, batches of 16 and
+    4 in a width of 16), sizes 4 and 5 at 5 slots (6 coalitions, width 8).
+    "Independent scores" then reads the singles' memoized values.
 
-    Cut from bench config 1's 10 partners: every masked coalition trains
-    on all the data (masked partners compute too), and a batch of 16
-    takes about four warm recordings' time (4.3 s on an H100), so the
-    1023 coalitions of 10 partners, 64 batches, would take several times
-    the rest of the script. The 10-partner sweep waits for slot execution
-    and a bench cell."""
+    Cut from bench config 1's 10 partners for the script's time; the
+    slots phase runs part of the 10-partner sweep."""
     P = SWEEP_PARTNERS
     recon_kernel.launches = recon_kernel.launches_bf16 = 0
     base = torch.cuda.memory_allocated()
@@ -619,15 +648,17 @@ def phase_sweep() -> None:
     values = np.array([eng.charac_fct_values[s] for s in subsets])
     v_all = eng.charac_fct_values[tuple(range(P))]
     sv, ind = sv_c.contributivity_scores, ind_c.contributivity_scores
-    batches = [(b["kind"], b["width"], b["coalitions"]) for b in eng.batch_log]
-    print(f"[sweep] MNIST CNN, {P} partners, {len(subsets)} coalitions retrained: "
-          f"{wall:.2f} s for Scenario.run() (fit {sc.mpl.learning_computation_time:.2f} s, "
-          f"Shapley {sv_c.computation_time_sec:.2f} s, independent "
-          f"{ind_c.computation_time_sec:.4f} s); peak memory {peak / 2 ** 30:.2f} GiB "
+    batches = [(b["kind"], b["width"], b["slot_count"], b["coalitions"])
+               for b in eng.batch_log]
+    sweep_s = sum(b["seconds"] for b in eng.batch_log)
+    print(f"[sweep] MNIST CNN, {P} partners, {len(subsets)} coalitions retrained "
+          f"({sc.slot_bucketing} slot buckets): {wall:.2f} s for Scenario.run() "
+          f"(fit {sc.mpl.learning_computation_time:.2f} s, Shapley "
+          f"{sv_c.computation_time_sec:.2f} s, independent "
+          f"{ind_c.computation_time_sec:.4f} s; batches {sweep_s:.2f} s, against 9.86-10.01 s "
+          f"masked on an H100 80GB HBM3 at 700 W); peak memory {peak / 2 ** 30:.2f} GiB "
           f"({(peak - base) / 2 ** 30:.2f} GiB above the phase's start)")
-    for b in eng.batch_log:
-        print(f"[sweep] batch {b['kind']} width {b['width']}: {b['coalitions']} "
-              f"coalitions in {b['seconds']:.3f} s")
+    batch_lines("sweep", eng)
     print("[sweep] v(S) " + json.dumps(
         {",".join(map(str, s)): round(float(v), 4) for s, v in zip(subsets, values)}))
     print(f"[sweep] Shapley values {np.round(sv, 4).tolist()} (sum {sv.sum():.6f}, "
@@ -640,16 +671,170 @@ def phase_sweep() -> None:
     check(abs(sv.sum() - v_all) <= 1e-6, "the Shapley values do not sum to v(N)")
     check(list(ind) == [eng.charac_fct_values[(i,)] for i in range(P)],
           "the independent scores are not the singles' values")
-    check(batches == [("single", 8, 5), ("multi", 16, 16), ("multi", 16, 10)],
+    check(sc.slot_bucketing == "merge", f"the sweep ran {sc.slot_bucketing}, not merge")
+    check(batches == [("single", 8, None, 5), ("multi", 16, 3, 16), ("multi", 16, 3, 4),
+                      ("multi", 8, 5, 6)],
           f"the sweep trained other batches than its 31 coalitions need: {batches}")
     check(recon_kernel.launches == recon_kernel.launches_bf16 == 0,
           "the retraining sweep launched a reconstruction kernel")
+    return {"scenario": sc, "sv": sv}
+
+
+# The slots phase: bench config 1's 10 partners; the masked reference
+# trains the first MASKED_PAIRS pairs, one batch
+MASKED_PAIRS = 16
+
+
+def width_seconds(eng) -> dict:
+    """{slot count or "masked": seconds a coalition} over the engine's
+    multi-partner batches."""
+    out = {}
+    for b in eng.batch_log:
+        key = "masked" if b["slot_count"] is None else str(b["slot_count"])
+        s, n = out.get(key, (0.0, 0))
+        out[key] = (s + b["seconds"], n + b["coalitions"])
+    return {k: s / n for k, (s, n) in out.items()}
+
+
+def phase_slots() -> None:
+    """The MNIST CNN at full width on the slice's data, bench config 1's
+    10 partners split (i+1)/55 and its training, no fit: the 45 pairs
+    (3 slots, merged with nothing at this width: three batches of 16) and
+    the 10 nine-partner coalitions (9 slots, one batch) on slots, then the
+    first 16 pairs masked over all 10 partners. Each pair must agree
+    within one test sample and rank alike (Kendall tau-b 1.0)."""
+    sc = mnist_scenario([], PARTNERS)
+    sc.instantiate_scenario_partners()
+    sc.split_data()
+    eng = CharacteristicEngine(sc)
+    pairs = [s for s in powerset_order(PARTNERS) if len(s) == 2]
+    nines = [s for s in powerset_order(PARTNERS) if len(s) == PARTNERS - 1]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    values = eng.evaluate(pairs + nines)
+    slot_s = time.perf_counter() - t0
+    slot_peak = torch.cuda.max_memory_allocated()
+    with knob(constants.NO_SLOTS_ENV, "1"):
+        masked_eng = CharacteristicEngine(sc)
+    torch.cuda.reset_peak_memory_stats()
+    ref = masked_eng.evaluate(pairs[:MASKED_PAIRS])
+    masked_peak = torch.cuda.max_memory_allocated()
+    got = values[:MASKED_PAIRS]
+    n_test = len(sc.dataset.x_test)
+    same = sum(numerics.float_bits(a) == numerics.float_bits(b) for a, b in zip(got, ref))
+    tau = numerics.diff_values(got, ref)["kendall_tau"]
+    dv = float(np.abs(got - ref).max())
+    print(f"[slots] MNIST CNN, {PARTNERS} partners: {len(pairs)} pairs and {len(nines)} "
+          f"nine-partner coalitions on slots in {slot_s:.2f} s; seconds a coalition "
+          f"{json.dumps(width_seconds(eng))} on slots, "
+          f"{json.dumps(width_seconds(masked_eng))} masked; peak memory above the "
+          f"phase's start {(slot_peak - base) / 2 ** 30:.2f} GiB on slots, "
+          f"{(masked_peak - base) / 2 ** 30:.2f} GiB masked")
+    batch_lines("slots", eng)
+    batch_lines("slots", masked_eng)
+    print(f"[slots] first {MASKED_PAIRS} pairs, slots vs masked: {same} of "
+          f"{MASKED_PAIRS} v(S) bit-equal, max diff {dv:.4f} (1/n_test "
+          f"{1 / n_test:.4f}), Kendall tau-b {tau}; v(S) on slots "
+          f"{np.round(got, 4).tolist()}; nine-partner v(S) "
+          f"{np.round(values[len(pairs):], 4).tolist()}")
+    check(bool(np.isfinite(values).all() and (values >= 0).all() and (values <= 1).all()),
+          "a v(S) on slots is not finite in [0, 1]")
+    check([(b["slot_count"], b["coalitions"]) for b in eng.batch_log]
+          == [(3, 16), (3, 16), (3, 13), (9, 10)],
+          f"the slot run trained other batches than planned: {eng.batch_log}")
+    check(dv <= 1.0 / n_test + 1e-6, "slot and masked v(S) differ by more than one sample")
+    check(tau == 1.0, f"slot and masked v(S) rank differently (tau-b {tau})")
+
+
+def phase_deterministic_reduce() -> None:
+    """Under MPLC_TORCH_DETERMINISTIC_REDUCE=1 (which routes the engine's
+    sweeps masked) the four multi-partner coalitions of a Titanic 3-partner
+    game, one batch, through the slot trainer (3 slots) and the masked
+    trainer on the card: parameters within 1e-6, v(S) within one test
+    sample. Bit-equality is gated on the CPU only (tests/test_torch_slots.py):
+    cuDNN and cuBLAS may choose other algorithms at other vmap widths."""
+    with knob(constants.DETERMINISTIC_REDUCE_ENV, "1"):
+        sc = Scenario(3, [0.2, 0.3, 0.5], is_dry_run=True, dataset=load_titanic(),
+                      epoch_count=2, minibatch_count=2, gradient_updates_per_pass_count=2,
+                      is_early_stopping=False, seed=0, device=DEVICE)
+        sc.instantiate_scenario_partners()
+        sc.split_data()
+        eng = CharacteristicEngine(sc)
+    check(eng._multi_cfg.deterministic_reduce and sc.slot_bucketing == "masked",
+          "the deterministic reduce did not route the engine masked")
+    subsets = [s for s in powerset_order(3) if len(s) > 1]
+    results = []
+    for slots in (None, 3):
+        tr = MplTrainer(eng.model, dataclasses.replace(eng._multi_cfg, slot_count=slots))
+        gens = [eng.coalition_generator(s) for s in subsets]
+        state = tr.init_state(gens, 3, DEVICE)
+        coal = torch.from_numpy(eng._coalition_arrays(subsets, slots)).to(DEVICE)
+        tr.epoch_chunk(state, eng.stacked, eng.val, coal, gens, tr.cfg.epoch_count)
+        results.append((state.params, tr.finalize(state, eng.test)[1].cpu().numpy()))
+    (pm, vm), (ps, vs) = results
+    pairs = [(pm[g][k], ps[g][k]) for g in pm for k in pm[g]]
+    err = max((a - b).abs().max().item() for a, b in pairs)
+    same = sum(torch.equal(a, b) for a, b in pairs)
+    dv = float(np.abs(vm - vs).max())
+    n_test = len(sc.dataset.x_test)
+    print(f"[slots] titanic, deterministic reduce, slots vs masked on the card: "
+          f"{same} of {len(pairs)} parameter tensors bit-equal, max abs err {err:.3g}; "
+          f"v(S) max diff {dv:.4f} (1/n_test {1 / n_test:.4f})")
+    check(err <= 1e-6, "slot and masked parameters differ by more than 1e-6")
+    check(dv <= 1.0 / n_test + 1e-6, "slot and masked v(S) differ by more than one sample")
+
+
+def phase_cache(sweep: dict) -> None:
+    """The sweep's cache saved; a fresh 5-partner scenario resumed from it
+    must train no batch, restore the call count and give the same Shapley
+    values bit for bit; the file with one byte flipped must be quarantined
+    by the next resume, which starts cold (its independent scores train
+    the singles again)."""
+    eng = sweep["scenario"]._charac_engine
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "coalition_cache.json"
+        t0 = time.perf_counter()
+        eng.save_cache(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sc = mnist_scenario(SWEEP_METHODS, SWEEP_PARTNERS, contributivity_cache_from=path)
+        sc.run()
+        resume_s = time.perf_counter() - t0
+        again = sc._charac_engine
+        sv = sc.contributivity_list[0].contributivity_scores
+        same = [numerics.float_bits(a) == numerics.float_bits(b)
+                for a, b in zip(sv, sweep["sv"])]
+        print(f"[cache] saved {len(eng.charac_fct_values)} values ({path.stat().st_size} "
+              f"bytes) in {save_s:.4f} s; resumed Scenario.run() {resume_s:.2f} s, "
+              f"{len(again.batch_log)} batches trained, call count "
+              f"{again.first_charac_fct_calls_count}, {sum(same)} of {len(same)} "
+              f"Shapley values bit-equal")
+        check(again.batch_log == [], "the resumed sweep trained coalitions")
+        check(again.first_charac_fct_calls_count == eng.first_charac_fct_calls_count,
+              "the resumed call count differs")
+        check(all(same), "the resumed Shapley values differ from the sweep's")
+
+        raw = bytearray(path.read_bytes())
+        i = raw.index(b".", raw.index(b'"charac_fct_values"')) + 1
+        raw[i] = ord("7") if raw[i] != ord("7") else ord("3")
+        path.write_bytes(bytes(raw))
+        cold = mnist_scenario(["Independent scores"], SWEEP_PARTNERS,
+                              contributivity_cache_from=path)
+        cold.run()
+        quarantined = path.with_name(path.name + ".corrupt")
+        log = [(b["kind"], b["coalitions"]) for b in cold._charac_engine.batch_log]
+        print(f"[cache] one byte flipped: quarantined {quarantined.exists()}, original "
+              f"left {path.exists()}; the cold resume trained {log}")
+        check(quarantined.exists() and not path.exists(), "the corrupt cache was not "
+                                                           "quarantined")
+        check(log == [("single", SWEEP_PARTNERS)], "the resume did not start cold")
 
 
 def titanic_sweep(device: str) -> tuple:
     """(v(S) over the powerset, the scenario, test-set size) of the
     Titanic 3-partner retraining sweep (fp32) on `device`."""
-    sc = Scenario(3, [0.2, 0.3, 0.5], dataset=load_titanic(), epoch_count=2,
+    sc = Scenario(3, [0.2, 0.3, 0.5], is_dry_run=True, dataset=load_titanic(), epoch_count=2,
                   minibatch_count=2, gradient_updates_per_pass_count=2,
                   is_early_stopping=False, methods=["Shapley values"], seed=0,
                   device=device)
@@ -694,8 +879,11 @@ def main() -> int:
     phase_stages(sl["recon"])
     kernels = phase_kernels(sl, card)
     kernels += phase_precision(sl["values"], card)
-    phase_sweep()
+    sweep = phase_sweep()
     phase_sweep_reference()
+    phase_slots()
+    phase_deterministic_reduce()
+    phase_cache(sweep)
 
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -142,3 +142,28 @@ def precision_mode() -> str:
                       f"falling back to fp32", stacklevel=2)
         return "fp32"
     return raw
+
+
+# Deterministic reduction (the JAX package's knob of the same name):
+# =1 folds every aggregation's normalizer and weighted sum strictly left to
+# right (ops/aggregation.py `ordered_fold`), so slot and masked training of
+# one coalition aggregate to the same bits. Default off: `torch.sum`. Read
+# when a TrainConfig is built and frozen into it, so a trainer's reduction
+# is the one its coalition cache fingerprint names.
+DETERMINISTIC_REDUCE_ENV = "MPLC_TORCH_DETERMINISTIC_REDUCE"
+
+
+def deterministic_reduce_enabled() -> bool:
+    return os.environ.get(DETERMINISTIC_REDUCE_ENV, "") == "1"
+
+
+# Slot execution of the retraining sweep (contrib/engine.py), read when a
+# CharacteristicEngine is built:
+#   MPLC_TORCH_NO_SLOTS=1    every fedavg coalition trains masked over all P
+#                            partners (slot_bucketing "masked");
+#   MPLC_TORCH_SLOT_MERGE=0  one slot width per coalition size ("exact");
+#   MPLC_TORCH_SLOT_POW2=1   sizes rounded up to a power of two ("pow2").
+# The default ("merge") runs sizes k and k + 1 (k even) at width k + 1.
+NO_SLOTS_ENV = "MPLC_TORCH_NO_SLOTS"
+SLOT_MERGE_ENV = "MPLC_TORCH_SLOT_MERGE"
+SLOT_POW2_ENV = "MPLC_TORCH_SLOT_POW2"

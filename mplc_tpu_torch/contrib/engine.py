@@ -1,21 +1,32 @@
 """The characteristic-function engine (port of `mplc_tpu/contrib/engine.py`:
-staging, the coalition helpers and the masked retraining sweep).
+staging, the coalition helpers, the retraining sweep on slots or masked,
+and the checksummed coalition cache).
 
 It stages the scenario's data once on the scenario's device (stacked
 partners, val and test sets), derives the coalition-training configs, and
-gives each coalition its mask and its own random stream. `evaluate` is the
-batched, memoized v(S) = the test accuracy of a model trained on S alone:
-single-partner coalitions train through the single trainer, the others
-through masked FedAvg, up to MAX_COALITIONS_PER_DEVICE_BATCH coalitions a
-batch. The retrain-free path (contrib/reconstruct.py) runs on the same
-staged data. Slot execution, the coalition cache, the fault ladder, the
-program bank and batch pipelining are not ported yet (ROADMAP.md).
+gives each coalition its mask or slot ids and its own random stream.
+`evaluate` is the batched, memoized v(S) = the test accuracy of a model
+trained on S alone: single-partner coalitions train through the single
+trainer, the others through FedAvg, up to MAX_COALITIONS_PER_DEVICE_BATCH
+coalitions a batch. FedAvg coalitions train on slots by default, grouped by
+slot width (`_slot_buckets`), or masked over all P partners
+(MPLC_TORCH_NO_SLOTS=1, and always under MPLC_TORCH_DETERMINISTIC_REDUCE,
+as the JAX package routes it). The memo is saved to a checksummed JSON
+cache (`save_cache`, after every trained batch when `autosave_path` is
+set) and restored from it (`load_cache`), keyed by everything v(S)
+depends on. The retrain-free path (contrib/reconstruct.py) runs on the
+same staged data. The fault ladder, the program bank and batch pipelining
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -24,6 +35,23 @@ from .. import constants
 from ..data.partition import StackedPartners
 from ..mpl.approaches import stage_eval_set
 from ..mpl.engine import MplTrainer, TrainConfig
+
+
+# one deprecation warning a process for legacy no-checksum caches
+_legacy_cache_warned = False
+
+# The random streams the port's coalitions draw (`coalition_generator`),
+# named in the cache fingerprint: a cache of the JAX package, whose
+# coalitions draw threefry streams, describes another game
+RNG_STREAMS = "torch-seedsequence"
+JAX_RNG_STREAMS = "jax-threefry"
+
+
+class CacheIntegrityError(ValueError):
+    """A coalition cache file is unreadable as a file: truncated, corrupt,
+    failing its checksum or missing payload keys. Distinct from the
+    fingerprint ValueError (a valid cache of another game): resume may
+    quarantine such a file and start cold, never a mismatched one."""
 
 
 def _bucket_size(n: int, n_dev: int, cap_per_dev: int) -> int:
@@ -43,16 +71,17 @@ class BatchedTrainerPipeline:
         self.trainer = trainer
         self.partners_count = partners_count
 
-    def scores(self, masks: torch.Tensor, generators, stacked, val, test,
+    def scores(self, coal: torch.Tensor, generators, stacked, val, test,
                init_params: dict | None = None,
                streams_all: torch.Tensor | None = None) -> tuple[np.ndarray, np.ndarray]:
-        """(test accuracies, epochs trained) of the coalitions `masks`
-        [B, P], each trained from its generator's stream, or from injected
-        initial params ([B, ...] leaves) and permutations ([B, E, ...])."""
+        """(test accuracies, epochs trained) of the coalitions `coal`
+        (masks [B, P], or slot ids [B, K] on a slot trainer), each trained
+        from its generator's stream, or from injected initial params
+        ([B, ...] leaves) and permutations ([B, E, ...])."""
         tr = self.trainer
-        state = tr.init_state(generators, self.partners_count, masks.device,
+        state = tr.init_state(generators, self.partners_count, coal.device,
                               init_params)
-        tr.epoch_chunk(state, stacked, val, masks, generators,
+        tr.epoch_chunk(state, stacked, val, coal, generators,
                        tr.cfg.epoch_count, streams_all)
         _, accs = tr.finalize(state, test)
         return accs.cpu().numpy(), state.nb_epochs_done.cpu().numpy()
@@ -95,12 +124,36 @@ class CharacteristicEngine:
         self.single_pipe = BatchedTrainerPipeline(
             MplTrainer(self.model, dataclasses.replace(self._multi_cfg, approach="single")),
             self.partners_count)
+        # Slot execution: a size-k fedavg coalition trains k partner slots
+        # instead of P masked partners, one lazily built pipeline a slot
+        # width. Under the deterministic reduce fedavg sweeps run masked, as
+        # in the JAX package (there they take its partner-sharded pipeline).
+        self._use_slots = (self._multi_cfg.approach == "fedavg"
+                           and not self._multi_cfg.deterministic_reduce
+                           and os.environ.get(constants.NO_SLOTS_ENV) != "1")
+        self._slot_pow2 = os.environ.get(constants.SLOT_POW2_ENV) == "1"
+        self._slot_merge = (not self._slot_pow2 and os.environ.get(
+            constants.SLOT_MERGE_ENV) not in ("0", "exact"))
+        self._slot_pipes: dict[int, BatchedTrainerPipeline] = {}
+        # the bucketing mode that runs, recorded on the scenario
+        scenario.slot_bucketing = (
+            "masked" if not self._use_slots
+            else "pow2" if self._slot_pow2
+            else "merge" if self._slot_merge else "exact")
 
         self.charac_fct_values: dict[tuple, float] = {(): 0.0}
         self.increments_values = [dict() for _ in range(self.partners_count)]
         self.first_charac_fct_calls_count = 0
-        # one entry per trained batch: kind, width, coalitions, seconds
+        # one entry per trained batch: kind, width, slot_count (None for
+        # masked and single batches), coalitions, seconds
         self.batch_log: list[dict] = []
+        # the cache is saved here after every trained batch (Scenario.run)
+        self.autosave_path = None
+        # a legacy (no-checksum) cache loaded from this path is rewritten
+        # with a checksum by the next save to it
+        self._cache_needs_upgrade = False
+        self._legacy_cache_path: str | None = None
+        self._digest: str | None = None
 
     # ------------------------------------------------------------------
     # coalition helpers
@@ -122,15 +175,23 @@ class CharacteristicEngine:
         ss = np.random.SeedSequence([int(self.seed), *words])
         return torch.Generator().manual_seed(int(ss.generate_state(1, np.uint64)[0]))
 
-    def _coalition_arrays(self, subsets: list[tuple]) -> np.ndarray:
-        """[N, P] float32 membership masks of every subset (one scatter)."""
+    def _coalition_arrays(self, subsets: list[tuple],
+                          slot_count: int | None = None) -> np.ndarray:
+        """Every subset's [N, slot_count] int32 slot ids, -1 marking an
+        unused slot, or [N, P] float32 membership masks (one scatter)."""
         n = len(subsets)
         lens = np.fromiter((len(s) for s in subsets), np.intp, n)
+        total = int(lens.sum())
         rows = np.repeat(np.arange(n), lens)
-        members = np.fromiter((int(i) for s in subsets for i in s), np.int64,
-                              int(lens.sum()))
-        coal = np.zeros((n, self.partners_count), np.float32)
-        coal[rows, members] = 1.0
+        members = np.fromiter((int(i) for s in subsets for i in sorted(s)),
+                              np.int64, total)
+        if slot_count is not None:
+            coal = np.full((n, slot_count), -1, np.int32)
+            cols = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+            coal[rows, cols] = members
+        else:
+            coal = np.zeros((n, self.partners_count), np.float32)
+            coal[rows, members] = 1.0
         return coal
 
     def _effective_subset(self, subset: tuple) -> tuple:
@@ -169,13 +230,43 @@ class CharacteristicEngine:
                     self.increments_values[i][subset] = \
                         self.charac_fct_values[with_i] - value
 
-    def _run_batch(self, subsets: list[tuple], pipe: BatchedTrainerPipeline) -> None:
-        """Train and value `subsets` on `pipe`, in batches of one width for
-        the whole call: the tail is padded with copies of its batch's first
-        coalition, whose results are dropped."""
+    def _slot_pipe(self, k: int) -> BatchedTrainerPipeline:
+        if k not in self._slot_pipes:
+            cfg = dataclasses.replace(self._multi_cfg, slot_count=k)
+            self._slot_pipes[k] = BatchedTrainerPipeline(
+                MplTrainer(self.model, cfg), self.partners_count)
+        return self._slot_pipes[k]
+
+    def _slot_width(self, k: int) -> int:
+        """The slot width a size-k coalition trains at: k (`exact`), k
+        rounded up to odd (`merge`: even k rides size k + 1's width) or to
+        a power of two (`pow2`), capped at the partner count."""
+        if self._slot_pow2:
+            return min(1 << (k - 1).bit_length(), self.partners_count)
+        if self._slot_merge:
+            return min(k + (k % 2 == 0), self.partners_count)
+        return k
+
+    def _slot_buckets(self, multis: list[tuple]) -> list[tuple[int, list[tuple]]]:
+        """The coalitions grouped by slot width, widths ascending. A
+        coalition narrower than its width leaves slots unused (-1), which
+        train nothing and weigh nothing, so every mode gives the same
+        values."""
+        by_width: dict[int, list[tuple]] = {}
+        for s in multis:
+            by_width.setdefault(self._slot_width(len(s)), []).append(s)
+        return [(w, by_width[w]) for w in sorted(by_width)]
+
+    def _run_batch(self, subsets: list[tuple], pipe: BatchedTrainerPipeline,
+                   slot_count: int | None = None) -> None:
+        """Train and value `subsets` on `pipe` (a slot pipeline when
+        `slot_count` is given), in batches of one width for the whole call:
+        the tail is padded with copies of its batch's first coalition,
+        whose results are dropped. Saves the cache after every batch when
+        `autosave_path` is set."""
         cap = constants.MAX_COALITIONS_PER_DEVICE_BATCH
         b = _bucket_size(min(len(subsets), cap), 1, cap)
-        coal_all = self._coalition_arrays(subsets)
+        coal_all = self._coalition_arrays(subsets, slot_count)
         kind = "single" if pipe is self.single_pipe else "multi"
         for i in range(0, len(subsets), b):
             group = subsets[i:i + b]
@@ -184,13 +275,16 @@ class CharacteristicEngine:
             t0 = time.perf_counter()
             generators, init_params, streams = self._batch_start(
                 [subsets[j] for j in sel], kind == "single")
-            masks = torch.from_numpy(coal_all[sel]).to(self.device)
-            accs, _ = pipe.scores(masks, generators, self.stacked, self.val,
+            coal = torch.from_numpy(coal_all[sel]).to(self.device)
+            accs, _ = pipe.scores(coal, generators, self.stacked, self.val,
                                   self.test, init_params, streams)
-            self.batch_log.append({"kind": kind, "width": b, "coalitions": len(group),
+            self.batch_log.append({"kind": kind, "width": b, "slot_count": slot_count,
+                                   "coalitions": len(group),
                                    "seconds": time.perf_counter() - t0})
             for s, acc in zip(group, accs[:len(group)]):
                 self._store(s, float(acc))
+            if self.autosave_path is not None:
+                self.save_cache(self.autosave_path)
 
     def evaluate(self, subsets) -> np.ndarray:
         """Batched memoized v(S) for a list of subsets (any iterables of
@@ -201,10 +295,171 @@ class CharacteristicEngine:
         multis = [k for k in missing if len(k) > 1]
         if singles:
             self._run_batch(singles, self.single_pipe)
-        if multis:
+        if multis and self._use_slots:
+            for width, group in self._slot_buckets(multis):
+                self._run_batch(group, self._slot_pipe(width), slot_count=width)
+        elif multis:
             self._run_batch(multis, self.multi_pipe)
+        if self._cache_needs_upgrade and self.autosave_path is not None:
+            # a legacy cache is rewritten with a checksum even when every
+            # value was memoized and no batch's autosave ran
+            self.save_cache(self._legacy_cache_path)
         return np.array([self.charac_fct_values[k] for k in keys])
 
     def not_twice_characteristic(self, subset) -> float:
         """Reference-API single-subset entry (contributivity.py:92-136)."""
         return float(self.evaluate([np.atleast_1d(np.asarray(subset, int))])[0])
+
+    # ------------------------------------------------------------------
+    # the coalition cache: a long sweep is resumable because v(S) is
+    # fully described by its memo
+    # ------------------------------------------------------------------
+
+    def _data_digest(self) -> str:
+        """Content hash of the staged training and eval data, the bytes the
+        JAX engine hashes (`sizes` as its int32): x strided, labels and
+        sizes in full."""
+        if self._digest is not None:
+            return self._digest
+        h = hashlib.sha256()
+
+        def add(t, stride_cap_bytes=1 << 22):
+            a = np.ascontiguousarray(t.cpu().numpy())
+            h.update(str(a.shape).encode())
+            # stride over flat elements, so every partner is sampled
+            flat = a.reshape(-1)
+            stride = max(1, flat.nbytes // stride_cap_bytes)
+            h.update(np.ascontiguousarray(flat[::stride]).tobytes())
+
+        add(self.stacked.x)
+        add(self.stacked.y, stride_cap_bytes=1 << 30)
+        add(self.stacked.sizes.to(torch.int32), stride_cap_bytes=1 << 30)
+        add(self.val.x)
+        add(self.val.y, stride_cap_bytes=1 << 30)
+        add(self.test.x)
+        add(self.test.y, stride_cap_bytes=1 << 30)
+        self._digest = h.hexdigest()[:16]
+        return self._digest
+
+    def _fingerprint(self) -> dict:
+        """Everything v(S) depends on, with the JAX engine's keys (its
+        defaults where the port has no such knob yet) and the port's
+        random streams."""
+        cfg = self._multi_cfg
+        sc = self.scenario
+        return {
+            "partners_count": self.partners_count,
+            "seed": self.seed,
+            "dataset": sc.dataset.name,
+            "model": self.model.name,
+            "approach": cfg.approach,
+            "aggregator": cfg.aggregator,
+            "epoch_count": cfg.epoch_count,
+            "minibatch_count": cfg.minibatch_count,
+            "gradient_updates_per_pass": cfg.gradient_updates_per_pass,
+            "step_width_mult": 1,
+            "deterministic_reduce": bool(cfg.deterministic_reduce),
+            "partner_fault_plan": "",
+            "seed_ensemble": 1,
+            "compute_dtype": "float32",
+            "precision": cfg.precision,
+            "split": [str(sc.samples_split_type), str(sc.samples_split_description)],
+            "corruption": [str(c) for c in sc.corrupted_datasets],
+            "partner_sizes": [int(s) for s in self.stacked.sizes.tolist()],
+            "data_digest": self._data_digest(),
+            "rng_streams": RNG_STREAMS,
+        }
+
+    def save_cache(self, path) -> None:
+        """Save the memo, the increments and the call count as JSON,
+        durably: a sha256 checksum of the payload (`load_cache` verifies
+        it), the temporary file fsync'd before the atomic replace, and the
+        directory fsync'd after it."""
+        payload = {
+            "fingerprint": self._fingerprint(),
+            "first_charac_fct_calls_count": self.first_charac_fct_calls_count,
+            "charac_fct_values": [[list(k), v]
+                                  for k, v in self.charac_fct_values.items()],
+            "increments_values": [[[list(k), v] for k, v in d.items()]
+                                  for d in self.increments_values],
+        }
+        # the checksum field is spliced into the serialized body, so the
+        # payload is serialized once a save; the load re-serializes the
+        # parsed payload to the same bytes
+        body = json.dumps(payload)
+        digest = hashlib.sha256(body.encode()).hexdigest()
+        tmp = f"{path}.tmp"
+        with open(tmp, "w") as f:
+            f.write('{"payload_sha256": "%s", %s' % (digest, body[1:]))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        try:
+            dfd = os.open(os.path.dirname(os.path.abspath(str(path))), os.O_RDONLY)
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+        except OSError:
+            pass  # a filesystem without directory fsync
+        if str(path) == (self._legacy_cache_path or str(path)):
+            self._cache_needs_upgrade = False
+
+    def load_cache(self, path) -> None:
+        """Restore a saved cache. An unreadable file (corrupt or truncated
+        JSON, a failed checksum, missing keys) raises CacheIntegrityError;
+        a valid cache of another game (any fingerprint key differs, a
+        cache of the JAX package's streams included) raises ValueError. A
+        cache without a checksum (legacy) loads unverified, with one
+        DeprecationWarning a process, and is rewritten with a checksum by
+        the next save to its path."""
+        global _legacy_cache_warned
+        try:
+            with open(path) as f:
+                payload = json.load(f)
+            if not isinstance(payload, dict):
+                raise ValueError(
+                    f"top-level JSON is {type(payload).__name__}, not an object")
+        except ValueError as e:
+            raise CacheIntegrityError(
+                f"coalition cache {path} is corrupt or truncated: {e}") from e
+        expected = payload.pop("payload_sha256", None)
+        if expected is not None:
+            actual = hashlib.sha256(json.dumps(payload).encode()).hexdigest()
+            if actual != expected:
+                raise CacheIntegrityError(
+                    f"coalition cache {path} failed its checksum (stored "
+                    f"{expected[:12]}, recomputed {actual[:12]}): the file was "
+                    "corrupted after it was written")
+        else:
+            if not _legacy_cache_warned:
+                _legacy_cache_warned = True
+                warnings.warn(
+                    f"coalition cache {path} predates the checksum format and "
+                    "loads unverified; it will be rewritten with a checksum "
+                    "on the next autosave", DeprecationWarning, stacklevel=2)
+            self._cache_needs_upgrade = True
+            self._legacy_cache_path = str(path)
+        missing = {"fingerprint", "first_charac_fct_calls_count",
+                   "charac_fct_values", "increments_values"} - payload.keys()
+        if missing:
+            raise CacheIntegrityError(
+                f"coalition cache {path} is missing keys {sorted(missing)}")
+        theirs = payload["fingerprint"]
+        # every cache the port writes names its streams; one without the
+        # key was written by the JAX package, whose coalitions draw other
+        # streams (its older caches also lack keys it later added, which
+        # it reads with defaults; they are refused here all the same)
+        theirs.setdefault("rng_streams", JAX_RNG_STREAMS)
+        ours = self._fingerprint()
+        mismatched = {k: (theirs.get(k), v) for k, v in ours.items()
+                      if theirs.get(k) != v}
+        if mismatched:
+            raise ValueError(
+                "coalition cache was built under a different scenario setup: "
+                "characteristic values would not be comparable. Mismatches "
+                f"(cache vs scenario): {mismatched}")
+        self.charac_fct_values = {tuple(k): v for k, v in payload["charac_fct_values"]}
+        self.increments_values = [{tuple(k): v for k, v in entries}
+                                  for entries in payload["increments_values"]]
+        self.first_charac_fct_calls_count = payload["first_charac_fct_calls_count"]

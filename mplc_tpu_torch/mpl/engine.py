@@ -9,8 +9,11 @@ of every coalition is one `torch.func.vmap` over `grad_and_value` of the
 functional forward, on parameters stacked `[B*P, ...]`. A coalition is a
 length-P 0/1 mask row that multiplies every per-sample loss mask (inactive
 partners get exactly-zero gradients, hence exactly-zero Adam updates) and
-gates the aggregation weights. Python loops take the place of the JAX
-package's `lax.scan`s.
+gates the aggregation weights. Under slot execution (`slot_count`) a
+coalition is a row of K partner ids instead, -1 marking an unused slot,
+and only its K slots train: the JAX package's `_fedavg_slot_epoch`, here
+the same epoch function as the masked one with another binding of slots to
+partners. Python loops take the place of the JAX package's `lax.scan`s.
 
 Loop semantics kept from the JAX package:
   - fedavg: a fresh optimizer for every partner pass; per round
@@ -81,8 +84,23 @@ class TrainConfig:
     # parameters, Adam state, aggregation and the recorded stream stay
     # float32 in every mode.
     precision: str | None = None
+    # slot execution (fedavg coalition sweeps): train `slot_count` partner
+    # slots a coalition instead of all P partners masked. The coalition
+    # argument is then int slot ids [B, slot_count], -1 marking an unused
+    # slot, in place of masks [B, P]. Slot s trains partner ids[s] on the
+    # rows of the permutation the masked path draws for it, so the two
+    # paths train alike (bit for bit under `deterministic_reduce`).
+    slot_count: int | None = None
+    # MPLC_TORCH_DETERMINISTIC_REDUCE (constants.py): every aggregation
+    # folds its normalizer and weighted sum left to right in partner order
+    # (ops/aggregation.py `ordered_fold`). None resolves it from the
+    # environment at construction; the resolved value is frozen in.
+    deterministic_reduce: bool | None = None
 
     def __post_init__(self):
+        if self.deterministic_reduce is None:
+            object.__setattr__(self, "deterministic_reduce",
+                               constants.deterministic_reduce_enabled())
         if self.precision is None:
             object.__setattr__(self, "precision", constants.precision_mode())
         if self.precision not in constants.PRECISION_MODES:
@@ -99,10 +117,18 @@ class TrainConfig:
         if self.aggregator not in AGGREGATOR_NAMES:
             raise KeyError(f"aggregation approach '{self.aggregator}' is not a "
                            f"valid approach. Supported: {AGGREGATOR_NAMES}")
-        if self.record_updates and self.approach != "fedavg":
-            raise ValueError("update recording (record_updates) captures FedAvg "
-                             "aggregation-round deltas; it supports the fedavg "
-                             f"approach only, got '{self.approach}'")
+        if self.slot_count is not None and self.approach != "fedavg":
+            raise ValueError("slot execution supports the fedavg approach only "
+                             f"(the seq family is not ported yet), got "
+                             f"'{self.approach}'")
+        if self.record_updates:
+            if self.approach != "fedavg":
+                raise ValueError("update recording (record_updates) captures FedAvg "
+                                 "aggregation-round deltas; it supports the fedavg "
+                                 f"approach only, got '{self.approach}'")
+            if self.slot_count is not None:
+                raise ValueError("update recording runs the masked fedavg path; "
+                                 "slot execution is not supported")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -266,17 +292,27 @@ class MplTrainer:
                             zip(generators, mask.cpu())]).to(mask.device)
 
     def _subbatch(self, perms, sizes, mb_i: int, g: int, sb_cap: int):
-        """Indices [B, P, sb_cap] + validity mask [P, sb_cap] of gradient
-        step g of minibatch mb_i, for every run and partner."""
+        """Indices + validity mask, both [B, W, sb_cap], of gradient step g
+        of minibatch mb_i, for every run and partner slot (`perms`
+        [B, W, Nmax], `sizes` [B, W])."""
         cfg = self.cfg
         mbc, gup = cfg.minibatch_count, cfg.gradient_updates_per_pass
-        valid_mb = (sizes // mbc)[:, None]             # samples per minibatch
+        valid_mb = (sizes // mbc)[..., None]           # samples per minibatch
         sb = (valid_mb + gup - 1) // gup               # samples per step
-        ar = torch.arange(sb_cap, device=perms.device)[None, :]
+        ar = torch.arange(sb_cap, device=perms.device)
         local = g * sb + ar
         valid = (ar < sb) & (local < valid_mb)
         pos = torch.clamp(mb_i * valid_mb + local, 0, perms.shape[-1] - 1)
-        return torch.gather(perms, 2, pos.expand(perms.shape[0], -1, -1)), valid.float()
+        return torch.gather(perms, 2, pos), valid.float()
+
+    @staticmethod
+    def _slot_binding(ids: torch.Tensor):
+        """(partner rows, activity, used) of slot ids [B, K], -1 marking an
+        unused slot: an unused slot is bound to partner 0 with activity 0,
+        so it gets zero gradients and zero aggregation weight, and its
+        history is dropped."""
+        used = ids >= 0
+        return torch.clamp(ids.long(), min=0), used.float(), used
 
     # ------------------------------------------------------------------
     # masked Adam steps of N models at once
@@ -307,20 +343,36 @@ class MplTrainer:
     # ------------------------------------------------------------------
 
     def _fedavg_epoch(self, state: TrainState, stacked, val: EvalSet,
-                      masks: torch.Tensor, generators, streams, frozen) -> dict:
+                      coal: torch.Tensor, generators, streams, frozen) -> dict:
         """One FedAvg epoch of every run; returns the new params. Every
-        partner pass of every run is one vmapped step over B*P models."""
+        partner pass of every run is one vmapped step over B*W models.
+
+        Masked (`coal` [B, P] masks): W = P partners, the inactive ones
+        trained on zeroed loss masks. Slots (`cfg.slot_count`, `coal`
+        [B, K] ids): W = K slots, each bound to its partner's data, size
+        and permutation (`_slot_binding`); a size-k coalition costs k
+        passes. Either way each run draws the permutations of all P
+        partners (or takes them from `streams`, [B, P, Nmax]), so a slot
+        sees the rows its partner sees masked."""
         cfg = self.cfg
-        B, P = masks.shape
+        B, W = coal.shape
+        P = stacked.x.shape[0]
         e = state.epoch
         gup = cfg.gradient_updates_per_pass
+        dev = coal.device
+        if cfg.slot_count is None:
+            pids = torch.arange(P, device=dev).expand(B, P)
+            act, used = coal, torch.ones_like(pids, dtype=torch.bool)
+        else:
+            pids, act, used = self._slot_binding(coal)
+        runs = torch.arange(B, device=dev)[:, None]
         perms = self._perms(generators, stacked.mask.expand(B, -1, -1),
-                            streams)                                # [B, P, Nmax]
+                            streams)[runs, pids]                   # [B, W, Nmax]
+        sizes = stacked.sizes[pids]                                # [B, W]
         mb_cap = max(stacked.x.shape[1] // cfg.minibatch_count, 1)
         sb_cap = (mb_cap + gup - 1) // gup
-        rows = torch.arange(P, device=masks.device)[None, :, None]
         need_pval = cfg.record_partner_val or cfg.aggregator == "local-score"
-        flat = lambda t: t.reshape((B * P,) + t.shape[2:])  # noqa: E731
+        flat = lambda t: t.reshape((B * W,) + t.shape[2:])  # noqa: E731
         params = state.params
         for mb_i in range(cfg.minibatch_count):
             vl, va = self._maybe_val_eval(params, val, mb_i)
@@ -329,24 +381,28 @@ class MplTrainer:
 
             def batches():
                 for g in range(gup):
-                    idx, valid = self._subbatch(perms, stacked.sizes, mb_i, g, sb_cap)
-                    m = valid[None] * masks[:, :, None]
+                    idx, valid = self._subbatch(perms, sizes, mb_i, g, sb_cap)
+                    rows = pids[:, :, None]
                     yield (flat(stacked.x[rows, idx]), flat(stacked.y[rows, idx]),
-                           flat(m))
-            start = _tree_map(lambda t: flat(t[:, None].expand((B, P) + t.shape[1:])),
+                           flat(valid * act[:, :, None]))
+            start = _tree_map(lambda t: flat(t[:, None].expand((B, W) + t.shape[1:])),
                               params)
             new_flat, _, losses, accs = self._steps(
                 start, self.model.optimizer.init(start), batches())
             if need_pval:
-                pvl, pva = (t.reshape(B, P) for t in self.evaluate_models(new_flat, val))
+                pvl, pva = (t.reshape(B, W) for t in self.evaluate_models(new_flat, val))
             else:
-                pvl = pva = torch.full((B, P), float("nan"), device=masks.device)
-            _write(state.partner_h[:, :, :, e, mb_i],
-                   torch.stack([losses.reshape(B, P), accs.reshape(B, P), pvl, pva], 1),
-                   frozen)
-            new_params = _tree_map(lambda t: t.reshape((B, P) + t.shape[1:]), new_flat)
-            w = aggregation_weights(cfg.aggregator, masks, stacked.sizes,
-                                    torch.nan_to_num(pva))
+                pvl = pva = torch.full((B, W), float("nan"), device=dev)
+            # each used slot's metrics into its partner's history row
+            view = state.partner_h[:, :, :, e, mb_i]
+            cells = view.clone()
+            b, s = torch.nonzero(used, as_tuple=True)
+            cells[b, :, pids[b, s]] = torch.stack(
+                [losses.reshape(B, W), accs.reshape(B, W), pvl, pva], 1)[b, :, s]
+            _write(view, cells, frozen)
+            new_params = _tree_map(lambda t: t.reshape((B, W) + t.shape[1:]), new_flat)
+            w = aggregation_weights(cfg.aggregator, act, sizes, torch.nan_to_num(pva),
+                                    deterministic=cfg.deterministic_reduce)
             if cfg.record_updates:
                 r_idx = e * cfg.minibatch_count + mb_i
                 for g, d in new_params.items():
@@ -354,7 +410,7 @@ class MplTrainer:
                         _write(state.upd_h[g][k][:, r_idx], t - params[g][k][:, None],
                                frozen)
                 _write(state.w_h[:, r_idx], w, frozen)
-            params = aggregate(new_params, w)
+            params = aggregate(new_params, w, deterministic=cfg.deterministic_reduce)
         return params
 
     def _single_epoch(self, state: TrainState, stacked, val: EvalSet,
@@ -416,18 +472,20 @@ class MplTrainer:
             return torch.zeros_like(state.done)
         return state.val_loss_h[:, e, 0] > state.val_loss_h[:, e - cfg.patience, 0]
 
-    def run_epoch(self, state: TrainState, stacked, val: EvalSet, masks,
+    def run_epoch(self, state: TrainState, stacked, val: EvalSet, coal,
                   generators, streams=None) -> TrainState:
-        """One epoch of every run still training (`masks` [B, P]); a run
-        that has stopped is left unchanged. `streams` ([B, P, Nmax] fedavg,
-        [B, Nmax] single permutations) replaces the generators' draws."""
+        """One epoch of every run still training (`coal`: masks [B, P], or
+        slot ids [B, slot_count] under `cfg.slot_count`); a run that has
+        stopped is left unchanged. `streams` ([B, P, Nmax] fedavg, slots
+        included, or [B, Nmax] single permutations) replaces the
+        generators' draws."""
         cfg = self.cfg
         if state.epoch >= cfg.epoch_count or (
                 cfg.is_early_stopping and bool(state.done.all())):
             return state
         frozen = state.done.clone()
         epoch_fn = self._single_epoch if cfg.approach == "single" else self._fedavg_epoch
-        params = epoch_fn(state, stacked, val, masks, generators, streams, frozen)
+        params = epoch_fn(state, stacked, val, coal, generators, streams, frozen)
         state.params = _keep_frozen(frozen, state.params, params)
         stop = self._early_stop_flag(state)
         state.epoch += 1
@@ -436,13 +494,13 @@ class MplTrainer:
         state.done = frozen | stop | (state.epoch >= cfg.epoch_count)
         return state
 
-    def epoch_chunk(self, state: TrainState, stacked, val: EvalSet, masks,
+    def epoch_chunk(self, state: TrainState, stacked, val: EvalSet, coal,
                     generators, n_epochs: int, streams_all=None) -> TrainState:
         """Up to `n_epochs` epochs, ending once every run is done (early
         stopping, or epoch_count reached); `streams_all` ([B, n_epochs,
         ...] permutations) replaces the generators' draws."""
         for i in range(n_epochs):
-            self.run_epoch(state, stacked, val, masks, generators,
+            self.run_epoch(state, stacked, val, coal, generators,
                            None if streams_all is None else streams_all[:, i])
         return state
 

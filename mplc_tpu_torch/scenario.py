@@ -7,11 +7,19 @@ grand-coalition training, then the configured contributivity methods.
 It runs on CUDA unless `device=` names another device (the tests pass
 `device="cpu"`); see `utils.resolve_device`. Options of the JAX package
 that are not ported yet raise NotImplementedError.
+
+Unless `is_dry_run`, the scenario writes into its own folder under
+`experiment_path`: the coalition cache `coalition_cache.json`, saved after
+every trained batch of a method and once after the methods. A sweep
+resumes from a cache named by `contributivity_cache_from`.
 """
 
 from __future__ import annotations
 
+import datetime
 import logging
+import uuid
+from pathlib import Path
 
 from . import constants
 from .contrib.contributivity import Contributivity
@@ -52,9 +60,14 @@ class Scenario:
                  epoch_count=constants.DEFAULT_EPOCH_COUNT,
                  is_early_stopping=True,
                  methods=None,
+                 experiment_path=Path("./experiments"),
+                 is_dry_run=False,
                  seed=42,
+                 contributivity_cache_from=None,
                  device=None):
         self.device = resolve_device(device)
+        # a coalition cache saved by an earlier run of the same game
+        self.contributivity_cache_from = contributivity_cache_from
 
         if isinstance(dataset, dataset_module.Dataset):
             self.dataset = dataset
@@ -104,6 +117,15 @@ class Scenario:
                 raise ValueError(f"Contributivity method '{method}' is not in "
                                  "methods list.")
 
+        # the JAX package's folder name, at its default scenario_id and
+        # repeats_count (both 1), which the port does not take
+        now_str = datetime.datetime.now().strftime("%Y-%m-%d_%Hh%M")
+        self.scenario_name = f"scenario_1_repeat_1_{now_str}_{uuid.uuid4().hex[:3]}"
+        self.save_folder = Path(experiment_path) / self.scenario_name
+        self.is_dry_run = is_dry_run
+        if not is_dry_run:
+            self.save_folder.mkdir(parents=True, exist_ok=True)
+
     def instantiate_scenario_partners(self):
         if self.partners_list:
             raise RuntimeError("self.partners_list should be []")
@@ -139,9 +161,41 @@ class Scenario:
         self.mpl = self.multi_partner_learning_approach(self)
         self.mpl.fit()
 
+        cache = self.save_folder / "coalition_cache.json"
         for method in self.methods:
             contrib = Contributivity(scenario=self)
+            if self.contributivity_cache_from and \
+                    not self._charac_engine.first_charac_fct_calls_count:
+                self._resume_coalition_cache()
+            if not self.is_dry_run:
+                # every trained batch is saved at once, so a killed sweep
+                # resumes where it stopped
+                self._charac_engine.autosave_path = cache
             contrib.compute_contributivity(method)
             self.contributivity_list.append(contrib)
             logger.info(f"## Evaluating contributivity with {method}: {contrib}")
+        if self.methods and not self.is_dry_run:
+            self._charac_engine.save_cache(cache)
         return 0
+
+    def _resume_coalition_cache(self):
+        """Load `contributivity_cache_from` into the engine. A corrupt or
+        truncated file is renamed to `<name>.corrupt` and the sweep starts
+        cold; a valid cache of another game still raises ValueError."""
+        from .contrib.engine import CacheIntegrityError
+
+        path = Path(self.contributivity_cache_from)
+        try:
+            self._charac_engine.load_cache(path)
+        except CacheIntegrityError as e:
+            quarantine = path.with_name(path.name + ".corrupt")
+            try:
+                path.replace(quarantine)
+                where = f"quarantined to {quarantine}"
+            except OSError as rename_err:
+                where = f"left in place (quarantine rename failed: {rename_err})"
+            logger.warning(f"coalition cache {path} is unusable ({e}); {where}; "
+                           "starting the sweep cold")
+            return
+        logger.info(f"Resumed coalition cache from {path} "
+                    f"({len(self._charac_engine.charac_fct_values)} entries)")

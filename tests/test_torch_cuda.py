@@ -160,7 +160,7 @@ def test_bf16_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 def _titanic_sweep(device):
-    sc = Scenario(3, [0.2, 0.3, 0.5], dataset=load_titanic(), epoch_count=2,
+    sc = Scenario(3, [0.2, 0.3, 0.5], is_dry_run=True, dataset=load_titanic(), epoch_count=2,
                   minibatch_count=2, gradient_updates_per_pass_count=2,
                   is_early_stopping=False, methods=["Shapley values"], seed=0,
                   device=device)
@@ -178,7 +178,7 @@ def test_titanic_sweep_on_the_card_matches_the_cpu(cuda):
 def test_two_fp32_recordings_on_the_card_are_bit_equal(cuda):
     """The MNIST CNN (cuDNN convolutions, cuBLAS products) recorded twice
     from one seed: every delta, weight and final parameter bit-equal."""
-    sc = Scenario(3, [0.2, 0.3, 0.5], dataset=load_mnist(scale=0.02), epoch_count=1,
+    sc = Scenario(3, [0.2, 0.3, 0.5], is_dry_run=True, dataset=load_mnist(scale=0.02), epoch_count=1,
                   minibatch_count=2, gradient_updates_per_pass_count=2,
                   is_early_stopping=False, seed=0, device="cuda")
     sc.instantiate_scenario_partners()

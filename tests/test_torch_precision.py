@@ -108,7 +108,7 @@ def _titanic_game(monkeypatch, mode, methods=()):
         monkeypatch.delenv(constants.PRECISION_ENV, raising=False)
     else:
         monkeypatch.setenv(constants.PRECISION_ENV, mode)
-    sc = Scenario(3, AMOUNTS, dataset=tdatasets.load_titanic(), seed=0,
+    sc = Scenario(3, AMOUNTS, is_dry_run=True, dataset=tdatasets.load_titanic(), seed=0,
                   is_early_stopping=False, methods=list(methods),
                   device="cpu", **GAME)
     sc.run()
@@ -257,7 +257,7 @@ def _values(mode, jstate, state, init_np):
             init_params=jax.tree_util.tree_map(jnp.asarray, init_np),
             deltas=jstate.upd_h, weights=jstate.w_h, rounds=2 * EPOCHS,
             partners_count=3, epochs_done=EPOCHS, training_passes=0, memory_bytes=0))
-        sc = Scenario(3, AMOUNTS, dataset=tdatasets.load_titanic(), seed=3,
+        sc = Scenario(3, AMOUNTS, is_dry_run=True, dataset=tdatasets.load_titanic(), seed=3,
                       is_early_stopping=False, device="cpu", **GAME)
         sc.instantiate_scenario_partners()
         sc.split_data()

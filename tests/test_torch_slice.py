@@ -100,7 +100,7 @@ def test_jax_recording_reconstructed_by_the_port():
     jvalues = jrecon.evaluate(coalitions)
     rec = jrecon.recorded
 
-    sc = Scenario(3, AMOUNTS, dataset=tdatasets.load_titanic(), seed=3,
+    sc = Scenario(3, AMOUNTS, is_dry_run=True, dataset=tdatasets.load_titanic(), seed=3,
                   is_early_stopping=False, device="cpu", **GAME)
     sc.instantiate_scenario_partners()
     sc.split_data()
@@ -133,7 +133,7 @@ def _tiny_mnist(seed=7):
 
 def test_port_scenario_gtg_on_mnist_cnn():
     launches = recon_kernel.launches
-    sc = Scenario(3, AMOUNTS, dataset=_tiny_mnist(), epoch_count=1,
+    sc = Scenario(3, AMOUNTS, is_dry_run=True, dataset=_tiny_mnist(), epoch_count=1,
                   minibatch_count=2, gradient_updates_per_pass_count=1,
                   is_early_stopping=False, methods=["GTG-Shapley"], device="cpu")
     sc.run()
@@ -163,12 +163,12 @@ def test_scenario_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        Scenario(3, AMOUNTS, dataset=tdatasets.load_titanic())
+        Scenario(3, AMOUNTS, is_dry_run=True, dataset=tdatasets.load_titanic())
 
 
 @pytest.mark.parametrize("method", ["ITMCS", "TMCS", "SVARM", "auto"])
 def test_unported_methods_raise(method):
-    sc = Scenario(3, AMOUNTS, dataset=tdatasets.load_titanic(), device="cpu", **GAME)
+    sc = Scenario(3, AMOUNTS, is_dry_run=True, dataset=tdatasets.load_titanic(), device="cpu", **GAME)
     sc.instantiate_scenario_partners()
     sc.split_data()
     with pytest.raises(NotImplementedError):

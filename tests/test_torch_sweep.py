@@ -5,11 +5,11 @@ package, on the CPU:
    params and permutations; a batch of coalitions against each coalition
    alone; early stopping freezing each coalition of a batch on its own;
 2. the sweep: `CharacteristicEngine.evaluate` over the Titanic 3-partner
-   powerset against the JAX engine's masked trainer
-   (`MPLC_TPU_NO_SLOTS=1`), fed the JAX engine's per-coalition initial
-   params (and, at MB = gup = 2, its permutations): every v(S) within one
-   test sample, Shapley values within 1e-3, Kendall tau-b 1.0; the memo;
-   two sweeps of one seed bit-equal;
+   powerset against the JAX engine, both masked (`MPLC_TPU_NO_SLOTS=1`,
+   `MPLC_TORCH_NO_SLOTS=1`) or both on slots, fed the JAX engine's
+   per-coalition initial params (and, at MB = gup = 2, its permutations):
+   every v(S) within one test sample, Shapley values within 1e-3, Kendall
+   tau-b 1.0; the memo; two sweeps of one seed bit-equal;
 3. the slice: a tiny MNIST CNN `Scenario.run()` with "Shapley values" and
    "Independent scores"; an unknown method name logged and ignored.
 """
@@ -230,18 +230,25 @@ CASES = {
 }
 
 
-def _engines(monkeypatch, case):
+def _engines(monkeypatch, case, slots=False):
     """(JAX engine, port engine, test-set size) of one case's Titanic game,
     the port fed the JAX engine's per-coalition initial params
     `model.init(eng._coalition_rng(s))` (tests/test_sv_parity.py:205) and,
-    where the case says so, its permutations."""
+    where the case says so, its permutations. Both engines train the
+    multi-partner coalitions masked, or with `slots` on merged slot
+    buckets."""
     game, streams, flip_frac = CASES[case]
-    # read at construction: the JAX engine trains on its masked trainer
-    monkeypatch.setenv("MPLC_TPU_NO_SLOTS", "1")
+    # read at construction
+    for knob in ("NO_SLOTS", "SLOT_MERGE", "SLOT_POW2", "DETERMINISTIC_REDUCE"):
+        for pkg in ("MPLC_TPU_", "MPLC_TORCH_"):
+            monkeypatch.delenv(pkg + knob, raising=False)
+    if not slots:
+        monkeypatch.setenv("MPLC_TPU_NO_SLOTS", "1")
+        monkeypatch.setenv("MPLC_TORCH_NO_SLOTS", "1")
     jd, td = _titanic(flip_frac)
     jsc = build_scenario(dataset=jd, is_dry_run=True, **game)
     jeng = JEngine(jsc)
-    sc = Scenario(3, AMOUNTS, dataset=td, seed=3, device="cpu", **game)
+    sc = Scenario(3, AMOUNTS, is_dry_run=True, dataset=td, seed=3, device="cpu", **game)
     sc.instantiate_scenario_partners()
     sc.split_data()
     eng = CharacteristicEngine(sc)
@@ -263,9 +270,9 @@ def _engines(monkeypatch, case):
     return jeng, eng, len(td.x_test)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_sweep_matches_jax_engine(monkeypatch, case):
-    jeng, eng, n_test = _engines(monkeypatch, case)
+def _sweep_against_jax(jeng, eng, n_test):
+    """Both engines' sweeps of the 3-partner powerset: every v(S) within one
+    test sample, Shapley values within 1e-3, Kendall tau-b 1.0."""
     subsets = powerset_order(3)
     jv = np.asarray(jeng.evaluate(subsets))
     v = eng.evaluate(subsets)
@@ -282,6 +289,25 @@ def test_sweep_matches_jax_engine(monkeypatch, case):
     assert tnum.diff_values(v, jv)["kendall_tau"] == 1.0
     assert jnum.diff_ledgers(ja, jb)["kendall_tau"] == 1.0
     assert tnum.kendall_tau_b(sv, jsv) == 1.0
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_slot_sweep_matches_jax_engine(monkeypatch, case):
+    """The port's slot engine against the JAX package's, both on merged
+    buckets: the 3-partner multis share one width-3 slot batch."""
+    jeng, eng, n_test = _engines(monkeypatch, case, slots=True)
+    assert eng.scenario.slot_bucketing == jeng.scenario.slot_bucketing == "merge"
+    _sweep_against_jax(jeng, eng, n_test)
+    assert [(b["kind"], b["width"], b["slot_count"]) for b in eng.batch_log] == \
+        [("single", 4, None), ("multi", 4, 3)]
+    assert sorted(jeng._slot_pipes) == sorted(eng._slot_pipes) == [3]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sweep_matches_jax_engine(monkeypatch, case):
+    jeng, eng, n_test = _engines(monkeypatch, case)
+    _sweep_against_jax(jeng, eng, n_test)
+    subsets = powerset_order(3)
     assert [b["kind"] for b in eng.batch_log] == ["single", "multi"]
     assert [b["width"] for b in eng.batch_log] == [4, 4]
 
@@ -321,7 +347,7 @@ def test_memo_trains_nothing_twice(monkeypatch):
 
 def test_two_sweeps_of_one_seed_are_bit_equal():
     def sweep():
-        sc = Scenario(3, AMOUNTS, dataset=tdatasets.load_titanic(), seed=3, device="cpu",
+        sc = Scenario(3, AMOUNTS, is_dry_run=True, dataset=tdatasets.load_titanic(), seed=3, device="cpu",
                       epoch_count=2, minibatch_count=2, gradient_updates_per_pass_count=2)
         sc.instantiate_scenario_partners()
         sc.split_data()
@@ -335,7 +361,7 @@ def test_two_sweeps_of_one_seed_are_bit_equal():
 # ---------------------------------------------------------------------------
 
 def test_port_scenario_shapley_on_mnist_cnn():
-    sc = Scenario(3, AMOUNTS, dataset=_tiny_mnist(), epoch_count=1,
+    sc = Scenario(3, AMOUNTS, is_dry_run=True, dataset=_tiny_mnist(), epoch_count=1,
                   minibatch_count=2, gradient_updates_per_pass_count=1,
                   is_early_stopping=False,
                   methods=["Shapley values", "Independent scores"], device="cpu")
@@ -361,7 +387,7 @@ def test_unknown_method_is_ignored(caplog):
     logged and leaves the scores at zero, as in the JAX package."""
     jc = JContributivity(build_scenario(dataset=jdatasets.load_titanic(), is_dry_run=True))
     jc.compute_contributivity("No such method")
-    sc = Scenario(3, AMOUNTS, dataset=tdatasets.load_titanic(), device="cpu")
+    sc = Scenario(3, AMOUNTS, is_dry_run=True, dataset=tdatasets.load_titanic(), device="cpu")
     sc.instantiate_scenario_partners()
     sc.split_data()
     c = Contributivity(sc)
