@@ -49,7 +49,24 @@ Phases, each of which fails the script (non-zero exit, no result line):
 10. cache: the sweep's coalition cache saved, a fresh scenario resumed
    from it (no batch trained, the same Shapley values bit for bit), and
    the file with one byte flipped quarantined on the next resume, which
-   starts cold.
+   starts cold;
+11. svarm: the retrain-free path's sampling estimator on the slice's own
+   recording (10 partners, the MNIST CNN at full width), through a fresh
+   reconstruction evaluator so its K1 launches are its own (counts reset
+   just before and read just after; K1 must have launched): SVARM at its
+   default budget of 400 coalitions, every value finite, within 0.05 of
+   the slice's exact reconstructed values, with its trust row. Then
+   `compute_contributivity("auto")` on the slice's evaluator: with no
+   deadline it must plan `exact` and return the slice's exact values bit
+   for bit; with a 20 s deadline it must plan SVARM at budget 300;
+12. estimators: the retraining estimators through the user entry point,
+   `Scenario(methods=["TMCS", "ITMCS", "IS_lin_S", "IS_reg_S",
+   "AIS_Kriging_S", "SMCS", "WR_SMC", "Shapley values"]).run()` on the
+   sweep's configuration (5 partners): every value finite, every estimator
+   within 0.05 of the exact Shapley values of the same run, no coalition
+   trained twice (31 at most), and each method's call count the same when
+   the estimators are run again over the run's v(S) table (the CPU tests
+   hold that replay's counts equal to the JAX package's).
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -71,6 +88,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -80,7 +98,8 @@ import torch  # noqa: E402
 
 from mplc_tpu_torch.contrib.contributivity import Contributivity  # noqa: E402
 from mplc_tpu_torch.contrib.engine import CharacteristicEngine  # noqa: E402
-from mplc_tpu_torch.contrib.reconstruct import record_updates  # noqa: E402
+from mplc_tpu_torch.contrib.reconstruct import (ReconstructionEvaluator,  # noqa: E402
+                                                record_updates)
 from mplc_tpu_torch.contrib.shapley import powerset_order  # noqa: E402
 from mplc_tpu_torch import constants  # noqa: E402
 from mplc_tpu_torch.data.datasets import load_mnist, load_titanic  # noqa: E402
@@ -256,7 +275,7 @@ def phase_slice(precision: str = "fp32") -> dict:
     check(err <= bound, "reconstructed grand coalition differs from the "
                         "recording run's final params")
     return {"launches": launches[kernel], "widths": widths, "recon": recon,
-            "values": values}
+            "values": values, "sv": sv}
 
 
 def titanic_recording(device: str, epochs: int, precision: str) -> tuple:
@@ -831,6 +850,185 @@ def phase_cache(sweep: dict) -> None:
         check(log == [("single", SWEEP_PARTNERS)], "the resume did not start cold")
 
 
+# The JAX package's value bound (tests/test_precision.py), which the
+# sampled estimators are held to against exact Shapley values
+ESTIMATE_BOUND = 0.05
+
+
+def phase_svarm(sl) -> dict:
+    """SVARM over the slice's fp32 recording (10 partners, the MNIST CNN at
+    full width) through a fresh ReconstructionEvaluator, its K1 launches
+    counted from 0; then "auto" twice on the slice's own evaluator."""
+    recon = sl["recon"]
+    eng = recon.engine
+    sc = eng.scenario
+    t0 = time.perf_counter()
+    eng._reconstruction = ReconstructionEvaluator(eng, recon.recorded)
+    torch.cuda.synchronize()
+    flatten_s = time.perf_counter() - t0
+    try:
+        recon_kernel.launches = recon_kernel.launches_bf16 = 0
+        recon_kernel.launch_widths = {}
+        t0 = time.perf_counter()
+        c = Contributivity(sc)
+        c.compute_contributivity("SVARM")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {recon_kernel.KERNEL: recon_kernel.launches,
+                    recon_kernel.KERNEL_BF16: recon_kernel.launches_bf16}
+        widths = dict(sorted(recon_kernel.launch_widths.items()))
+        fresh = eng._reconstruction
+    finally:
+        eng._reconstruction = recon
+    sv, std, exact = c.contributivity_scores, c.scores_std, sl["sv"]
+    err = float(np.abs(sv - exact).max())
+    budget = max(4 * PARTNERS ** 2, 128)
+    print(f"[svarm] MNIST CNN, {PARTNERS} partners, default budget {budget}: "
+          f"{wall:.2f} s ({c.computation_time_sec:.2f} s in SVARM; the fresh evaluator "
+          f"flattened the stream before it in {flatten_s:.2f} s); {fresh.reconstructions} "
+          f"coalitions reconstructed; "
+          f"launches {json.dumps(launches)}; {recon_kernel.KERNEL} launches by batch width "
+          f"{json.dumps(widths)}")
+    print(f"[svarm] values {np.round(sv, 4).tolist()}; std {np.round(std, 4).tolist()}; "
+          f"max abs err against the slice's exact reconstructed values {err:.4f} (bound "
+          f"{ESTIMATE_BOUND})")
+    print("[svarm] trust " + json.dumps(c.trust))
+    check(launches[recon_kernel.KERNEL] > 0, "SVARM never launched K1")
+    check(launches[recon_kernel.KERNEL_BF16] == 0, "the fp32 SVARM launched K1-bf16")
+    check(bool(np.isfinite(sv).all() and np.isfinite(std).all()), "non-finite SVARM values")
+    check(err <= ESTIMATE_BOUND, f"SVARM is {err} from the exact values")
+    check(c.trust is not None and c.trust["source"] == "mc_blocks"
+          and c.trust["method"] == "SVARM" and len(c.trust["mean"]) == PARTNERS,
+          "SVARM left no trust row")
+    check(fresh.reconstructions <= 2 ** PARTNERS - 1, "SVARM reconstructed a coalition twice")
+
+    loose = Contributivity(sc)
+    loose.compute_contributivity("auto")
+    print("[svarm] auto, no deadline: " + json.dumps(loose.plan.describe()))
+    same = [numerics.float_bits(a) == numerics.float_bits(b)
+            for a, b in zip(loose.contributivity_scores, exact)]
+    print(f"[svarm] auto, no deadline: {sum(same)} of {len(same)} values bit-equal to the "
+          f"slice's exact values")
+    check(loose.plan.method == "exact", f"auto planned {loose.plan.method}, not exact")
+    check(all(same), "auto's exact values differ from the slice's")
+    tight = Contributivity(sc)
+    tight.compute_contributivity("auto", deadline_sec=20)
+    terr = float(np.abs(tight.contributivity_scores - exact).max())
+    print("[svarm] auto, deadline 20 s: " + json.dumps(tight.plan.describe()))
+    print(f"[svarm] auto, deadline 20 s: values "
+          f"{np.round(tight.contributivity_scores, 4).tolist()}, max abs err against exact "
+          f"{terr:.4f}")
+    check(tight.plan.method == "SVARM" and tight.plan.method_kw == {"budget": 300}
+          and tight.plan.est_eval_sec == 0.05,
+          f"auto with a 20 s deadline planned {tight.plan.describe()}")
+    check(tight.name == "SVARM" and bool(np.isfinite(tight.contributivity_scores).all()),
+          "auto with a 20 s deadline did not run SVARM")
+    return {"launches": launches[recon_kernel.KERNEL], "widths": widths}
+
+
+# The estimators phase, in this order: TMCS starts cold, the exact sweep
+# comes last as the reference
+ESTIMATOR_METHODS = ["TMCS", "ITMCS", "IS_lin_S", "IS_reg_S", "AIS_Kriging_S", "SMCS",
+                     "WR_SMC", "Shapley values"]
+
+
+class TableEngine(CharacteristicEngine):
+    """The engine's own `evaluate` (memo, deduplication, singles and then
+    merged slot buckets, in that order) over a v(S) table instead of
+    training: the estimators run again over a finished run's values."""
+
+    def __init__(self, table: dict, partners: int):
+        self.partners_count = partners
+        self.table = table
+        self.charac_fct_values = {(): 0.0}
+        self.increments_values = [dict() for _ in range(partners)]
+        self.first_charac_fct_calls_count = 0
+        self.batch_log = []
+        self.single_pipe = self.multi_pipe = None
+        self._use_slots, self._slot_merge, self._slot_pow2 = True, True, False
+        self._cache_needs_upgrade = False
+        self.autosave_path = None
+
+    def _slot_pipe(self, k):
+        return None
+
+    def _run_batch(self, subsets, pipe, slot_count=None):
+        for s in subsets:
+            self._store(s, self.table[s])
+        self.batch_log.append({"coalitions": len(subsets)})
+
+
+def replay_estimators(sc) -> list:
+    """[(scores, std, call count after the method)] of the scenario's
+    methods run again, in order, over its engine's v(S) table."""
+    eng = sc._charac_engine
+    again = TableEngine(dict(eng.charac_fct_values), eng.partners_count)
+    shadow = types.SimpleNamespace(partners_list=sc.partners_list, seed=sc.seed,
+                                   _charac_engine=again)
+    out = []
+    for method in sc.methods:
+        c = Contributivity(shadow)
+        c.compute_contributivity(method)
+        out.append((c.contributivity_scores, c.scores_std, again.first_charac_fct_calls_count))
+    return out
+
+
+def phase_estimators(sweep: dict) -> None:
+    """The retraining estimators through `Scenario.run()`: the sweep's data,
+    model (full width) and training at its 5 partners, cut from bench
+    config 3's 10 for the script's time."""
+    P = SWEEP_PARTNERS
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    t0 = time.perf_counter()
+    sc = mnist_scenario(ESTIMATOR_METHODS, P)
+    sc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng = sc._charac_engine
+    exact = sc.contributivity_list[-1].contributivity_scores
+    print(f"[estimators] MNIST CNN, {P} partners, {len(ESTIMATOR_METHODS)} methods: "
+          f"{wall:.2f} s for Scenario.run() (fit {sc.mpl.learning_computation_time:.2f} s); "
+          f"{len(eng.batch_log)} batches, {eng.first_charac_fct_calls_count} coalitions "
+          f"trained in {sum(b['seconds'] for b in eng.batch_log):.2f} s")
+    counts = []
+    calls = 0
+    for method, c in zip(ESTIMATOR_METHODS, sc.contributivity_list):
+        trained = c.batches_trained
+        calls += sum(b["coalitions"] for b in trained)
+        counts.append(calls)
+        err = float(np.abs(c.contributivity_scores - exact).max())
+        shapes = [(b["kind"], b["slot_count"], b["width"], b["coalitions"],
+                   round(b["seconds"], 3)) for b in trained]
+        print(f"[estimators] {method} ({c.name}): {c.computation_time_sec:.2f} s; "
+              f"{len(trained)} batches trained (kind, slots, width, coalitions, s) "
+              f"{shapes}; call count {calls}; values "
+              f"{np.round(c.contributivity_scores, 4).tolist()}; std "
+              f"{np.round(c.scores_std, 4).tolist()}; max abs err against exact {err:.4f}")
+        check(bool(np.isfinite(c.contributivity_scores).all()), f"{method}: non-finite values")
+        check(err <= ESTIMATE_BOUND, f"{method} is {err} from the exact Shapley values")
+    check(calls == eng.first_charac_fct_calls_count <= 2 ** P - 1
+          and len(eng.charac_fct_values) == 2 ** P,
+          f"a coalition was trained twice: {calls} calls for {2 ** P - 1} coalitions")
+    replay = replay_estimators(sc)
+    print(f"[estimators] call counts by method {counts}; run again over the v(S) table "
+          f"{[r[2] for r in replay]}")
+    check([r[2] for r in replay] == counts, "the call counts differ when the estimators "
+                                            "run again over the same v(S)")
+    check(all(numerics.float_bits(a) == numerics.float_bits(b)
+              for r, c in zip(replay, sc.contributivity_list)
+              for a, b in zip(r[0], c.contributivity_scores)),
+          "the scores differ when the estimators run again over the same v(S)")
+    check(recon_kernel.launches == recon_kernel.launches_bf16 == 0,
+          "the retraining estimators launched a reconstruction kernel")
+    ref = sweep["scenario"]._charac_engine.charac_fct_values
+    subsets = powerset_order(P)
+    pairs = {",".join(map(str, s)): [round(eng.charac_fct_values[s], 4), round(ref[s], 4)]
+             for s in subsets}
+    dv = max(abs(eng.charac_fct_values[s] - ref[s]) for s in subsets)
+    print("[estimators] v(S) here, [sweep]'s (not gated: other batch widths may choose "
+          f"other cuDNN algorithms): max diff {dv:.4f}; " + json.dumps(pairs))
+
+
 def titanic_sweep(device: str) -> tuple:
     """(v(S) over the powerset, the scenario, test-set size) of the
     Titanic 3-partner retraining sweep (fp32) on `device`."""
@@ -878,12 +1076,23 @@ def main() -> int:
     phase_reference()
     phase_stages(sl["recon"])
     kernels = phase_kernels(sl, card)
+    svarm = phase_svarm(sl)
+    for e in kernels:
+        # each K1 entry's launches by path: the main path's and SVARM's,
+        # each counted from 0 (the 64-wide entry all, a narrower one those
+        # of batches up to its width)
+        B = e["shape"]["B"]
+        e["launches_by_path"] = {"slice": e["launches"], "svarm": (
+            svarm["launches"] if B == 64 else
+            sum(n for w, n in svarm["widths"].items() if w <= B))}
+        e["launch_widths_svarm"] = svarm["widths"]
     kernels += phase_precision(sl["values"], card)
     sweep = phase_sweep()
     phase_sweep_reference()
     phase_slots()
     phase_deterministic_reduce()
     phase_cache(sweep)
+    phase_estimators(sweep)
 
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

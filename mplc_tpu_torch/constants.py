@@ -19,9 +19,9 @@ DEFAULT_BATCH_COUNT = 20
 DEFAULT_EPOCH_COUNT = 40
 
 # Contributivity method registry names: every method the JAX package knows.
-# The port computes "Shapley values", "Independent scores" and
-# "GTG-Shapley" (and `Contributivity.exact_reconstructed`); the others
-# raise NotImplementedError until their slice lands (ROADMAP.md).
+# The port computes all of them but the three Federated SBS scores, LFlip
+# and PVRL, which raise NotImplementedError until their slice lands
+# (ROADMAP.md).
 CONTRIBUTIVITY_METHODS = [
     "Shapley values",
     "Independent scores",
@@ -62,6 +62,23 @@ def _env_float(name: str, default: float) -> float:
             raise ValueError(raw)
     except ValueError:
         warnings.warn(f"{name}={raw!r} is not a non-negative number; "
+                      f"falling back to {default}", stacklevel=2)
+        return default
+    return value
+
+
+def _env_nonneg_int(name: str, default: int) -> int:
+    """A non-negative integer knob (0 is a documented value, e.g. "auto");
+    a malformed value warns and falls back."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        value = int(raw)
+        if value < 0:
+            raise ValueError(raw)
+    except ValueError:
+        warnings.warn(f"{name}={raw!r} is not a non-negative integer; "
                       f"falling back to {default}", stacklevel=2)
         return default
     return value
@@ -115,6 +132,25 @@ GTG_TRUNCATION_ENV = "MPLC_TORCH_GTG_TRUNCATION"
 
 def gtg_truncation() -> float:
     return _env_float(GTG_TRUNCATION_ENV, 0.05)
+
+
+# SVARM's sampled-coalition budget after the exact anchors and the stratum
+# warm-up; 0 or unset means max(4 n^2, 128). Read when SVARM runs.
+SVARM_SAMPLES_ENV = "MPLC_TORCH_SVARM_SAMPLES"
+
+
+def svarm_samples() -> int:
+    return _env_nonneg_int(SVARM_SAMPLES_ENV, 0)
+
+
+# The planner's defaults for `compute_contributivity("auto")`
+# (contrib/planner.py), read when a query is planned:
+#   MPLC_TORCH_PLANNER_ACCURACY      accuracy target, the trust-row CI
+#                                    half-width on normalized scores
+#                                    (0 or unset: 0.02);
+#   MPLC_TORCH_PLANNER_DEADLINE_SEC  deadline in seconds (0 or unset: none).
+PLANNER_ACCURACY_ENV = "MPLC_TORCH_PLANNER_ACCURACY"
+PLANNER_DEADLINE_ENV = "MPLC_TORCH_PLANNER_DEADLINE_SEC"
 
 
 # Precision modes, with the JAX package's semantics (its precision knob,

@@ -1,0 +1,176 @@
+"""Query planner: route `compute_contributivity("auto")` to an estimator
+(port of `mplc_tpu/contrib/planner.py`, its non-live rungs).
+
+A `(game size, accuracy_target, deadline_sec)` triple resolves
+deterministically, by written-down rules, to a concrete QueryPlan that the
+caller keeps (`Contributivity.plan`), so running the plan's method with its
+kwargs repeats the query without planning again.
+
+Cost model: a fixed per-coalition eval-seconds constant (`DEFAULT_EVAL_SEC`,
+basis "default"). The JAX package's measured ("meter") and modelled
+("bank_cost_model") bases wait for the port's runtime plane (ROADMAP.md).
+
+Accuracy contract: `accuracy_target` is the trust-row CI half-width on
+normalized scores the caller asks for (MPLC_TORCH_PLANNER_ACCURACY, default
+0.02). GTG-Shapley receives it as its stopping threshold (`sv_accuracy`);
+exact queries meet any target by construction (CI width 0).
+
+Routing table (deterministic given the inputs; every plan carries its
+reason):
+
+  1. exact        P <= MAX_EXACT_PARTNERS and the 2^P - 1 sweep fits the
+                  deadline (no deadline: any exact-capable game routes
+                  exact).
+  2. GTG-Shapley  the truncated-permutation budget (min_iter x P evals)
+                  fits the deadline (or no deadline on a big game).
+  3. SVARM        tighter deadlines: its sample budget is clamped to what
+                  the deadline affords (anchors + stratum warm-up + at
+                  least the 128-sample floor).
+  4. SVARM        below even that floor: best effort at the floor budget.
+
+The live tier's rungs (hierarchical macro Shapley, DPVS-pruned GTG) are not
+ported: `plan_query(..., live=True)` raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from .. import constants
+
+#: per-coalition eval seconds, the only cost basis ported
+DEFAULT_EVAL_SEC = 0.05
+#: SVARM's minimum useful sampled budget (mirrors its 128-sample floor)
+_SVARM_FLOOR = 128
+#: GTG's default permutation budget per partner (min_iter default)
+_GTG_MIN_ITER = 100
+
+MAX_EXACT_PARTNERS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryPlan:
+    """One resolved plan: everything a repeat needs to run the same
+    concrete query, plus the cost and accuracy evidence behind the choice."""
+    method: str                    # "exact" / "GTG-Shapley" / "SVARM"
+    partners: int
+    accuracy_target: float         # contracted trust-row CI half-width
+    deadline_sec: "float | None"   # None = loose
+    est_evals: int                 # estimated coalition evaluations
+    est_eval_sec: float            # per-coalition eval-seconds estimate
+    est_cost_sec: float            # est_evals * est_eval_sec
+    cost_basis: str                # "default"
+    prune_tau: float               # 0 = unpruned
+    reason: str
+    method_kw: dict = dataclasses.field(default_factory=dict)
+
+    def describe(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["method_kw"] = dict(self.method_kw)
+        return d
+
+
+def plan_from_dict(doc: dict) -> QueryPlan:
+    """Rebuild a plan from its `describe()` dict."""
+    fields = {f.name for f in dataclasses.fields(QueryPlan)}
+    return QueryPlan(**{k: v for k, v in doc.items() if k in fields})
+
+
+def estimate_eval_seconds(engine=None) -> tuple:
+    """(seconds per coalition evaluation, basis): the default constant."""
+    return (DEFAULT_EVAL_SEC, "default")
+
+
+def _estimated_evals(partners: int) -> dict:
+    """Estimated coalition-evaluation budgets per estimator family."""
+    n = int(partners)
+    warmup = max(n * n - 2 * n, 0)  # SVARM per-(partner, size) strata
+    return {
+        "exact": (1 << n) - 1,
+        "GTG-Shapley": _GTG_MIN_ITER * n,
+        # anchors (2n) + stratum warm-up + the sampled floor
+        "SVARM_floor": 2 * n + warmup + _SVARM_FLOOR,
+        "SVARM_auto": 2 * n + warmup + max(4 * n * n, _SVARM_FLOOR),
+    }
+
+
+def default_accuracy_target() -> float:
+    t = constants._env_float(constants.PLANNER_ACCURACY_ENV, 0.0)
+    return t if t > 0 else 0.02
+
+
+def default_deadline_sec() -> "float | None":
+    d = constants._env_float(constants.PLANNER_DEADLINE_ENV, 0.0)
+    return d if d > 0 else None
+
+
+def plan_query(partners_count: int,
+               accuracy_target: "float | None" = None,
+               deadline_sec: "float | None" = None, *,
+               eval_sec: "float | None" = None,
+               cost_basis: str = "default",
+               live: bool = False) -> QueryPlan:
+    """Resolve `method="auto"` to a concrete QueryPlan (routing table in
+    the module docstring). Pure given its inputs."""
+    if live:
+        raise NotImplementedError(
+            "the live tier's planner rungs (hierarchical, DPVS-pruned) are "
+            "not ported yet (ROADMAP.md queue 1, Live)")
+    n = int(partners_count)
+    if n < 1:
+        raise ValueError(f"partners_count must be >= 1, got {n}")
+    if accuracy_target is None:
+        accuracy_target = default_accuracy_target()
+    if deadline_sec is None:
+        deadline_sec = default_deadline_sec()
+    if eval_sec is None:
+        eval_sec, cost_basis = DEFAULT_EVAL_SEC, "default"
+    evals = _estimated_evals(n)
+
+    def _plan(method, est_evals, reason, **method_kw):
+        return QueryPlan(
+            method=method, partners=n,
+            accuracy_target=float(accuracy_target),
+            deadline_sec=None if deadline_sec is None else float(deadline_sec),
+            est_evals=int(est_evals), est_eval_sec=float(eval_sec),
+            est_cost_sec=float(est_evals) * float(eval_sec),
+            cost_basis=cost_basis, prune_tau=0.0,
+            reason=reason, method_kw=method_kw)
+
+    def _fits(est_evals):
+        return deadline_sec is None or est_evals * eval_sec <= deadline_sec
+
+    # 1. exact: zero sampling error, so it satisfies any accuracy target
+    if n <= MAX_EXACT_PARTNERS and _fits(evals["exact"]):
+        return _plan(
+            "exact", evals["exact"],
+            f"2^{n}-1 exact sweep fits "
+            + ("a loose deadline" if deadline_sec is None
+               else f"the {deadline_sec:g}s deadline")
+            + "; exact Shapley meets any accuracy target (CI width 0)")
+    # 2. GTG-Shapley: permutation sampling to the accuracy target
+    if _fits(evals["GTG-Shapley"]):
+        reason = (f"game too large for the exact table (P={n} > "
+                  f"{MAX_EXACT_PARTNERS})" if n > MAX_EXACT_PARTNERS
+                  else "exact sweep would blow the deadline")
+        return _plan(
+            "GTG-Shapley", evals["GTG-Shapley"],
+            reason + "; truncated-permutation budget fits",
+            sv_accuracy=float(accuracy_target))
+    # 3. SVARM: explicit budget clamped to the deadline
+    if _fits(evals["SVARM_floor"]):
+        affordable = int(deadline_sec / eval_sec) if deadline_sec else 0
+        overhead = evals["SVARM_floor"] - _SVARM_FLOOR
+        budget = min(max(affordable - overhead, _SVARM_FLOOR),
+                     max(4 * n * n, _SVARM_FLOOR))
+        return _plan(
+            "SVARM", overhead + budget,
+            "deadline below the GTG permutation budget; SVARM's sample "
+            f"budget clamps to {budget} coalitions",
+            budget=int(budget))
+    # 4. floor-budget SVARM (best effort)
+    return _plan(
+        "SVARM", evals["SVARM_floor"],
+        "deadline below every estimator's floor — best-effort SVARM at "
+        "the minimum sample budget (expect the deadline to be missed)",
+        budget=_SVARM_FLOOR)

@@ -1,5 +1,5 @@
 """The port on the card: K1 and K1-bf16 against their plain versions, the
-retraining sweep against the CPU, and fp32 reproducibility.
+retraining sweep and SVARM against the CPU, and fp32 reproducibility.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from mplc_tpu_torch.contrib.contributivity import Contributivity
-from mplc_tpu_torch.contrib.reconstruct import record_updates
+from mplc_tpu_torch.contrib.reconstruct import ReconstructionEvaluator, record_updates
+from mplc_tpu_torch.convert import params_to_numpy, recorded_run_from_numpy
 from mplc_tpu_torch.contrib.shapley import powerset_order
 from mplc_tpu_torch.data.datasets import load_mnist, load_titanic
 from mplc_tpu_torch.ops import recon_kernel as trk
@@ -190,3 +191,32 @@ def test_two_fp32_recordings_on_the_card_are_bit_equal(cuda):
         for g in x:
             for k in x[g]:
                 assert torch.equal(x[g][k], y[g][k]), (g, k)
+
+
+def _titanic_game(device):
+    sc = Scenario(3, [0.2, 0.3, 0.5], is_dry_run=True, dataset=load_titanic(), epoch_count=2,
+                  minibatch_count=2, gradient_updates_per_pass_count=2,
+                  is_early_stopping=False, seed=0, device=device)
+    sc.instantiate_scenario_partners()
+    sc.split_data()
+    return Contributivity(sc)
+
+
+def test_svarm_on_the_card_matches_the_cpu(cuda):
+    """SVARM over one Titanic game recorded on the card, reconstructed
+    (K1) and evaluated on the card, and the same recording reconstructed
+    and evaluated on the CPU: the same draws, scores and std within 1e-6."""
+    card = _titanic_game("cuda")
+    before = trk.launches
+    card.SVARM()
+    assert trk.launches > before
+    rec = card._reconstructor().recorded
+    cpu = _titanic_game("cpu")
+    cpu.engine._reconstruction = ReconstructionEvaluator(cpu.engine, recorded_run_from_numpy(
+        params_to_numpy(rec.init_params), params_to_numpy(rec.deltas),
+        rec.weights.cpu().numpy()))
+    cpu.SVARM()
+    assert card._reconstructor().reconstructions == cpu._reconstructor().reconstructions
+    np.testing.assert_allclose(card.contributivity_scores, cpu.contributivity_scores,
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(card.scores_std, cpu.scores_std, rtol=0, atol=1e-6)

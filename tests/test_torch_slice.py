@@ -166,7 +166,8 @@ def test_scenario_without_cuda_raises():
         Scenario(3, AMOUNTS, is_dry_run=True, dataset=tdatasets.load_titanic())
 
 
-@pytest.mark.parametrize("method", ["ITMCS", "TMCS", "SVARM", "auto"])
+@pytest.mark.parametrize("method", ["Federated SBS linear", "Federated SBS quadratic",
+                                    "Federated SBS constant", "LFlip", "PVRL"])
 def test_unported_methods_raise(method):
     sc = Scenario(3, AMOUNTS, is_dry_run=True, dataset=tdatasets.load_titanic(), device="cpu", **GAME)
     sc.instantiate_scenario_partners()
