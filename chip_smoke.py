@@ -66,7 +66,21 @@ Phases, each of which fails the script (non-zero exit, no result line):
    within 0.05 of the exact Shapley values of the same run, no coalition
    trained twice (31 at most), and each method's call count the same when
    the estimators are run again over the run's v(S) table (the CPU tests
-   hold that replay's counts equal to the JAX package's).
+   hold that replay's counts equal to the JAX package's);
+13. variants: the seq family and lflip through the user entry points at
+   the MNIST CNN's full width: the 10-partner fedavg `Scenario` with
+   Federated SBS x3 (equal to a numpy recomputation from its history),
+   PVRL (values in (0, 1)) and LFlip (theta rows summing to 1, or 0 where
+   the EM step zeroed them); the
+   5-partner seqavg retraining sweep on merged slot buckets (v(S) in
+   [0, 1], Shapley values summing to v(N)), its first multi-partner batch
+   again masked (printed), and that batch on slots and masked under the
+   deterministic reduce (bit-equal); the seq-pure and
+   seq-with-final-agg fits at 10 partners (accuracy above 0.3); Titanic
+   seqavg (params within 1e-4) and a small MNIST lflip fit (theta within
+   1e-5, weights within Adam's step bound, beside fedavg's as a control)
+   on the card against the CPU. No reconstruction kernel launches in this
+   phase.
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -195,13 +209,15 @@ def precision_env(mode: str):
     return knob(constants.PRECISION_ENV, mode)
 
 
-def mnist_scenario(methods, partners: int = PARTNERS, **kw) -> Scenario:
-    """bench.py config 1's settings, partner i holding (i+1)/sum of the
-    data (10 partners: (i+1)/55); a dry run, which writes no files."""
+def mnist_scenario(methods, partners: int = PARTNERS, approach: str = "fedavg",
+                   **kw) -> Scenario:
+    """bench.py config 1's settings (its approach fedavg unless `approach`
+    says otherwise), partner i holding (i+1)/sum of the data (10 partners:
+    (i+1)/55); a dry run, which writes no files."""
     total = sum(range(1, partners + 1))
     return Scenario(partners, [(i + 1) / total for i in range(partners)], is_dry_run=True,
                     dataset=load_mnist(scale=SCALE, noise=NOISE),
-                    multi_partner_learning_approach="fedavg",
+                    multi_partner_learning_approach=approach,
                     aggregation_weighting="data-volume", epoch_count=2,
                     minibatch_count=10, gradient_updates_per_pass_count=8,
                     is_early_stopping=False, methods=methods, seed=0,
@@ -1058,6 +1074,214 @@ def phase_sweep_reference() -> None:
     check(dv <= 1.0 / n_test + 1e-6, "card and CPU sweeps differ by more than one sample")
 
 
+# The variants phase: the methods that read the grand coalition's training
+VARIANT_METHODS = ["Federated SBS linear", "Federated SBS quadratic",
+                   "Federated SBS constant", "PVRL", "LFlip"]
+
+
+def sbs_numpy(history) -> dict:
+    """The three step-by-step scores recomputed from a History's val
+    accuracies: each partner's over the collective model's per round, 10%
+    of the rounds skipped at each end, weighted 1, r or r^2."""
+    coll = history["mpl_model"]["val_accuracy"].reshape(-1)
+    rel = np.stack([history[k]["val_accuracy"].reshape(-1) / coll
+                    for k in history if k != "mpl_model"], axis=1)
+    rounds = len(coll)
+    rel = rel[int(np.round(rounds * 0.1)):int(np.round(rounds * 0.9))]
+    r = np.arange(len(rel), dtype=float)
+    return {"Federated step by step linear scores": r @ np.nan_to_num(rel),
+            "Federated step by step quadratic scores": (r * r) @ np.nan_to_num(rel),
+            "Federated step by step constant scores": np.nanmean(rel, axis=0)}
+
+
+def params_against(a: dict, b: dict, steps: int) -> tuple[float, float]:
+    """(max abs difference, share of the weights farther apart than 1e-4)
+    of two parameter dicts of runs whose gradients differ by rounding.
+    Adam normalises each weight's step by its own gradient, so a weight
+    whose gradient is near zero moves by up to one learning rate (1e-3) a
+    step on such a difference: gated on that bound; how many weights move
+    so depends on the data (the share is printed)."""
+    diffs = [(a[g][k].cpu() - b[g][k].cpu()).abs() for g in b for k in b[g]]
+    err = max(d.max().item() for d in diffs)
+    share = sum(int((d > 1e-4).sum()) for d in diffs) / sum(d.numel() for d in diffs)
+    check(err <= steps * 1e-3, f"parameters differ by {err}, more than {steps} Adam steps")
+    return err, share
+
+
+def fit_on(device: str, approach: str, dataset, partners: int = 3, **game):
+    """The grand coalition's fit under `approach` on `device` (the approach
+    object), partner i holding (i+1)/sum of the data."""
+    total = sum(range(1, partners + 1))
+    sc = Scenario(partners, [(i + 1) / total for i in range(partners)], is_dry_run=True,
+                  dataset=dataset, multi_partner_learning_approach=approach,
+                  is_early_stopping=False, seed=0, device=device, **game)
+    sc.instantiate_scenario_partners()
+    sc.split_data()
+    mpl = sc.multi_partner_learning_approach(sc)
+    mpl.fit()
+    return mpl
+
+
+def phase_variants() -> None:
+    """The seq family and lflip through the user entry points, at the MNIST
+    CNN's full width with bench config 1's training (none of them records
+    updates, so no reconstruction kernel may launch):
+    (a) the 10-partner fedavg Scenario with Federated SBS x3, PVRL and
+        LFlip; (b) the 5-partner seqavg retraining sweep on merged slot
+        buckets, then its first multi-partner batch again masked; (c) the
+        seq-pure and seq-with-final-agg fits at 10 partners; (d) Titanic
+        seqavg and a small MNIST lflip fit on the card against the CPU."""
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    t0 = time.perf_counter()
+    sc = mnist_scenario(VARIANT_METHODS)
+    sc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hist = sc.mpl.history.history
+    expected = sbs_numpy(hist)
+    print(f"[variants] MNIST CNN, {PARTNERS} partners, fedavg: {wall:.2f} s for "
+          f"Scenario.run() (fit {sc.mpl.learning_computation_time:.2f} s, score "
+          f"{sc.mpl.history.score:.4f})")
+    for c in sc.contributivity_list:
+        print(f"[variants] {c.name}: {c.computation_time_sec:.2f} s; values "
+              f"{np.round(c.contributivity_scores, 4).tolist()}")
+        check(bool(np.isfinite(c.contributivity_scores).all()), f"{c.name}: non-finite values")
+        if c.name in expected:
+            check(np.array_equal(c.contributivity_scores, expected[c.name]),
+                  f"{c.name} differs from its numpy recomputation")
+    pvrl, lflip = sc.contributivity_list[3:]
+    check(pvrl.name == "PVRL" and bool(((pvrl.contributivity_scores > 0)
+                                        & (pvrl.contributivity_scores < 1)).all()),
+          "PVRL values are not in (0, 1)")
+    # the EM step L1-normalises theta's rows, but a row whose posterior
+    # mass is exactly 0 (the model's softmax underflowing to 0 for that
+    # class on a whole window) divides 0 by the 1e-12 clamp and stays 0
+    # for good, as in the JAX package (tests/test_torch_lflip.py)
+    thetas = lflip.thetas_history
+    rows = np.stack([t.sum(1) for epoch in thetas for t in epoch])
+    dead = rows == 0
+    last = np.stack(thetas[-1])
+    print(f"[variants] LFlip: {len(thetas)} epochs of thetas, {int((~dead).sum())} rows "
+          f"within {np.abs(rows[~dead] - 1).max(initial=0.0):.3g} of summing to 1, "
+          f"{int(dead.sum())} of {dead.size} rows zero ({int((last.sum(2) == 0).sum())} "
+          f"of {last.shape[0] * last.shape[1]} in the last epoch); label-flip fit "
+          f"score {lflip.score:.4f}")
+    check(len(thetas) == sc.epoch_count and np.abs(rows[~dead] - 1).max(initial=0.0) <= 1e-5,
+          "a LFlip theta row sums neither to 1 nor to 0")
+    check(np.array_equal(lflip.contributivity_scores, np.exp(-np.array(
+        [np.linalg.norm(t - np.identity(t.shape[0])) for t in last]))),
+          "the LFlip scores are not exp(-||theta - I||) of the last thetas")
+
+    P = SWEEP_PARTNERS
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seq = mnist_scenario(["Shapley values"], P, approach="seqavg")
+    seq.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    eng = seq._charac_engine
+    subsets = powerset_order(P)
+    values = np.array([eng.charac_fct_values[s] for s in subsets])
+    sv = seq.contributivity_list[0].contributivity_scores
+    v_all = eng.charac_fct_values[tuple(range(P))]
+    print(f"[variants] MNIST CNN, {P} partners, seqavg sweep ({seq.slot_bucketing} slot "
+          f"buckets): {wall:.2f} s for Scenario.run() (fit "
+          f"{seq.mpl.learning_computation_time:.2f} s, batches "
+          f"{sum(b['seconds'] for b in eng.batch_log):.2f} s); peak memory "
+          f"{(peak - base) / 2 ** 30:.2f} GiB above the phase's start")
+    batch_lines("variants", eng)
+    print(f"[variants] seqavg Shapley values {np.round(sv, 4).tolist()} (sum "
+          f"{sv.sum():.6f}, v(N) {v_all:.4f}); v(S) {np.round(values, 4).tolist()}")
+    check(seq.slot_bucketing == "merge", f"the seqavg sweep ran {seq.slot_bucketing}")
+    check(bool(np.isfinite(values).all() and (values >= 0).all() and (values <= 1).all()),
+          "a seqavg v(S) is not finite in [0, 1]")
+    check(abs(sv.sum() - v_all) <= 1e-6, "the seqavg Shapley values do not sum to v(N)")
+    first = next(b for b in eng.batch_log if b["kind"] == "multi")
+    group = [s for s in subsets if len(s) > 1 and eng._slot_width(len(s)) == first["slot_count"]]
+    group = group[:first["coalitions"]]
+    got = np.array([eng.charac_fct_values[s] for s in group])
+    n_test = len(seq.dataset.x_test)
+    with knob(constants.NO_SLOTS_ENV, "1"):
+        masked = CharacteristicEngine(seq)
+    t0 = time.perf_counter()
+    ref = masked.evaluate(group)
+    masked_s = time.perf_counter() - t0
+    differ = [s for s, a, b in zip(group, got, ref)
+              if numerics.float_bits(a) != numerics.float_bits(b)]
+    # the default reduce sums the aggregation's partner axis with
+    # torch.sum, whose association on the card depends on the axis length
+    # (5 masked, 3 slots), so the last bits differ where three members
+    # fall differently, and training carries them on; shown on three
+    # terms directly
+    terms = torch.randn(3, 1 << 20, device=DEVICE)
+    padded = torch.zeros(5, 1 << 20, device=DEVICE)
+    padded[[0, 2, 4]] = terms
+    assoc = int((terms.sum(0) != padded.sum(0)).sum())
+    print(f"[variants] seqavg batch of {len(group)} coalitions masked in {masked_s:.2f} s "
+          f"(on {first['slot_count']} slots {first['seconds']:.2f} s), default reduce: "
+          f"{len(group) - len(differ)} of {len(group)} v(S) bit-equal, max diff "
+          f"{float(np.abs(got - ref).max()):.4f} (1/n_test {1 / n_test:.4f}), differing "
+          f"{differ}; torch.sum of 3 terms over an axis of 3 against 5 (two zeros): "
+          f"{assoc} of {1 << 20} sums differ (not gated)")
+    # the deterministic reduce folds left to right, so slots and masks must
+    # agree bit for bit; the seq family stays on slots under it
+    with knob(constants.DETERMINISTIC_REDUCE_ENV, "1"):
+        det_slots = CharacteristicEngine(seq)
+        with knob(constants.NO_SLOTS_ENV, "1"):
+            det_masked = CharacteristicEngine(seq)
+    check(det_slots._use_slots and not det_masked._use_slots,
+          "the deterministic reduce did not keep the seq sweep on slots")
+    t0 = time.perf_counter()
+    a = det_slots.evaluate(group)
+    det_s = time.perf_counter() - t0
+    b = det_masked.evaluate(group)
+    same = sum(numerics.float_bits(x) == numerics.float_bits(y) for x, y in zip(a, b))
+    print(f"[variants] seqavg batch under the deterministic reduce, on slots "
+          f"({det_s:.2f} s) and masked: {same} of {len(group)} v(S) bit-equal, max diff "
+          f"{float(np.abs(a - b).max()):.4f}; against the default reduce's slots, max "
+          f"diff {float(np.abs(a - got).max()):.4f}")
+    check(same == len(group), "under the deterministic reduce seqavg slot and masked "
+                              "v(S) differ")
+
+    for approach in ("seq-pure", "seq-with-final-agg"):
+        s = mnist_scenario([], approach=approach)
+        s.instantiate_scenario_partners()
+        s.split_data()
+        mpl = s.multi_partner_learning_approach(s)
+        t0 = time.perf_counter()
+        score = mpl.fit()
+        torch.cuda.synchronize()
+        print(f"[variants] MNIST CNN, {PARTNERS} partners, {approach} fit: "
+              f"{time.perf_counter() - t0:.2f} s, test accuracy {score:.4f}")
+        check(score > 0.3, f"the {approach} fit's accuracy {score} is not above 0.3")
+
+    titanic = dict(epoch_count=2, minibatch_count=2, gradient_updates_per_pass_count=2)
+    card, cpu = (fit_on(d, "seqavg", load_titanic(), **titanic) for d in (DEVICE, "cpu"))
+    err = max((card.model_params[g][k].cpu() - cpu.model_params[g][k]).abs().max().item()
+              for g in cpu.model_params for k in cpu.model_params[g])
+    print(f"[variants] titanic seqavg fit, card vs cpu: params max abs err {err:.3g}")
+    check(err <= 1e-4, "the card's and the CPU's seqavg fits differ")
+    # lflip's own state, theta, is held to 1e-5: its EM steps read the
+    # whole window's predictions, and a label drawn differently moves it
+    # far more; the weights to Adam's bound, beside fedavg's as a control
+    small = dict(epoch_count=1, minibatch_count=2, gradient_updates_per_pass_count=2)
+    fits = {approach: [fit_on(d, approach, load_mnist(scale=0.02, noise=NOISE), **small)
+                       for d in (DEVICE, "cpu")] for approach in ("lflip", "fedavg")}
+    (card, cpu), control = fits["lflip"], fits["fedavg"]
+    err, share = params_against(card.model_params, cpu.model_params, steps=4)
+    cerr, cshare = params_against(control[0].model_params, control[1].model_params, steps=4)
+    terr = float(np.abs(np.stack(card.history.theta[0]) - np.stack(cpu.history.theta[0])).max())
+    print(f"[variants] small MNIST lflip fit, card vs cpu: params max abs err {err:.3g}, "
+          f"share above 1e-4 {share:.3g} (fedavg's: {cerr:.3g}, {cshare:.3g}); theta max "
+          f"abs err {terr:.3g}; test accuracy {card.history.score:.4f} / "
+          f"{cpu.history.score:.4f}")
+    check(terr <= 1e-5, "the card's and the CPU's lflip thetas differ")
+    check(recon_kernel.launches == recon_kernel.launches_bf16 == 0,
+          "the variants launched a reconstruction kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1093,6 +1317,7 @@ def main() -> int:
     phase_deterministic_reduce()
     phase_cache(sweep)
     phase_estimators(sweep)
+    phase_variants()
 
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -18,10 +18,8 @@ PATIENCE = 10  # early-stopping patience, in epochs
 DEFAULT_BATCH_COUNT = 20
 DEFAULT_EPOCH_COUNT = 40
 
-# Contributivity method registry names: every method the JAX package knows.
-# The port computes all of them but the three Federated SBS scores, LFlip
-# and PVRL, which raise NotImplementedError until their slice lands
-# (ROADMAP.md).
+# Contributivity method registry names: every method the JAX package
+# knows, all of them computed by the port.
 CONTRIBUTIVITY_METHODS = [
     "Shapley values",
     "Independent scores",

@@ -25,9 +25,11 @@ v(S) they give the same scores, std and call counts. How they batch:
     iterations' draws, simulated on a cloned rng: a missed speculation only
     warms the memo, it never changes the estimator's stream.
 
-Federated SBS x3, LFlip and PVRL raise NotImplementedError until their
-slice is ported (ROADMAP.md); a name the JAX package does not know is
-logged and ignored.
+Over the grand coalition's training: the Federated step-by-step scores
+(linear, quadratic, constant) from `scenario.mpl.history`, LFlip from a
+label-flip fit's thetas, and PVRL from its own REINFORCE-driven run, one
+epoch at a time. A name the JAX package does not know is logged and
+ignored.
 """
 
 from __future__ import annotations
@@ -41,7 +43,10 @@ import numpy as np
 from scipy import linalg
 from scipy.stats import norm
 
+import torch
+
 from .. import constants
+from ..mpl.engine import MplTrainer, TrainConfig, epoch_streams
 from .engine import CharacteristicEngine
 from .planner import estimate_eval_seconds, plan_query
 from .sampling import (WithoutReplacementRanks, make_importance_sampler,
@@ -865,12 +870,142 @@ class Contributivity:
                       "method": "SVARM"}
         self._finish("SVARM", sv, std, t0)
 
+    # ------------------------------------------------------------------
+    # Federated step-by-step scores (history post-processing)
+    # ------------------------------------------------------------------
+
+    def compute_relative_perf_matrix(self):
+        """Per round, each partner's val accuracy over the collective
+        model's, 10% of the rounds skipped at each end: [rounds, P]."""
+        init_skip = 0.1
+        final_skip = 0.1
+        mpl = self.scenario.mpl
+        coll = np.asarray(mpl.history.history["mpl_model"]["val_accuracy"])
+        partner_mats = [np.asarray(v["val_accuracy"])
+                        for k, v in mpl.history.history.items() if k != "mpl_model"]
+        per_partner = np.stack(partner_mats, axis=-1)  # [E, MB, P]
+        E, MB, P = per_partner.shape
+        first = int(np.round(E * MB * init_skip))
+        last = int(np.round(E * MB * (1 - final_skip)))
+        coll_flat = coll.reshape(E * MB)
+        per_flat = per_partner.reshape(E * MB, P)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            rel = np.divide(per_flat, coll_flat[:, None])
+        return rel[first:last, :]
+
+    def _sbs(self, importance_fn, name):
+        t0 = time.perf_counter()
+        rel = self.compute_relative_perf_matrix()
+        scores = importance_fn(rel.shape[0]) @ np.nan_to_num(rel)
+        self._finish(name, scores, np.zeros(self._n), t0)
+
+    def federated_SBS_linear(self):
+        logger.info("# Federated SBS linear")
+        self._sbs(lambda r: np.arange(r, dtype=float),
+                  "Federated step by step linear scores")
+
+    def federated_SBS_quadratic(self):
+        logger.info("# Federated SBS quadratic")
+        self._sbs(lambda r: np.square(np.arange(r, dtype=float)),
+                  "Federated step by step quadratic scores")
+
+    def federated_SBS_constant(self):
+        t0 = time.perf_counter()
+        logger.info("# Federated SBS constant")
+        scores = np.nanmean(self.compute_relative_perf_matrix(), axis=0)
+        self._finish("Federated step by step constant scores", scores,
+                     np.zeros(self._n), t0)
+
+    # ------------------------------------------------------------------
+    # LFlip and PVRL
+    # ------------------------------------------------------------------
+
+    def flip_label(self):
+        """Train MplLabelFlip; partner i scores exp(-||theta_i - I||_F) of
+        its last epoch's theta."""
+        t0 = time.perf_counter()
+        from ..mpl.approaches import MplLabelFlip
+        mpl = MplLabelFlip(self.scenario)
+        mpl.fit()
+        self.thetas_history = mpl.history.theta
+        self.score = mpl.history.score
+        last = mpl.history.theta[-1]
+        scores = np.exp(-np.array([
+            np.linalg.norm(last[i] - np.identity(last[i].shape[0]))
+            for i in range(self._n)]))
+        self._finish("Label Flip", scores, np.zeros(self._n), t0)
+
+    def _pvrl_start(self, trainer: MplTrainer):
+        """(generators, initial params, streams) of PVRL's run: one
+        generator seeded seed + 99 draws the initial params and every
+        epoch's streams, so epoch e draws what epoch e of one E-epoch run
+        would (None, None). The parity tests substitute the JAX package's
+        initial params and per-epoch streams ([1, E, ...]) here."""
+        return [torch.Generator().manual_seed(int(self.scenario.seed) + 99)], None, None
+
+    def PVRL(self, learning_rate):
+        """Per-epoch Bernoulli partner selection trained by REINFORCE on the
+        val-loss improvement, the selection being the epoch's coalition
+        mask; the probabilities in the gradient are clamped and the logits
+        bounded, so the update never produces inf or NaN."""
+        t0 = time.perf_counter()
+        logger.info("# Launching PVRL")
+        sc = self.scenario
+        n = self._n
+        eng = self.engine
+        cfg = TrainConfig(
+            approach=sc.multi_partner_learning_approach_key,
+            aggregator=sc.aggregation_name,
+            epoch_count=sc.epoch_count,
+            minibatch_count=sc.minibatch_count,
+            gradient_updates_per_pass=sc.gradient_updates_per_pass_count,
+            is_early_stopping=False,
+            record_partner_val=False,
+            # the reward comes from a fresh end-of-epoch eval below
+            record_val_history=False,
+        )
+        trainer = MplTrainer(sc.dataset.model, cfg)
+        generators, init_params, streams = self._pvrl_start(trainer)
+        state = trainer.init_state(generators, n, eng.device, init_params)
+
+        def val_loss():
+            return float(trainer.evaluate_models(state.params, eng.val)[0][0])
+
+        w = np.zeros(n)
+        values = 1.0 / (1.0 + np.exp(-w))
+        prev_loss = val_loss()
+        for epoch in range(sc.epoch_count):
+            is_in = np.zeros(n)
+            while is_in.sum() == 0:
+                is_in = self._rng.binomial(1, p=values)
+            mask = torch.tensor(is_in[None], dtype=torch.float32, device=eng.device)
+            trainer.run_epoch(state, eng.stacked, eng.val, mask, generators,
+                              epoch_streams(streams, epoch))
+            # the reward from the end-of-epoch model
+            loss = val_loss()
+            G = -loss + prev_loss
+            dp_dw = np.exp(w) / (1 + np.exp(w)) ** 2
+            safe = np.clip(values, 1e-6, 1.0 - 1e-6)
+            prodp = np.prod(safe)
+            grad = (is_in / safe - (1.0 - is_in) / (1.0 - safe)
+                    - prodp / (1.0 - prodp) / (1.0 - safe))
+            w = np.clip(w + learning_rate * G * dp_dw * grad, -10.0, 10.0)
+            values = 1.0 / (1.0 + np.exp(-w))
+            prev_loss = loss
+        self._finish("PVRL", values, np.zeros(n), t0)
+
     def compute_contributivity(self, method_to_compute, sv_accuracy=0.01,
                                alpha=0.95, truncation=0.05, update=50,
                                accuracy_target=None, deadline_sec=None):
         """Run `method_to_compute`; the engine batches it trains are kept in
         `batches_trained`."""
         first = len(self.engine.batch_log)
+        fedavg_only = ("Federated SBS linear", "Federated SBS quadratic",
+                       "Federated SBS constant")
+        if method_to_compute in fedavg_only and \
+                self.scenario.multi_partner_learning_approach_key != "fedavg":
+            logger.warning("Step by step contributivity methods are only suited "
+                           "for federated averaging learning approaches")
         if method_to_compute == "auto":
             # the planner resolves (game size, accuracy target, deadline)
             # to a concrete estimator; the plan is kept and the concrete
@@ -913,10 +1048,16 @@ class Contributivity:
             self.GTG_Shapley(sv_accuracy=sv_accuracy, alpha=alpha)
         elif method_to_compute == "SVARM":
             self.SVARM(alpha=alpha)
-        elif method_to_compute in constants.CONTRIBUTIVITY_METHODS:
-            raise NotImplementedError(
-                f"contributivity method '{method_to_compute}' is not ported "
-                "yet (ROADMAP.md queue 1)")
+        elif method_to_compute == "Federated SBS linear":
+            self.federated_SBS_linear()
+        elif method_to_compute == "Federated SBS quadratic":
+            self.federated_SBS_quadratic()
+        elif method_to_compute == "Federated SBS constant":
+            self.federated_SBS_constant()
+        elif method_to_compute == "PVRL":
+            self.PVRL(learning_rate=0.2)
+        elif method_to_compute == "LFlip":
+            self.flip_label()
         else:
             logger.warning("Unrecognized name of method, statement ignored!")
         self.batches_trained = self.engine.batch_log[first:]

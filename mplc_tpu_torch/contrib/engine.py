@@ -7,13 +7,14 @@ partners, val and test sets), derives the coalition-training configs, and
 gives each coalition its mask or slot ids and its own random stream.
 `evaluate` is the batched, memoized v(S) = the test accuracy of a model
 trained on S alone: single-partner coalitions train through the single
-trainer, the others through FedAvg, up to MAX_COALITIONS_PER_DEVICE_BATCH
-coalitions a batch. FedAvg coalitions train on slots by default, grouped by
-slot width (`_slot_buckets`), or masked over all P partners
-(MPLC_TORCH_NO_SLOTS=1, and always under MPLC_TORCH_DETERMINISTIC_REDUCE,
-as the JAX package routes it). The memo is saved to a checksummed JSON
-cache (`save_cache`, after every trained batch when `autosave_path` is
-set) and restored from it (`load_cache`), keyed by everything v(S)
+trainer, the others through the scenario's approach, up to
+MAX_COALITIONS_PER_DEVICE_BATCH coalitions a batch. FedAvg and seq-family
+coalitions train on slots by default, grouped by slot width
+(`_slot_buckets`), or masked over all P partners (MPLC_TORCH_NO_SLOTS=1,
+lflip, and fedavg under MPLC_TORCH_DETERMINISTIC_REDUCE, as the JAX
+package routes them). The memo is saved to a checksummed JSON cache
+(`save_cache`, after every trained batch when `autosave_path` is set) and
+restored from it (`load_cache`), keyed by everything v(S)
 depends on. The retrain-free path (contrib/reconstruct.py) runs on the
 same staged data. The fault ladder, the program bank and batch pipelining
 are not ported yet (ROADMAP.md).
@@ -34,7 +35,7 @@ import torch
 from .. import constants
 from ..data.partition import StackedPartners
 from ..mpl.approaches import stage_eval_set
-from ..mpl.engine import MplTrainer, TrainConfig
+from ..mpl.engine import SLOT_APPROACHES, MplTrainer, TrainConfig
 
 
 # one deprecation warning a process for legacy no-checksum caches
@@ -73,11 +74,12 @@ class BatchedTrainerPipeline:
 
     def scores(self, coal: torch.Tensor, generators, stacked, val, test,
                init_params: dict | None = None,
-               streams_all: torch.Tensor | None = None) -> tuple[np.ndarray, np.ndarray]:
+               streams_all=None) -> tuple[np.ndarray, np.ndarray]:
         """(test accuracies, epochs trained) of the coalitions `coal`
         (masks [B, P], or slot ids [B, K] on a slot trainer), each trained
         from its generator's stream, or from injected initial params
-        ([B, ...] leaves) and permutations ([B, E, ...])."""
+        ([B, ...] leaves) and streams (`MplTrainer.epoch_chunk`'s
+        `streams_all`)."""
         tr = self.trainer
         state = tr.init_state(generators, self.partners_count, coal.device,
                               init_params)
@@ -124,12 +126,16 @@ class CharacteristicEngine:
         self.single_pipe = BatchedTrainerPipeline(
             MplTrainer(self.model, dataclasses.replace(self._multi_cfg, approach="single")),
             self.partners_count)
-        # Slot execution: a size-k fedavg coalition trains k partner slots
-        # instead of P masked partners, one lazily built pipeline a slot
+        # Slot execution: a size-k fedavg or seq coalition trains k partner
+        # slots instead of P masked partners (for the seq family, k visits
+        # a minibatch instead of P), one lazily built pipeline a slot
         # width. Under the deterministic reduce fedavg sweeps run masked, as
-        # in the JAX package (there they take its partner-sharded pipeline).
-        self._use_slots = (self._multi_cfg.approach == "fedavg"
-                           and not self._multi_cfg.deterministic_reduce
+        # in the JAX package (there they take its partner-sharded pipeline);
+        # the seq family stays on slots; lflip always runs masked.
+        approach = self._multi_cfg.approach
+        self._use_slots = (approach in SLOT_APPROACHES
+                           and not (approach == "fedavg"
+                                    and self._multi_cfg.deterministic_reduce)
                            and os.environ.get(constants.NO_SLOTS_ENV) != "1")
         self._slot_pow2 = os.environ.get(constants.SLOT_POW2_ENV) == "1"
         self._slot_merge = (not self._slot_pow2 and os.environ.get(
@@ -199,10 +205,10 @@ class CharacteristicEngine:
         return tuple(i for i in subset if i not in self._forever_dropped)
 
     def _batch_start(self, subsets: list[tuple], single: bool):
-        """(generators, initial params, permutations) of a batch's
-        coalitions: each coalition's own stream, from which the trainer
-        draws both (None, None). The parity tests substitute the JAX
-        package's initial params and permutations here."""
+        """(generators, initial params, streams) of a batch's coalitions:
+        each coalition's own stream, from which the trainer draws all of
+        them (None, None). The parity tests substitute the JAX package's
+        initial params and streams here."""
         return [self.coalition_generator(s) for s in subsets], None, None
 
     # ------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Carry parameters and recorded runs across from the JAX package.
+"""Carry parameters, label-flip thetas and recorded runs across from the
+JAX package.
 
 Both packages keep the same layouts (dense `[in, out]`, conv HWIO), so a
 JAX parameter tree converts leaf by leaf. The JAX side is passed as numpy
@@ -23,6 +24,13 @@ def params_to_numpy(params: dict) -> dict:
     """The inverse of `params_from_numpy`: host numpy arrays."""
     return {g: {k: t.detach().cpu().numpy() for k, t in d.items()}
             for g, d in params.items()}
+
+
+def theta_from_numpy(theta, device="cpu") -> torch.Tensor:
+    """A JAX package's label-flip theta ([P, K, K], or [B, P, K, K] for a
+    batch of runs) as a float32 tensor, for `MplTrainer.init_state`'s
+    `init_theta`."""
+    return torch.tensor(np.asarray(theta), dtype=torch.float32, device=device)
 
 
 def recorded_run_from_numpy(init_params: dict, deltas: dict, weights,

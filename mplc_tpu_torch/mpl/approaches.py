@@ -1,8 +1,9 @@
 """Host-side multi-partner learning classes (port of
-`mplc_tpu/mpl/approaches.py`, the fedavg approach).
+`mplc_tpu/mpl/approaches.py`): fedavg, the seq family and lflip.
 
 `Cls(scenario).fit()` stages the scenario's data on its device, trains the
-grand coalition through `MplTrainer` and fills the `History`.
+grand coalition through `MplTrainer` and fills the `History` (for lflip,
+its per-epoch theta too).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ class MultiPartnerLearning:
 
     approach_key = "fedavg"
 
-    def __init__(self, scenario):
+    def __init__(self, scenario, **cfg):
         self.dataset = scenario.dataset
         self.partners_list = sorted(scenario.partners_list, key=lambda p: p.id)
         self.device = scenario.device
@@ -46,6 +47,7 @@ class MultiPartnerLearning:
             minibatch_count=self.minibatch_count,
             gradient_updates_per_pass=scenario.gradient_updates_per_pass_count,
             is_early_stopping=scenario.is_early_stopping,
+            **cfg,
         )
         self.trainer = MplTrainer(self.model, self.cfg)
         self.history = History([p.id for p in self.partners_list],
@@ -81,6 +83,8 @@ class MultiPartnerLearning:
             [p.id for p in self.partners_list], run.val_loss_h,
             run.val_acc_h, run.partner_h, run.nb_epochs_done,
             float(test_acc[0]))
+        if run.theta_h is not None:
+            self.history.fill_theta(run.theta_h, run.nb_epochs_done)
         self.learning_computation_time = time.perf_counter() - t0
         return self.history.score
 
@@ -88,11 +92,45 @@ class MultiPartnerLearning:
 class FederatedAverageLearning(MultiPartnerLearning):
     approach_key = "fedavg"
 
-    def __init__(self, scenario):
-        super().__init__(scenario)
+    def __init__(self, scenario, **cfg):
+        super().__init__(scenario, **cfg)
         if self.partners_count == 1:
             raise ValueError("Only one partner is provided. Please use the "
                              "dedicated SinglePartnerLearning class")
 
 
-MULTI_PARTNER_LEARNING_APPROACHES = {"fedavg": FederatedAverageLearning}
+class SequentialLearning(MultiPartnerLearning):
+    approach_key = "seq-pure"
+
+    def __init__(self, scenario, **cfg):
+        super().__init__(scenario, **cfg)
+        if self.partners_count == 1:
+            raise ValueError("Only one partner is provided. Please use the "
+                             "dedicated SinglePartnerLearning class")
+
+
+class SequentialWithFinalAggLearning(SequentialLearning):
+    approach_key = "seq-with-final-agg"
+
+
+class SequentialAverageLearning(SequentialLearning):
+    approach_key = "seqavg"
+
+
+class MplLabelFlip(MultiPartnerLearning):
+    approach_key = "lflip"
+
+    def __init__(self, scenario, epsilon: float = 0.01):
+        super().__init__(scenario, lflip_epsilon=epsilon)
+        if self.model.loss_kind != "categorical":
+            raise ValueError("LFlip requires a categorical model")
+        self.epsilon = epsilon
+
+
+MULTI_PARTNER_LEARNING_APPROACHES = {
+    "fedavg": FederatedAverageLearning,
+    "seq-pure": SequentialLearning,
+    "seq-with-final-agg": SequentialWithFinalAggLearning,
+    "seqavg": SequentialAverageLearning,
+    "lflip": MplLabelFlip,
+}

@@ -1,5 +1,5 @@
-"""The multi-partner training engine, masked FedAvg and the single-partner
-trainer (port of `mplc_tpu/mpl/engine.py`).
+"""The multi-partner training engine: FedAvg, the sequential family, label
+flipping and the single-partner trainer (port of `mplc_tpu/mpl/engine.py`).
 
 Coalitions and partners are batch dimensions. Every tensor of the carried
 `TrainState` leads with the coalition axis B (one training run is B = 1),
@@ -21,6 +21,18 @@ Loop semantics kept from the JAX package:
     weights, the recorded row (recording runs), aggregation; early stopping
     compares val_loss[e, 0] with val_loss[e - patience, 0]; the remainder
     of n_p mod minibatch_count samples is dropped per epoch;
+  - seq-pure / seq-with-final-agg / seqavg: per minibatch a random visit
+    order of the partners, the coalition's members first; one Adam state
+    carried along the chain, advanced only by member visits; each member
+    trains the running params and leaves them in its `partner_stack` row
+    (which starts each epoch at the epoch-start params). seqavg aggregates
+    the stack after every minibatch, seq-with-final-agg once at the end of
+    the epoch, seq-pure never; early stopping reads val column MB-1;
+  - lflip: fedavg whose partners first re-estimate their label-flip matrix
+    theta by one EM step on the minibatch window (the model's softmax, a
+    column-normalised posterior, a row-normalised M-step) and train on
+    labels drawn from the second posterior; theta is snapshotted into
+    `theta_h` at the end of every epoch;
   - single (`approach="single"`, one active partner a coalition):
     minibatch_count x gradient_updates_per_pass steps of one persistent
     Adam per epoch over the partner's shuffled rows, then a val eval, with
@@ -30,11 +42,15 @@ Loop semantics kept from the JAX package:
     package's `tree_where(state.done, ...)`): its parameters stay and its
     later history rows stay NaN while the others train on.
 
-Randomness: each epoch's permutations of a coalition are drawn from its
-own `torch.Generator` (a CPU generator, so a run is the same on every
-device), or injected through `streams` (the tests feed the JAX package's
-permutations). The ported models have no dropout, so the permutations and
-the initial parameters are the only randomness.
+Randomness: each epoch's draws of a coalition come from its own
+`torch.Generator` (a CPU generator, so a run is the same on every device),
+in this order: the permutations of every partner's rows, then the seq
+family's visit-order keys [MB, P] or lflip's label-draw uniforms
+[MB, P, mb_cap]; or they are injected as `EpochStreams` (the tests feed
+the JAX package's). The visit-order keys are drawn for all P partners
+whatever the coalition, so slots and masks visit the members in the same
+order. The ported models have no dropout, so these draws and the initial
+parameters are the only randomness.
 
 Precision (`TrainConfig.precision`): the model computes in `cfg.dtype`
 (bf16 under `mixed` and `bf16`); parameters, Adam state, aggregation
@@ -55,7 +71,9 @@ from ..ops.aggregation import AGGREGATOR_NAMES, aggregate, aggregation_weights
 from ..ops.metrics import masked_loss_and_metrics
 
 APPROACH_NAMES = ("fedavg", "seq-pure", "seq-with-final-agg", "seqavg", "lflip", "single")
-PORTED_APPROACHES = ("fedavg", "single")
+SEQ_APPROACHES = ("seq-pure", "seq-with-final-agg", "seqavg")
+# the approaches slot execution supports
+SLOT_APPROACHES = ("fedavg",) + SEQ_APPROACHES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,12 +85,15 @@ class TrainConfig:
     gradient_updates_per_pass: int = constants.DEFAULT_GRADIENT_UPDATES_PER_PASS_COUNT
     is_early_stopping: bool = True
     patience: int = constants.PATIENCE
-    # per-partner val loss/acc after every round's local passes
+    # per-partner val loss/acc after every round's local passes (seq: after
+    # every member visit)
     record_partner_val: bool = True
     # global val loss/acc at the start of EVERY minibatch; when off, only
-    # the column early stopping reads (0) is evaluated, and none when early
-    # stopping is off too
+    # the column early stopping reads (0; MB-1 for the seq family) is
+    # evaluated, and none when early stopping is off too
     record_val_history: bool = True
+    # lflip: the off-diagonal mass of every partner's initial theta
+    lflip_epsilon: float = 0.01
     # capture every round's per-partner parameter delta (local params -
     # round-start global params) and the normalized aggregation weights
     # actually applied: `upd_h` [B, R, P, ...] leaves and `w_h` [B, R, P],
@@ -84,7 +105,7 @@ class TrainConfig:
     # parameters, Adam state, aggregation and the recorded stream stay
     # float32 in every mode.
     precision: str | None = None
-    # slot execution (fedavg coalition sweeps): train `slot_count` partner
+    # slot execution (fedavg and seq coalition sweeps): train `slot_count` partner
     # slots a coalition instead of all P partners masked. The coalition
     # argument is then int slot ids [B, slot_count], -1 marking an unused
     # slot, in place of masks [B, P]. Slot s trains partner ids[s] on the
@@ -106,21 +127,16 @@ class TrainConfig:
         if self.precision not in constants.PRECISION_MODES:
             raise ValueError(f"precision must be one of "
                              f"{constants.PRECISION_MODES}, got {self.precision!r}")
-        if self.approach not in PORTED_APPROACHES:
-            if self.approach in APPROACH_NAMES:
-                raise NotImplementedError(
-                    f"the '{self.approach}' approach is not ported yet "
-                    "(ROADMAP.md queue 1, trainer variants)")
+        if self.approach not in APPROACH_NAMES:
             raise KeyError(
                 f"Multi-partner learning approach '{self.approach}' is not a valid "
                 f"approach. List of supported approaches: {', '.join(APPROACH_NAMES)}")
         if self.aggregator not in AGGREGATOR_NAMES:
             raise KeyError(f"aggregation approach '{self.aggregator}' is not a "
                            f"valid approach. Supported: {AGGREGATOR_NAMES}")
-        if self.slot_count is not None and self.approach != "fedavg":
-            raise ValueError("slot execution supports the fedavg approach only "
-                             f"(the seq family is not ported yet), got "
-                             f"'{self.approach}'")
+        if self.slot_count is not None and self.approach not in SLOT_APPROACHES:
+            raise ValueError("slot execution supports fedavg and the seq family "
+                             f"only, got '{self.approach}'")
         if self.record_updates:
             if self.approach != "fedavg":
                 raise ValueError("update recording (record_updates) captures FedAvg "
@@ -152,18 +168,40 @@ class TrainState:
     opt_state: dict | None = None    # persistent Adam state ('single' only)
     upd_h: dict | None = None        # [B, R, P, ...] recorded deltas
     w_h: torch.Tensor | None = None  # [B, R, P] recorded weights
+    theta: torch.Tensor | None = None    # [B, P, K, K] label-flip matrices (lflip)
+    theta_h: torch.Tensor | None = None  # [B, E, P, K, K] end-of-epoch theta, NaN
+                                         # for epochs not run (lflip)
 
     def row(self, i: int) -> "TrainState":
         """Run i's state without the coalition axis: views of its tensors,
         `done` a bool and `nb_epochs_done` an int."""
         take = lambda tree: None if tree is None else _tree_map(lambda t: t[i], tree)  # noqa: E731
+        pick = lambda t: None if t is None else t[i]  # noqa: E731
         return TrainState(
             params=take(self.params), val_loss_h=self.val_loss_h[i],
             val_acc_h=self.val_acc_h[i], partner_h=self.partner_h[i],
             done=bool(self.done[i]), nb_epochs_done=int(self.nb_epochs_done[i]),
             best_val_loss=self.best_val_loss[i], es_wait=self.es_wait[i],
             epoch=self.epoch, opt_state=None, upd_h=take(self.upd_h),
-            w_h=None if self.w_h is None else self.w_h[i])
+            w_h=pick(self.w_h), theta=pick(self.theta), theta_h=pick(self.theta_h))
+
+
+class EpochStreams(NamedTuple):
+    """One epoch's random draws of B runs, injected in place of their
+    generators' (or, each field with an epoch axis after B, a chunk's)."""
+    perms: torch.Tensor                     # [B, P, Nmax] ('single': [B, Nmax])
+    order_keys: torch.Tensor | None = None  # [B, MB, P] seq visit-order keys
+    flip_u: torch.Tensor | None = None      # [B, MB, P, mb_cap] lflip uniforms
+
+
+def epoch_streams(streams_all, i: int):
+    """Epoch i of a chunk's injected streams: a permutation tensor
+    [B, E, ...] or an `EpochStreams` of such fields; None stays None."""
+    if streams_all is None:
+        return None
+    if isinstance(streams_all, EpochStreams):
+        return EpochStreams(*(None if t is None else t[:, i] for t in streams_all))
+    return streams_all[:, i]
 
 
 class EvalSet(NamedTuple):
@@ -210,10 +248,13 @@ class MplTrainer:
     # ------------------------------------------------------------------
 
     def init_state(self, generators, partners_count: int, device,
-                   init_params: dict | None = None) -> TrainState:
+                   init_params: dict | None = None,
+                   init_theta: torch.Tensor | None = None) -> TrainState:
         """The state of B runs: initial parameters drawn from each run's
         generator (a list of B), or injected (`init_params`, leaves
-        [B, ...]; `generators` may then be None)."""
+        [B, ...]; `generators` may then be None). lflip runs start from
+        theta = eye (1 - eps) + (1 - eye) eps / (K - 1) for every partner,
+        or from `init_theta` [B, P, K, K]."""
         cfg = self.cfg
         if init_params is None:
             drawn = [self.model.init(g) for g in generators]
@@ -232,6 +273,15 @@ class MplTrainer:
             es_wait=torch.zeros(B, dtype=torch.int64, device=device))
         if cfg.approach == "single":
             state.opt_state = self.model.optimizer.init(params)
+        if cfg.approach == "lflip":
+            k = self.model.num_outputs
+            if init_theta is None:
+                eye = torch.eye(k, device=device)
+                eps = cfg.lflip_epsilon
+                init_theta = (eye * (1 - eps) + (1 - eye) * (eps / (k - 1))).expand(
+                    B, partners_count, k, k)
+            state.theta = init_theta.to(device, torch.float32).clone()
+            state.theta_h = nan(B, E, partners_count, k, k)
         if cfg.record_updates:
             # rounds the run never reaches (early stopping) stay all-zero,
             # which reconstruction skips via its zero-denominator rule
@@ -266,9 +316,12 @@ class MplTrainer:
         denom = torch.clamp(cnt, min=1.0)
         return ls / denom, cs / denom
 
-    def _maybe_val_eval(self, params: dict, val: EvalSet, mb_i: int):
+    def _maybe_val_eval(self, params: dict, val: EvalSet, mb_i: int, es_col: int = 0):
+        """The global val (loss, acc) at the start of minibatch `mb_i`, or
+        NaN where neither the history nor early stopping (which reads
+        column `es_col`) needs it."""
         cfg = self.cfg
-        if cfg.record_val_history or (cfg.is_early_stopping and mb_i == 0):
+        if cfg.record_val_history or (cfg.is_early_stopping and mb_i == es_col):
             return self.evaluate_models(params, val)
         return float("nan"), float("nan")
 
@@ -283,27 +336,64 @@ class MplTrainer:
         keys = torch.rand(mask.shape, generator=generator) + (1.0 - mask) * 1e9
         return torch.argsort(keys, dim=-1, stable=True)
 
-    def _perms(self, generators, mask: torch.Tensor, streams) -> torch.Tensor:
-        """This epoch's permutations of every run: injected, or drawn from
-        each run's generator over its rows of `mask` ([B, ...])."""
-        if streams is not None:
-            return streams.to(mask.device, torch.int64)
-        return torch.stack([self.epoch_perms(g, m) for g, m in
-                            zip(generators, mask.cpu())]).to(mask.device)
+    def _draws(self, generators, mask: torch.Tensor, streams) -> EpochStreams:
+        """This epoch's draws of every run: injected (`streams`, an
+        `EpochStreams` or a permutation tensor), or drawn from each run's
+        generator: the permutations over its rows of `mask` ([B, ...]),
+        then the approach's visit-order keys or label-draw uniforms."""
+        cfg = self.cfg
+        dev = mask.device
+        extra = None
+        if cfg.approach in SEQ_APPROACHES:
+            extra = "order_keys", (cfg.minibatch_count, mask.shape[1])
+        elif cfg.approach == "lflip":
+            extra = "flip_u", (cfg.minibatch_count, mask.shape[1],
+                               max(mask.shape[-1] // cfg.minibatch_count, 1))
+        if streams is None:
+            perms, drawn = [], []
+            for g, m in zip(generators, mask.cpu()):
+                perms.append(self.epoch_perms(g, m))
+                if extra is not None:
+                    drawn.append(torch.rand(extra[1], generator=g))
+            streams = EpochStreams(torch.stack(perms))
+            if extra is not None:
+                streams = streams._replace(**{extra[0]: torch.stack(drawn)})
+        elif not isinstance(streams, EpochStreams):
+            streams = EpochStreams(streams)
+        if extra is not None and getattr(streams, extra[0]) is None:
+            raise ValueError(f"injected streams of a '{cfg.approach}' run need "
+                             f"{extra[0]}")
+        return EpochStreams(*(None if t is None else
+                              t.to(dev, torch.int64 if i == 0 else torch.float32)
+                              for i, t in enumerate(streams)))
+
+    def _step_rows(self, sizes, g: int, sb_cap: int):
+        """(row offsets within the minibatch, samples per minibatch,
+        validity) of gradient step g for every run and partner slot
+        (`sizes` [B, W]); offsets and validity [B, W, sb_cap]."""
+        cfg = self.cfg
+        mbc, gup = cfg.minibatch_count, cfg.gradient_updates_per_pass
+        valid_mb = (sizes // mbc)[..., None]           # samples per minibatch
+        sb = (valid_mb + gup - 1) // gup               # samples per step
+        ar = torch.arange(sb_cap, device=sizes.device)
+        local = g * sb + ar
+        return local, valid_mb, (ar < sb) & (local < valid_mb)
 
     def _subbatch(self, perms, sizes, mb_i: int, g: int, sb_cap: int):
         """Indices + validity mask, both [B, W, sb_cap], of gradient step g
         of minibatch mb_i, for every run and partner slot (`perms`
         [B, W, Nmax], `sizes` [B, W])."""
-        cfg = self.cfg
-        mbc, gup = cfg.minibatch_count, cfg.gradient_updates_per_pass
-        valid_mb = (sizes // mbc)[..., None]           # samples per minibatch
-        sb = (valid_mb + gup - 1) // gup               # samples per step
-        ar = torch.arange(sb_cap, device=perms.device)
-        local = g * sb + ar
-        valid = (ar < sb) & (local < valid_mb)
+        local, valid_mb, valid = self._step_rows(sizes, g, sb_cap)
         pos = torch.clamp(mb_i * valid_mb + local, 0, perms.shape[-1] - 1)
         return torch.gather(perms, 2, pos), valid.float()
+
+    def _minibatch_window(self, perms, sizes, mb_i: int, mb_cap: int):
+        """Indices + validity mask, both [B, W, mb_cap], of the whole
+        minibatch mb_i of every run and partner slot."""
+        valid_mb = (sizes // self.cfg.minibatch_count)[..., None]
+        ar = torch.arange(mb_cap, device=sizes.device)
+        pos = torch.clamp(mb_i * valid_mb + ar, 0, perms.shape[-1] - 1)
+        return torch.gather(perms, 2, pos), (ar < valid_mb).float()
 
     @staticmethod
     def _slot_binding(ids: torch.Tensor):
@@ -339,6 +429,53 @@ class MplTrainer:
         return params, opt_state, loss_sum / denom, acc_sum / denom
 
     # ------------------------------------------------------------------
+    # lflip: one EM step of theta and the label draw, all partners at once
+    # ------------------------------------------------------------------
+
+    def lflip_flip(self, preds, y, valid, theta, u):
+        """The JAX package's `_lflip_flip` after the model's softmax, for N
+        partner windows at once: `preds` and one-hot `y` [N, M, K], `valid`
+        [N, M], `theta` [N, K, K], uniforms `u` [N, M]. Returns (new theta
+        [N, K, K], drawn one-hot labels [N, M, K])."""
+        vm = valid[..., None]
+
+        def posterior(th):
+            # row m: preds[m, :] * th[:, label(m)], columns L1-normalised
+            t = preds * (y @ th.transpose(-1, -2)) * vm
+            return t / torch.clamp(t.abs().sum(-2, keepdim=True), min=1e-12)
+
+        new_theta = posterior(theta).transpose(-1, -2) @ y
+        new_theta = new_theta / torch.clamp(new_theta.abs().sum(-1, keepdim=True),
+                                            min=1e-12)
+        cdf = torch.cumsum(posterior(new_theta), dim=-1)
+        # inverse-CDF draw of each row's label: the first class whose
+        # cumulative mass reaches u times the row's total
+        target = u[..., None] * torch.clamp(cdf[..., -1:], min=1e-12)
+        draw = torch.argmax((target <= cdf).to(torch.int32), dim=-1)
+        return new_theta, torch.nn.functional.one_hot(draw, y.shape[-1]).float()
+
+    def _lflip_windows(self, params, theta, stacked, pids, perms, sizes, act,
+                       mb_i: int, u):
+        """Every partner's EM step on its minibatch-`mb_i` window under the
+        round's global model: (theta [B, W, K, K], kept where the partner
+        is inactive; window row indices [B, W, M]; drawn labels
+        [B, W, M, K])."""
+        B, W = pids.shape
+        mb_cap = max(stacked.x.shape[1] // self.cfg.minibatch_count, 1)
+        idx, valid = self._minibatch_window(perms, sizes, mb_i, mb_cap)
+        rows = pids[:, :, None]
+        x = stacked.x[rows, idx].reshape((B * W, mb_cap) + stacked.x.shape[2:])
+        y = stacked.y[rows, idx]
+        start = _tree_map(lambda t: t[:, None].expand((B, W) + t.shape[1:])
+                          .reshape((B * W,) + t.shape[1:]), params)
+        with torch.no_grad():
+            logits = vmap(lambda p, xb: self.model.apply(p, xb, self.cfg.dtype))(start, x)
+            preds = torch.softmax(logits.float(), dim=-1).reshape(B, W, mb_cap, -1)
+            new_theta, y_flip = self.lflip_flip(preds, y, valid, theta, u)
+        theta = torch.where(act[:, :, None, None] > 0, new_theta, theta)
+        return theta, idx, y_flip
+
+    # ------------------------------------------------------------------
     # epochs + early stopping
     # ------------------------------------------------------------------
 
@@ -353,7 +490,11 @@ class MplTrainer:
         and permutation (`_slot_binding`); a size-k coalition costs k
         passes. Either way each run draws the permutations of all P
         partners (or takes them from `streams`, [B, P, Nmax]), so a slot
-        sees the rows its partner sees masked."""
+        sees the rows its partner sees masked.
+
+        lflip (masked only) first takes every partner's EM step on its
+        minibatch window (`_lflip_windows`); its steps then read their rows
+        and the drawn labels from that window. Updates `state.theta`."""
         cfg = self.cfg
         B, W = coal.shape
         P = stacked.x.shape[0]
@@ -366,25 +507,38 @@ class MplTrainer:
         else:
             pids, act, used = self._slot_binding(coal)
         runs = torch.arange(B, device=dev)[:, None]
-        perms = self._perms(generators, stacked.mask.expand(B, -1, -1),
-                            streams)[runs, pids]                   # [B, W, Nmax]
+        draws = self._draws(generators, stacked.mask.expand(B, -1, -1), streams)
+        perms = draws.perms[runs, pids]                            # [B, W, Nmax]
         sizes = stacked.sizes[pids]                                # [B, W]
         mb_cap = max(stacked.x.shape[1] // cfg.minibatch_count, 1)
         sb_cap = (mb_cap + gup - 1) // gup
         need_pval = cfg.record_partner_val or cfg.aggregator == "local-score"
         flat = lambda t: t.reshape((B * W,) + t.shape[2:])  # noqa: E731
+        rows = pids[:, :, None]
         params = state.params
+        theta = state.theta
         for mb_i in range(cfg.minibatch_count):
             vl, va = self._maybe_val_eval(params, val, mb_i)
             _write(state.val_loss_h[:, e, mb_i], vl, frozen)
             _write(state.val_acc_h[:, e, mb_i], va, frozen)
+            if cfg.approach == "lflip":
+                theta, w_idx, y_flip = self._lflip_windows(
+                    params, theta, stacked, pids, perms, sizes, act, mb_i,
+                    draws.flip_u[:, mb_i])
 
             def batches():
                 for g in range(gup):
-                    idx, valid = self._subbatch(perms, sizes, mb_i, g, sb_cap)
-                    rows = pids[:, :, None]
-                    yield (flat(stacked.x[rows, idx]), flat(stacked.y[rows, idx]),
-                           flat(valid * act[:, :, None]))
+                    if cfg.approach == "lflip":
+                        local, _, valid = self._step_rows(sizes, g, sb_cap)
+                        local = torch.clamp(local, 0, mb_cap - 1)
+                        x = stacked.x[rows, torch.gather(w_idx, 2, local)]
+                        y = y_flip[runs[:, :, None], torch.arange(W, device=dev)[:, None],
+                                   local]
+                        valid = valid.float()
+                    else:
+                        idx, valid = self._subbatch(perms, sizes, mb_i, g, sb_cap)
+                        x, y = stacked.x[rows, idx], stacked.y[rows, idx]
+                    yield flat(x), flat(y), flat(valid * act[:, :, None])
             start = _tree_map(lambda t: flat(t[:, None].expand((B, W) + t.shape[1:])),
                               params)
             new_flat, _, losses, accs = self._steps(
@@ -411,6 +565,98 @@ class MplTrainer:
                                frozen)
                 _write(state.w_h[:, r_idx], w, frozen)
             params = aggregate(new_params, w, deterministic=cfg.deterministic_reduce)
+        if theta is not None:
+            state.theta = _keep_frozen(frozen, state.theta, theta)
+        return params
+
+    def _seq_epoch(self, state: TrainState, stacked, val: EvalSet,
+                   coal: torch.Tensor, generators, streams, frozen) -> dict:
+        """One epoch of the seq family for every run; returns the new
+        params. Per minibatch each run visits its W partner slots (masked:
+        W = P, slots: W = K, as in `_fedavg_epoch`) in the order of its
+        visit-order keys, gathered per slot from the full-width [P] draw,
+        plus 1e3 for inactive partners and unused slots, so the members
+        come first and in the same order either way. Visit position `pos`
+        of every run is one vmapped pass over B models, each run on its
+        own partner; a non-member visit changes nothing (`torch.where`), so
+        the positions past the largest coalition are skipped. One Adam
+        state per run and minibatch is carried along the chain: a member
+        at position pos follows pos member visits, so its steps count on
+        from pos x gradient_updates_per_pass."""
+        cfg = self.cfg
+        B, W = coal.shape
+        e = state.epoch
+        gup = cfg.gradient_updates_per_pass
+        dev = coal.device
+        if cfg.slot_count is None:
+            pids = torch.arange(W, device=dev).expand(B, W)
+            act = coal
+        else:
+            pids, act, _ = self._slot_binding(coal)
+        runs = torch.arange(B, device=dev)
+        draws = self._draws(generators, stacked.mask.expand(B, -1, -1), streams)
+        perms = draws.perms[runs[:, None], pids]                   # [B, W, Nmax]
+        sizes = stacked.sizes[pids]                                # [B, W]
+        mb_cap = max(stacked.x.shape[1] // cfg.minibatch_count, 1)
+        sb_cap = (mb_cap + gup - 1) // gup
+        need_pval = cfg.record_partner_val or cfg.aggregator == "local-score"
+        visits = int(act.sum(1).max())
+        opt = self.model.optimizer
+        params = state.params
+        # each slot's params after its last visit, from the epoch start on
+        stack = _tree_map(lambda t: t[:, None].expand((B, W) + t.shape[1:]).clone(),
+                          params)
+        nan = torch.full((B, W), float("nan"), device=dev)
+
+        def aggregate_stack(pva_slot):
+            w = aggregation_weights(cfg.aggregator, act, sizes, torch.nan_to_num(pva_slot),
+                                    deterministic=cfg.deterministic_reduce)
+            return aggregate(stack, w, deterministic=cfg.deterministic_reduce)
+
+        for mb_i in range(cfg.minibatch_count):
+            vl, va = self._maybe_val_eval(params, val, mb_i,
+                                          es_col=cfg.minibatch_count - 1)
+            _write(state.val_loss_h[:, e, mb_i], vl, frozen)
+            _write(state.val_acc_h[:, e, mb_i], va, frozen)
+            keys = torch.gather(draws.order_keys[:, mb_i], 1, pids) + (1.0 - act) * 1e3
+            order = torch.argsort(keys, dim=1, stable=True)        # [B, W] slots
+            mu_nu = opt.init(params)
+            pva_slot = nan.clone()        # this minibatch's val accuracy a slot
+            for pos in range(visits):
+                s = order[:, pos]                                  # [B]
+                pid = pids[runs, s]
+                on = act[runs, s] > 0
+                perm_s, size_s = perms[runs, s][:, None], sizes[runs, s][:, None]
+
+                def batches():
+                    for g in range(gup):
+                        idx, valid = self._subbatch(perm_s, size_s, mb_i, g, sb_cap)
+                        yield (stacked.x[pid[:, None], idx[:, 0]],
+                               stacked.y[pid[:, None], idx[:, 0]],
+                               valid[:, 0] * on[:, None])
+                new_p, new_opt, loss, acc = self._steps(
+                    params, {**mu_nu, "count": pos * gup}, batches())
+                params = _keep_frozen(~on, params, new_p)
+                mu_nu = {m: _keep_frozen(~on, mu_nu[m], new_opt[m]) for m in ("mu", "nu")}
+                b = torch.nonzero(on, as_tuple=True)[0]
+                for g, d in stack.items():
+                    for k, t in d.items():
+                        t[b, s[b]] = params[g][k][b]
+                if need_pval:
+                    pvl, pva = self.evaluate_models(params, val)
+                else:
+                    pvl = pva = nan[:, 0]
+                view = state.partner_h[:, :, :, e, mb_i]
+                cells = view.clone()
+                cells[b, :, pid[b]] = torch.stack([loss, acc, pvl, pva], 1)[b]
+                _write(view, cells, frozen)
+                pva_slot[b, s[b]] = pva[b]
+            if cfg.approach == "seqavg":
+                params = aggregate_stack(pva_slot)
+        if cfg.approach == "seq-with-final-agg":
+            # weighted by the last minibatch's val accuracies, as the masked
+            # history's column MB-1
+            params = aggregate_stack(pva_slot)
         return params
 
     def _single_epoch(self, state: TrainState, stacked, val: EvalSet,
@@ -427,7 +673,7 @@ class MplTrainer:
         x_p, y_p = stacked.x[p], stacked.y[p]          # [B, Nmax, ...]
         size_p = stacked.sizes[p]
         n_max = x_p.shape[1]
-        perm = self._perms(generators, stacked.mask[p], streams)   # [B, Nmax]
+        perm = self._draws(generators, stacked.mask[p], streams).perms   # [B, Nmax]
         steps = cfg.minibatch_count * cfg.gradient_updates_per_pass
         sb_cap = max((n_max + steps - 1) // steps, 1)
         sb = ((size_p + steps - 1) // steps)[:, None]
@@ -470,23 +716,28 @@ class MplTrainer:
             return state.es_wait >= cfg.patience
         if e < cfg.patience:
             return torch.zeros_like(state.done)
-        return state.val_loss_h[:, e, 0] > state.val_loss_h[:, e - cfg.patience, 0]
+        col = cfg.minibatch_count - 1 if cfg.approach in SEQ_APPROACHES else 0
+        return state.val_loss_h[:, e, col] > state.val_loss_h[:, e - cfg.patience, col]
 
     def run_epoch(self, state: TrainState, stacked, val: EvalSet, coal,
                   generators, streams=None) -> TrainState:
         """One epoch of every run still training (`coal`: masks [B, P], or
         slot ids [B, slot_count] under `cfg.slot_count`); a run that has
-        stopped is left unchanged. `streams` ([B, P, Nmax] fedavg, slots
-        included, or [B, Nmax] single permutations) replaces the
-        generators' draws."""
+        stopped is left unchanged. `streams` (an `EpochStreams`, or a
+        permutation tensor [B, P, Nmax], or [B, Nmax] for 'single')
+        replaces the generators' draws."""
         cfg = self.cfg
         if state.epoch >= cfg.epoch_count or (
                 cfg.is_early_stopping and bool(state.done.all())):
             return state
         frozen = state.done.clone()
-        epoch_fn = self._single_epoch if cfg.approach == "single" else self._fedavg_epoch
+        epoch_fn = (self._single_epoch if cfg.approach == "single" else
+                    self._seq_epoch if cfg.approach in SEQ_APPROACHES else
+                    self._fedavg_epoch)
         params = epoch_fn(state, stacked, val, coal, generators, streams, frozen)
         state.params = _keep_frozen(frozen, state.params, params)
+        if cfg.approach == "lflip":
+            _write(state.theta_h[:, state.epoch], state.theta, frozen)
         stop = self._early_stop_flag(state)
         state.epoch += 1
         state.nb_epochs_done = torch.where(frozen, state.nb_epochs_done,
@@ -497,11 +748,12 @@ class MplTrainer:
     def epoch_chunk(self, state: TrainState, stacked, val: EvalSet, coal,
                     generators, n_epochs: int, streams_all=None) -> TrainState:
         """Up to `n_epochs` epochs, ending once every run is done (early
-        stopping, or epoch_count reached); `streams_all` ([B, n_epochs,
-        ...] permutations) replaces the generators' draws."""
+        stopping, or epoch_count reached); `streams_all` (the streams of
+        `run_epoch` with an epoch axis after B) replaces the generators'
+        draws."""
         for i in range(n_epochs):
             self.run_epoch(state, stacked, val, coal, generators,
-                           None if streams_all is None else streams_all[:, i])
+                           epoch_streams(streams_all, i))
         return state
 
     def finalize(self, state: TrainState, test: EvalSet) -> tuple[torch.Tensor, torch.Tensor]:

@@ -53,6 +53,15 @@ class History:
         self.nb_epochs_done = int(nb_epochs_done)
         self.score = float(score)
 
+    def fill_theta(self, theta_h, nb_epochs_done: int):
+        """lflip: `theta[e][i]`, partner i's theta at the end of epoch e
+        (K x K), from the finished state's [E, P, K, K] history; epochs
+        never run (early stopping) hold None for every partner."""
+        th = _host(theta_h)
+        self.theta = [[th[e, i] for i in range(th.shape[1])]
+                      if e < nb_epochs_done else [None] * th.shape[1]
+                      for e in range(th.shape[0])]
+
     def partners_to_dataframe(self) -> pd.DataFrame:
         temp = {"Partner": [], "Epoch": [], "Minibatch": []}
         for m in self.metrics:

@@ -1,5 +1,5 @@
-"""Scenario: the orchestrator (port of `mplc_tpu/scenario.py`, the basic
-split + fedavg + GTG-Shapley path).
+"""Scenario: the orchestrator (port of `mplc_tpu/scenario.py`: the basic
+split, the five learning approaches, the contributivity methods).
 
 Same parameter names and `run()` sequence as the JAX package: dataset
 selection, partner instantiation, basic data split, batch sizes, the
@@ -88,7 +88,10 @@ class Scenario:
                              f"entries for {partners_count} partners")
 
         if multi_partner_learning_approach not in MULTI_PARTNER_LEARNING_APPROACHES:
-            raise _not_ported(f"the '{multi_partner_learning_approach}' approach")
+            raise KeyError(
+                f"Multi-partner learning approach '{multi_partner_learning_approach}' "
+                f"is not a valid approach. List of supported approaches: "
+                f"{', '.join(MULTI_PARTNER_LEARNING_APPROACHES)}")
         self.multi_partner_learning_approach = \
             MULTI_PARTNER_LEARNING_APPROACHES[multi_partner_learning_approach]
         self.multi_partner_learning_approach_key = multi_partner_learning_approach

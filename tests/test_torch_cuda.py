@@ -1,5 +1,6 @@
 """The port on the card: K1 and K1-bf16 against their plain versions, the
-retraining sweep and SVARM against the CPU, and fp32 reproducibility.
+retraining sweep, SVARM, seqavg and lflip against the CPU, and fp32
+reproducibility.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -220,3 +221,59 @@ def test_svarm_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(card.contributivity_scores, cpu.contributivity_scores,
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(card.scores_std, cpu.scores_std, rtol=0, atol=1e-6)
+
+
+def _fit(approach, dataset, device, **game):
+    """The grand coalition's fit under `approach`: (the fitted approach
+    object, test-set size)."""
+    sc = Scenario(3, [0.2, 0.3, 0.5], is_dry_run=True, dataset=dataset, seed=0,
+                  multi_partner_learning_approach=approach, is_early_stopping=False,
+                  device=device, **game)
+    sc.instantiate_scenario_partners()
+    sc.split_data()
+    mpl = sc.multi_partner_learning_approach(sc)
+    mpl.fit()
+    return mpl, len(sc.dataset.x_test)
+
+
+def test_seqavg_on_the_card_matches_the_cpu(cuda):
+    """Titanic seqavg, fit and retraining sweep (on slots), on the card and
+    on the CPU: params within 1e-4, v(S) within one test sample."""
+    game = dict(epoch_count=2, minibatch_count=2, gradient_updates_per_pass_count=2)
+    (card, n_test), (cpu, _) = (_fit("seqavg", load_titanic(), d, **game)
+                                for d in ("cuda", "cpu"))
+    for g in cpu.model_params:
+        for k in cpu.model_params[g]:
+            torch.testing.assert_close(card.model_params[g][k].cpu(), cpu.model_params[g][k],
+                                       rtol=0, atol=1e-4)
+    values = []
+    for device in ("cuda", "cpu"):
+        sc = Scenario(3, [0.2, 0.3, 0.5], is_dry_run=True, dataset=load_titanic(), seed=0,
+                      multi_partner_learning_approach="seqavg", is_early_stopping=False,
+                      methods=["Shapley values"], device=device, **game)
+        sc.run()
+        assert sc.slot_bucketing == "merge"
+        values.append(np.array([sc._charac_engine.charac_fct_values[s]
+                                for s in powerset_order(3)]))
+    np.testing.assert_allclose(values[0], values[1], rtol=0, atol=1.0 / n_test + 1e-6)
+
+
+def test_lflip_on_the_card_matches_the_cpu(cuda):
+    """A small MNIST CNN lflip fit of one epoch (2 minibatches of 2 steps)
+    on the card and on the CPU from one seed: theta within 1e-5; params
+    within 1e-4 but for the few weights Adam moves by whole steps on tiny
+    gradient differences (tests/test_torch_lflip.py MAX_STEP_SHARE): at
+    most 1e-4 of the weights, each within one learning rate a step."""
+    game = dict(epoch_count=1, minibatch_count=2, gradient_updates_per_pass_count=2)
+    (card, _), (cpu, _) = (_fit("lflip", load_mnist(scale=0.02), d, **game)
+                           for d in ("cuda", "cpu"))
+    far = total = 0
+    for g in cpu.model_params:
+        for k in cpu.model_params[g]:
+            diff = (card.model_params[g][k].cpu() - cpu.model_params[g][k]).abs()
+            assert diff.max().item() <= 4 * 1e-3, (g, k)
+            far += int((diff > 1e-4).sum())
+            total += diff.numel()
+    assert far <= 1e-4 * total
+    np.testing.assert_allclose(np.stack(card.history.theta[0]),
+                               np.stack(cpu.history.theta[0]), rtol=0, atol=1e-5)

@@ -4,7 +4,8 @@
     initial parameters and JAX's epoch permutations;
 (b) a JAX `RecordedRun` reconstructed and evaluated by the port's
     ReconstructionEvaluator: every v(S) and the exact Shapley values;
-(c) the port on its own: a tiny MNIST CNN `Scenario.run()` with GTG-Shapley.
+(c) the port on its own: a tiny MNIST CNN `Scenario.run()` with GTG-Shapley;
+    the methods of the last slice each dispatching.
 """
 
 import numpy as np
@@ -169,8 +170,15 @@ def test_scenario_without_cuda_raises():
 @pytest.mark.parametrize("method", ["Federated SBS linear", "Federated SBS quadratic",
                                     "Federated SBS constant", "LFlip", "PVRL"])
 def test_unported_methods_raise(method):
-    sc = Scenario(3, AMOUNTS, is_dry_run=True, dataset=tdatasets.load_titanic(), device="cpu", **GAME)
-    sc.instantiate_scenario_partners()
-    sc.split_data()
-    with pytest.raises(NotImplementedError):
-        Contributivity(sc).compute_contributivity(method)
+    """The five methods the earlier slices left unported (they raised
+    NotImplementedError) now dispatch through `Scenario.run()` and give
+    finite scores; LFlip needs a categorical model, the tiny MNIST CNN."""
+    lflip = method == "LFlip"
+    sc = Scenario(3, AMOUNTS, is_dry_run=True, device="cpu", methods=[method],
+                  dataset=_tiny_mnist() if lflip else tdatasets.load_titanic(),
+                  **{**GAME, **({"epoch_count": 1, "gradient_updates_per_pass_count": 1}
+                                if lflip else {})})
+    sc.run()
+    (c,) = sc.contributivity_list
+    assert c.name and np.isfinite(c.contributivity_scores).all()
+    assert c.contributivity_scores.shape == (3,) and c.contributivity_scores.any()

@@ -233,8 +233,11 @@ def test_value_table_is_the_same_in_every_mode(monkeypatch):
 
 def test_slot_config_guards(monkeypatch):
     base = dict(aggregator="uniform", epoch_count=2, minibatch_count=2)
-    with pytest.raises(ValueError, match="fedavg approach only"):
+    with pytest.raises(ValueError, match="fedavg and the seq family only"):
         TrainConfig(approach="single", slot_count=2, **base)
+    with pytest.raises(ValueError, match="fedavg and the seq family only"):
+        TrainConfig(approach="lflip", slot_count=2, **base)
+    assert TrainConfig(approach="seqavg", slot_count=2, **base).slot_count == 2
     with pytest.raises(ValueError, match="slot execution is not supported"):
         TrainConfig(approach="fedavg", slot_count=2, record_updates=True, **base)
     assert TrainConfig(approach="fedavg", slot_count=2, **base).slot_count == 2
