@@ -80,7 +80,24 @@ Phases, each of which fails the script (non-zero exit, no result line):
    seqavg (params within 1e-4) and a small MNIST lflip fit (theta within
    1e-5, weights within Adam's step bound, beside fedavg's as a control)
    on the card against the CPU. No reconstruction kernel launches in this
-   phase.
+   phase;
+14. faults: the partner fault plan, seed ensembles and fused wide steps.
+   (a) The main path's configuration under
+   MPLC_TORCH_PARTNER_FAULT_PLAN=dropout@p3:epoch2,straggler@p7:delay1:
+   `Scenario.run()` with GTG-Shapley, then the exact reconstruction over
+   all 1023 coalitions, K1's launches counted from 0 (it must launch), K1
+   held against its plain version on this stream; partner 3's epoch-2
+   deltas and weights exact zeros, the reconstructed grand coalition
+   within 1e-4 of the recorded final params, every value finite, the
+   recording made again bit-equal. (b) Titanic, 5 partners, under the
+   deterministic reduce: the `dropout@p4:epoch1` sweep (on slots) against
+   the fault-free one (masked), every v(S) within 1e-6 of v(S - {4}) and
+   partner 4's Shapley value within 1e-6 of 0. (c) The sweep's 5-partner
+   configuration at `MPLC_TORCH_SEED_ENSEMBLE=2`: replica 0 within one
+   test sample of the sweep's values, fewer than twice its batches, a
+   finite trust row. (d) Titanic on the card against the CPU, within 1e-4:
+   a 3-partner recording under `straggler@p1:delay2` and a fedavg fit
+   under MPLC_TORCH_STEP_WIDTH_MULT=2.
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -443,7 +460,7 @@ def check_same_recording(a, b, tag: str) -> None:
         (x[g][k], y[g][k]) for x, y in ((a.deltas, b.deltas), (a.final_params, b.final_params))
         for g in x for k in x[g]]
     differ = sum(not torch.equal(x, y) for x, y in pairs)
-    print(f"[{tag}] recording again, against the slice's: {len(pairs) - differ} of "
+    print(f"[{tag}] recording again, against the first: {len(pairs) - differ} of "
           f"{len(pairs)} tensors bit-equal (weights, deltas, final params)")
     check(differ == 0, "two recordings of one seed on the card differ")
 
@@ -1282,6 +1299,203 @@ def phase_variants() -> None:
           "the variants launched a reconstruction kernel")
 
 
+# The faults phase: the main path under this plan (partner 3 drops at
+# epoch 2 of 2, partner 7 trains from the params one round stale)
+FAULT_PLAN = "dropout@p3:epoch2,straggler@p7:delay1"
+# a forever-dropped partner's v(S) against the partner-excluded run's: the
+# card's bound where the two train at other vmap widths (slots and masked)
+NULL_BOUND = 1e-6
+
+
+def titanic_game(device: str, partners: int = 3, **kw) -> Scenario:
+    """A Titanic game of `partners` partners split (i+1)/sum, 2 epochs of 2
+    minibatches of 2 steps, a dry run."""
+    total = sum(range(1, partners + 1))
+    return Scenario(partners, [(i + 1) / total for i in range(partners)], is_dry_run=True,
+                    dataset=load_titanic(), epoch_count=2, minibatch_count=2,
+                    gradient_updates_per_pass_count=2, is_early_stopping=False, seed=0,
+                    device=device, **kw)
+
+
+def faults_main_path(card) -> dict:
+    """(a): the main path under FAULT_PLAN, K1's launches counted from 0."""
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    recon_kernel.launch_widths = {}
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with knob(constants.PARTNER_FAULT_PLAN_ENV, FAULT_PLAN):
+        sc = mnist_scenario(["GTG-Shapley"])
+        sc.run()
+        exact = Contributivity(sc)
+        exact.exact_reconstructed()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches, bf16 = recon_kernel.launches, recon_kernel.launches_bf16
+    widths = dict(sorted(recon_kernel.launch_widths.items()))
+    recon = exact._reconstructor()
+    eng, rec = recon.engine, recon.recorded
+    values = np.array([recon.values[s] for s in powerset_order(PARTNERS)])
+    gtg, sv = sc.contributivity_list[0].contributivity_scores, exact.contributivity_scores
+    MB = sc.minibatch_count
+    dropped = [rec.weights[MB:, 3]] + [t[MB:, 3] for d in rec.deltas.values() for t in d.values()]
+    zero = sum(int((t == 0).all()) for t in dropped)
+    grand = recon_kernel.reconstruct_batch(
+        torch.ones(1, PARTNERS, device=DEVICE), rec.init_params, rec.deltas, rec.weights, "fp32")
+    err = max((grand[g][k][0] - rec.final_params[g][k]).abs().max().item()
+              for g in grand for k in grand[g])
+    print(f"[faults] MNIST CNN, {PARTNERS} partners, plan {FAULT_PLAN} "
+          f"(fingerprint {eng._fingerprint()['partner_fault_plan']}): {wall:.2f} s for "
+          f"Scenario.run() with GTG-Shapley and the exact reconstruction (fit score "
+          f"{sc.mpl.history.score:.4f}), peak memory {(peak - base) / 2 ** 30:.2f} GiB above "
+          f"the phase's start; v(N) {recon.values[tuple(range(PARTNERS))]:.4f}; "
+          f"GTG-Shapley {np.round(gtg, 4).tolist()}; exact {np.round(sv, 4).tolist()}")
+    print(f"[faults] launches {recon_kernel.KERNEL} {launches}, {recon_kernel.KERNEL_BF16} "
+          f"{bf16}; {recon_kernel.KERNEL} launches by batch width {json.dumps(widths)}; "
+          f"{recon.reconstructions} coalitions reconstructed; partner 3's epoch-2 rows: "
+          f"{zero} of {len(dropped)} tensors all zero; reconstructed grand coalition vs "
+          f"recorded final params: max abs err {err:.3g} (bound 1e-4)")
+    check(eng._multi_cfg.partner_drop_epochs == (0, 0, 0, 2) + (0,) * (PARTNERS - 4)
+          and eng._multi_cfg.partner_straggler_delays[7] == 1,
+          "the engine's trainers do not carry the plan")
+    check(launches > 0, "the fault-plan path never launched K1")
+    check(bf16 == 0, "the fp32 fault-plan path launched K1-bf16")
+    check(zero == len(dropped), "partner 3's epoch-2 deltas or weights are not exact zeros")
+    check(bool((rec.weights[:MB, 3] > 0).all()), "partner 3 weighs nothing in epoch 1")
+    check(err <= 1e-4, "the reconstructed grand coalition differs from the recording's "
+                       "final params")
+    check(bool(np.isfinite(values).all() and np.isfinite(sv).all() and np.isfinite(gtg).all()),
+          "non-finite values or scores under the plan")
+    check_same_recording(rec, record_updates(eng), "faults")
+    subsets = powerset_order(PARTNERS)[:63] + [()]
+    masks = torch.from_numpy(eng._coalition_arrays(subsets)).to(DEVICE)
+    wn2 = recon_kernel.normalized_round_weights(masks, recon._weights).reshape(64, -1)
+    entry = kernel_entry(recon_kernel.KERNEL, wn2.contiguous(), recon._d2, recon._init,
+                         launches, card, timed=False)
+    print(f"[faults] {recon_kernel.KERNEL} on the fault-plan stream {entry['shape']}: max abs "
+          f"err against its plain version {entry['max_abs_err']:.3g}")
+    return {"launches": launches, "widths": widths, "seconds": wall}
+
+
+def faults_null_player() -> float:
+    """(b): dropout@p4:epoch1 on a 5-partner Titanic sweep under the
+    deterministic reduce against the fault-free sweep."""
+    P = 5
+    t0 = time.perf_counter()
+    tables = {}
+    with knob(constants.DETERMINISTIC_REDUCE_ENV, "1"):
+        for plan in ("", "dropout@p4:epoch1"):
+            with knob(constants.PARTNER_FAULT_PLAN_ENV, plan):
+                sc = titanic_game(DEVICE, P, methods=["Shapley values"])
+                sc.run()
+            tables[plan] = (sc, sc._charac_engine.charac_fct_values)
+    (clean_sc, clean), (sc, faulty) = tables.values()
+    diffs = []
+    for s in powerset_order(P):
+        eff = tuple(i for i in s if i != 4)
+        diffs.append(abs(faulty[s] - (clean[eff] if eff else 0.0)))
+    sv = sc.contributivity_list[0].contributivity_scores
+    wall = time.perf_counter() - t0
+    print(f"[faults] titanic, {P} partners, deterministic reduce, dropout@p4:epoch1 "
+          f"({sc.slot_bucketing}) against the fault-free sweep ({clean_sc.slot_bucketing}): "
+          f"{sum(d == 0 for d in diffs)} of {len(diffs)} v(S) bit-equal to v(S - {{4}}), max "
+          f"diff {max(diffs):.3g}; Shapley values {np.round(sv, 6).tolist()}; {wall:.2f} s")
+    check(sc.slot_bucketing == "merge" and clean_sc.slot_bucketing == "masked",
+          "the deterministic reduce did not route the faulty sweep on slots and the "
+          "clean one masked")
+    check(max(diffs) <= NULL_BOUND, "a forever-dropped partner's v(S) is not v(S - {4})")
+    check(abs(sv[4]) <= NULL_BOUND, f"partner 4's Shapley value {sv[4]} is not 0")
+    return wall
+
+
+def faults_ensemble(sweep: dict) -> float:
+    """(c): the sweep's configuration at seed_ensemble = 2."""
+    P = SWEEP_PARTNERS
+    ref_eng = sweep["scenario"]._charac_engine
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with knob(constants.SEED_ENSEMBLE_ENV, "2"):
+        sc = mnist_scenario(["Shapley values"], P)
+        sc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    eng = sc._charac_engine
+    c = sc.contributivity_list[0]
+    subsets = powerset_order(P)
+    got = np.array([eng.charac_fct_values[s] for s in subsets])
+    ref = np.array([ref_eng.charac_fct_values[s] for s in subsets])
+    same = sum(numerics.float_bits(a) == numerics.float_bits(b) for a, b in zip(got, ref))
+    n_test = len(sc.dataset.x_test)
+    dv = float(np.abs(got - ref).max())
+    batches = (len(eng.batch_log), len(ref_eng.batch_log))
+    print(f"[faults] MNIST CNN, {P} partners, seed ensemble of {eng.seed_ensemble}: "
+          f"{wall:.2f} s for Scenario.run() (fit {sc.mpl.learning_computation_time:.2f} s, "
+          f"batches {sum(b['seconds'] for b in eng.batch_log):.2f} s); {batches[0]} batches "
+          f"against [sweep]'s {batches[1]}; peak memory {(peak - base) / 2 ** 30:.2f} GiB above "
+          f"the phase's start")
+    batch_lines("faults", eng)
+    print(f"[faults] replica 0 against [sweep]: {same} of {len(subsets)} v(S) bit-equal, max "
+          f"diff {dv:.4f} (1/n_test {1 / n_test:.4f}); replica 1 "
+          f"{np.round([eng.charac_fct_samples[s][1] for s in subsets], 4).tolist()}")
+    print("[faults] trust " + json.dumps(c.trust))
+    check(eng.seed_ensemble == 2 and len(eng.charac_fct_samples) == len(subsets),
+          "the ensemble did not train every coalition's replicas")
+    check(dv <= 1.0 / n_test + 1e-6, "replica 0 differs from [sweep] by more than one sample")
+    check(batches[0] < 2 * batches[1], f"the ensemble took {batches[0]} batches, not fewer "
+                                       f"than twice [sweep]'s {batches[1]}")
+    trust = c.trust or {}
+    check(trust.get("source") == "seed_ensemble"
+          and bool(np.isfinite(trust["mean"] + trust["std"] + trust["ci_low"]
+                               + trust["ci_high"]).all())
+          and -1.0 <= trust["kendall_tau"] <= 1.0, "the trust row is missing or not finite")
+    return wall
+
+
+def faults_reference() -> float:
+    """(d): Titanic on the card against the CPU."""
+    t0 = time.perf_counter()
+    recs = []
+    with knob(constants.PARTNER_FAULT_PLAN_ENV, "straggler@p1:delay2"):
+        for device in (DEVICE, "cpu"):
+            sc = titanic_game(device)
+            sc.instantiate_scenario_partners()
+            sc.split_data()
+            sc.data_corruption()
+            recs.append(record_updates(CharacteristicEngine(sc)))
+    card, cpu = recs
+    err = max((a.cpu() - b).abs().max().item() for x, y in (
+        (card.final_params, cpu.final_params), (card.deltas, cpu.deltas))
+        for g in y for a, b in zip(x[g].values(), y[g].values()))
+    werr = (card.weights.cpu() - cpu.weights).abs().max().item()
+    with knob(constants.STEP_WIDTH_MULT_ENV, "2"):
+        fits = [fit_on(d, "fedavg", load_titanic(), epoch_count=2, minibatch_count=2,
+                       gradient_updates_per_pass_count=3) for d in (DEVICE, "cpu")]
+    ferr = max((fits[0].model_params[g][k].cpu() - fits[1].model_params[g][k]).abs().max().item()
+               for g in fits[1].model_params for k in fits[1].model_params[g])
+    wall = time.perf_counter() - t0
+    print(f"[faults] titanic, card vs cpu: straggler@p1:delay2 recording, params and deltas "
+          f"max abs err {err:.3g}, weights {werr:.3g}; fedavg fit at step_width_mult "
+          f"{fits[0].cfg.step_width_mult} ({fits[0].cfg.pass_steps} steps a pass), params max "
+          f"abs err {ferr:.3g}; {wall:.2f} s")
+    check(fits[0].cfg.step_width_mult == 2, "the fit did not take the step-width knob")
+    check(max(err, werr, ferr) <= 1e-4, "the card and the CPU differ by more than 1e-4")
+    return wall
+
+
+def phase_faults(card, sweep: dict, smi: str) -> dict:
+    """The partner fault plan on the main path, a forever-dropped partner as
+    a null player, a seed ensemble and the card against the CPU."""
+    out = faults_main_path(card)
+    seconds = {"main path": out["seconds"], "null player": faults_null_player(),
+               "ensemble": faults_ensemble(sweep), "card vs cpu": faults_reference()}
+    print(f"[faults] seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
+          f"on {smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1318,6 +1532,14 @@ def main() -> int:
     phase_cache(sweep)
     phase_estimators(sweep)
     phase_variants()
+    faults = phase_faults(card, sweep, smi)
+    for e in kernels:
+        if e["name"].startswith(recon_kernel.KERNEL + "[") or e["name"] == recon_kernel.KERNEL:
+            B = e["shape"]["B"]
+            e["launches_by_path"]["faults"] = (
+                faults["launches"] if B == 64 else
+                sum(n for w, n in faults["widths"].items() if w <= B))
+            e["launch_widths_faults"] = faults["widths"]
 
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -201,3 +201,34 @@ def deterministic_reduce_enabled() -> bool:
 NO_SLOTS_ENV = "MPLC_TORCH_NO_SLOTS"
 SLOT_MERGE_ENV = "MPLC_TORCH_SLOT_MERGE"
 SLOT_POW2_ENV = "MPLC_TORCH_SLOT_POW2"
+
+# Fused wide steps (the JAX package's step-width knob): k folds k
+# consecutive gradient_updates_per_pass sub-batches of every multi-partner
+# pass into one k-times-wider optimizer step, ceil(gup / k) steps a pass.
+# 1 (the default) is the per-sub-batch stepping; k > 1 is a documented
+# deviation from the reference trajectory. Read when a TrainConfig is built
+# and frozen into it; a malformed value warns and gives 1.
+STEP_WIDTH_MULT_ENV = "MPLC_TORCH_STEP_WIDTH_MULT"
+
+
+def step_width_mult() -> int:
+    return _env_positive_int(STEP_WIDTH_MULT_ENV, 1)
+
+
+# The partner fault plan (grammar in faults.py): dropout and straggler
+# entries shape the engine's trainers, noisy and glabel entries the data
+# (Scenario.data_corruption). It changes v(S), so it is part of the
+# coalition cache's fingerprint. Read by Scenario.data_corruption, or by
+# the CharacteristicEngine when the scenario never ran it.
+PARTNER_FAULT_PLAN_ENV = "MPLC_TORCH_PARTNER_FAULT_PLAN"
+
+# Seed ensembles: K > 1 trains K replicas of every coalition, each from its
+# own random stream, as extra rows of the same batches; replica 0 is the
+# single-seed run, the others feed the exact Shapley sweep's trust row.
+# Read when a CharacteristicEngine is built (its `seed_ensemble=` argument
+# overrides it); a malformed value warns and gives 1.
+SEED_ENSEMBLE_ENV = "MPLC_TORCH_SEED_ENSEMBLE"
+
+
+def seed_ensemble() -> int:
+    return _env_positive_int(SEED_ENSEMBLE_ENV, 1)

@@ -52,7 +52,8 @@ from .planner import estimate_eval_seconds, plan_query
 from .sampling import (WithoutReplacementRanks, make_importance_sampler,
                        randbelow, svarm_batch_draws, svarm_warmup_draws,
                        unrank_combination)
-from .shapley import powerset_order, shapley_from_characteristic, trust_from_replicas
+from .shapley import (powerset_order, shapley_from_characteristic, trust_from_replicas,
+                      trust_summary)
 
 logger = logging.getLogger("mplc_tpu_torch")
 
@@ -229,13 +230,22 @@ class Contributivity:
     def compute_SV(self):
         """Exact Shapley values over retrained coalitions: all 2^n - 1
         coalitions valued in one batched sweep, then the closed-form
-        Shapley sum; scores_std is exactly zero."""
+        Shapley sum. Under a seed ensemble (K > 1) the replicas' Shapley
+        values give the trust row (source "seed_ensemble") and their std
+        is scores_std; otherwise scores_std is exactly zero."""
         t0 = time.perf_counter()
         logger.info("# Launching computation of Shapley Value of all partners")
         n = self._n
         self.engine.evaluate(powerset_order(n))
         sv = shapley_from_characteristic(n, self.engine.charac_fct_values)
-        self._finish("Shapley", sv, np.zeros(n), t0)
+        std = np.zeros(n)
+        samples = getattr(self.engine, "charac_fct_samples", None)
+        if getattr(self.engine, "seed_ensemble", 1) > 1 and samples:
+            self.trust = trust_summary(n, samples)
+            std = np.asarray(self.trust["std"])
+            logger.info("# Seed-ensemble trust: K=%d, kendall_tau=%.3f",
+                        self.trust["ensemble"], self.trust["kendall_tau"])
+        self._finish("Shapley", sv, std, t0)
 
     def compute_independent_scores(self):
         """v({i}) of every partner: a model trained on its data alone

@@ -16,8 +16,20 @@ package routes them). The memo is saved to a checksummed JSON cache
 (`save_cache`, after every trained batch when `autosave_path` is set) and
 restored from it (`load_cache`), keyed by everything v(S)
 depends on. The retrain-free path (contrib/reconstruct.py) runs on the
-same staged data. The fault ladder, the program bank and batch pipelining
-are not ported yet (ROADMAP.md).
+same staged data.
+
+The partner fault plan (faults.py) shapes the engine's trainers: its
+dropout and straggler entries go into the TrainConfigs (fedavg only).
+A partner dropped from epoch 1 never trains, so each coalition is keyed by
+its effective membership (without such partners): its random stream, the
+single trainer's mask and the route (a coalition left with one survivor
+is a single training, one left with none is v = 0 untrained). A seed
+ensemble (`seed_ensemble` K > 1) trains K replicas of every coalition as
+extra rows of the same batches; replica 0 is the single-seed run and gives
+v(S), every replica lands in `charac_fct_samples`.
+
+The fault ladder, the program bank and batch pipelining are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import constants
+from .. import constants, faults
 from ..data.partition import StackedPartners
 from ..mpl.approaches import stage_eval_set
 from ..mpl.engine import SLOT_APPROACHES, MplTrainer, TrainConfig
@@ -91,17 +103,52 @@ class BatchedTrainerPipeline:
 
 class CharacteristicEngine:
     """Staged data, coalition helpers and the memoized retraining sweep
-    shared by a scenario's estimators."""
+    shared by a scenario's estimators. `seed_ensemble` (None: the
+    MPLC_TORCH_SEED_ENSEMBLE knob) is the number of replicas each
+    coalition trains."""
 
-    def __init__(self, scenario):
+    # the fault-free, single-seed game: what a subclass that values
+    # coalitions without a scenario (a table of v(S)) describes
+    _forever_dropped: frozenset = frozenset()
+    seed_ensemble = 1
+
+    def __init__(self, scenario, seed_ensemble: int | None = None):
         self.scenario = scenario
         self.partners_list = sorted(scenario.partners_list, key=lambda p: p.id)
         self.partners_count = len(self.partners_list)
         self.model = scenario.dataset.model
         self.seed = scenario.seed
         self.device = scenario.device
-        # partner fault plans are not ported: no partner is ever dropped
-        self._forever_dropped = frozenset()
+
+        # the plan Scenario.data_corruption parsed and applied, so the
+        # fingerprint names the plan whose data faults ran; else the env's
+        stashed = getattr(scenario, "_partner_fault_plan", None)
+        self._partner_faults = (stashed if stashed is not None else
+                                faults.clip_partner_plan(faults.partner_fault_plan_from_env(),
+                                                         self.partners_count))
+        self._forever_dropped = faults.forever_dropped(self._partner_faults)
+        drop_epochs, straggler_delays = faults.trainer_fault_arrays(
+            self._partner_faults, self.partners_count)
+        if faults.data_fault_specs(self._partner_faults) and \
+                not getattr(scenario, "_data_faults_applied", False):
+            warnings.warn(
+                f"{constants.PARTNER_FAULT_PLAN_ENV} carries noisy/glabel entries but "
+                "Scenario.data_corruption() was never run: this engine computes the "
+                "uncorrupted game", stacklevel=2)
+        approach = scenario.multi_partner_learning_approach_key
+        if (drop_epochs or straggler_delays) and approach != "fedavg":
+            raise ValueError(
+                f"{constants.PARTNER_FAULT_PLAN_ENV} dropout/straggler entries need "
+                f"the fedavg approach (FedAvg's renormalized aggregation), got '{approach}'")
+
+        if seed_ensemble is None:
+            seed_ensemble = constants.seed_ensemble()
+        if int(seed_ensemble) < 1:
+            raise ValueError(f"seed_ensemble must be >= 1, got {seed_ensemble}")
+        self.seed_ensemble = int(seed_ensemble)
+        # {subset: [K] values of its replicas, NaN where not yet trained}
+        # (empty unless seed_ensemble > 1)
+        self.charac_fct_samples: dict[tuple, np.ndarray] = {}
 
         label_dim = self.model.label_dim()
         ds = scenario.dataset
@@ -120,6 +167,8 @@ class CharacteristicEngine:
             is_early_stopping=scenario.epoch_count > constants.PATIENCE,
             record_partner_val=False,
             record_val_history=False,
+            partner_drop_epochs=drop_epochs,
+            partner_straggler_delays=straggler_delays,
         )
         self.trainer = MplTrainer(self.model, self._multi_cfg)
         self.multi_pipe = BatchedTrainerPipeline(self.trainer, self.partners_count)
@@ -129,13 +178,19 @@ class CharacteristicEngine:
         # Slot execution: a size-k fedavg or seq coalition trains k partner
         # slots instead of P masked partners (for the seq family, k visits
         # a minibatch instead of P), one lazily built pipeline a slot
-        # width. Under the deterministic reduce fedavg sweeps run masked, as
-        # in the JAX package (there they take its partner-sharded pipeline);
-        # the seq family stays on slots; lflip always runs masked.
-        approach = self._multi_cfg.approach
-        self._use_slots = (approach in SLOT_APPROACHES
-                           and not (approach == "fedavg"
-                                    and self._multi_cfg.deterministic_reduce)
+        # width. Under the deterministic reduce fedavg sweeps without
+        # trainer faults run masked, as in the JAX package (there they take
+        # its partner-sharded pipeline, which has no seed ensembles); with
+        # faults they stay on slots, as the seq family does; lflip always
+        # runs masked.
+        det_masked = (self._multi_cfg.deterministic_reduce and not self._multi_cfg.faulted
+                      and approach in ("fedavg", "lflip"))
+        if det_masked and self.seed_ensemble > 1:
+            raise ValueError(
+                "seed-ensemble sweeps (seed_ensemble > 1) are not supported for "
+                "fedavg or lflip under MPLC_TORCH_DETERMINISTIC_REDUCE without a "
+                "partner fault plan, as in the JAX package")
+        self._use_slots = (approach in SLOT_APPROACHES and not det_masked
                            and os.environ.get(constants.NO_SLOTS_ENV) != "1")
         self._slot_pow2 = os.environ.get(constants.SLOT_POW2_ENV) == "1"
         self._slot_merge = (not self._slot_pow2 and os.environ.get(
@@ -151,7 +206,8 @@ class CharacteristicEngine:
         self.increments_values = [dict() for _ in range(self.partners_count)]
         self.first_charac_fct_calls_count = 0
         # one entry per trained batch: kind, width, slot_count (None for
-        # masked and single batches), coalitions, seconds
+        # masked and single batches), coalitions (the batch's real rows:
+        # coalition replicas under a seed ensemble), seconds
         self.batch_log: list[dict] = []
         # the cache is saved here after every trained batch (Scenario.run)
         self.autosave_path = None
@@ -165,10 +221,12 @@ class CharacteristicEngine:
     # coalition helpers
     # ------------------------------------------------------------------
 
-    def coalition_generator(self, subset: tuple) -> torch.Generator:
+    def coalition_generator(self, subset: tuple, replica: int = 0) -> torch.Generator:
         """The coalition's own CPU random stream, independent of batch
-        composition: seeded from (seed, the membership bitmask's 32-bit
-        words). The JAX package's threefry streams are not reproduced."""
+        composition: seeded from SeedSequence([seed, *words]), the words
+        being the membership bitmask's 32-bit words; seed-ensemble replica
+        j >= 1 from SeedSequence([seed, *words, 0x5EED0000 + j]). The JAX
+        package's threefry streams are not reproduced."""
         bits = 0
         for i in subset:
             bits |= 1 << int(i)
@@ -178,6 +236,8 @@ class CharacteristicEngine:
             bits >>= 32
             if not bits:
                 break
+        if replica:
+            words.append(0x5EED0000 + int(replica))
         ss = np.random.SeedSequence([int(self.seed), *words])
         return torch.Generator().manual_seed(int(ss.generate_state(1, np.uint64)[0]))
 
@@ -204,20 +264,35 @@ class CharacteristicEngine:
         """The coalition's membership minus forever-dropped partners."""
         return tuple(i for i in subset if i not in self._forever_dropped)
 
-    def _batch_start(self, subsets: list[tuple], single: bool):
-        """(generators, initial params, streams) of a batch's coalitions:
-        each coalition's own stream, from which the trainer draws all of
+    def _batch_start(self, subsets: list[tuple], single: bool, replicas=None):
+        """(generators, initial params, streams) of a batch's rows, each the
+        stream of its (effective) subset and seed-ensemble replica (all 0
+        when `replicas` is None), from which the trainer draws all of
         them (None, None). The parity tests substitute the JAX package's
         initial params and streams here."""
-        return [self.coalition_generator(s) for s in subsets], None, None
+        replicas = replicas or [0] * len(subsets)
+        return ([self.coalition_generator(s, r) for s, r in zip(subsets, replicas)],
+                None, None)
 
     # ------------------------------------------------------------------
     # the memoized sweep
     # ------------------------------------------------------------------
 
     def _incomplete(self, subset: tuple) -> bool:
-        """True when the subset still needs device work (no value yet)."""
-        return subset not in self.charac_fct_values
+        """True when the subset still needs device work: no value yet, or
+        (seed ensemble) a replica not yet trained."""
+        if subset not in self.charac_fct_values:
+            return True
+        if self.seed_ensemble == 1:
+            return False
+        arr = self.charac_fct_samples.get(subset)
+        return arr is None or bool(np.isnan(arr).any())
+
+    def _store_sample(self, subset: tuple, replica: int, value: float) -> None:
+        arr = self.charac_fct_samples.get(subset)
+        if arr is None:
+            arr = self.charac_fct_samples[subset] = np.full(self.seed_ensemble, np.nan)
+        arr[replica] = value
 
     def _store(self, subset: tuple, value: float) -> None:
         self.charac_fct_values[subset] = value
@@ -266,29 +341,44 @@ class CharacteristicEngine:
     def _run_batch(self, subsets: list[tuple], pipe: BatchedTrainerPipeline,
                    slot_count: int | None = None) -> None:
         """Train and value `subsets` on `pipe` (a slot pipeline when
-        `slot_count` is given), in batches of one width for the whole call:
-        the tail is padded with copies of its batch's first coalition,
-        whose results are dropped. Saves the cache after every batch when
-        `autosave_path` is set."""
+        `slot_count` is given), in batches of one width for the whole call.
+        A batch's rows are jobs: job j is replica j % K of subset j // K
+        (K = `seed_ensemble`), so the replicas fill the rows a single-seed
+        sweep pads. The tail is padded with copies of its batch's first
+        job, whose results are dropped. Each job draws the stream of its
+        effective subset; the single trainer also takes its effective mask
+        (its lone survivor), the others the full membership, whose dropped
+        partners they mask in-trainer. Saves the cache after every batch
+        when `autosave_path` is set."""
         cap = constants.MAX_COALITIONS_PER_DEVICE_BATCH
-        b = _bucket_size(min(len(subsets), cap), 1, cap)
-        coal_all = self._coalition_arrays(subsets, slot_count)
-        kind = "single" if pipe is self.single_pipe else "multi"
-        for i in range(0, len(subsets), b):
-            group = subsets[i:i + b]
+        K = self.seed_ensemble
+        single = pipe is self.single_pipe
+        eff = [self._effective_subset(s) for s in subsets]
+        coal_all = self._coalition_arrays(eff if single else subsets, slot_count)
+        n_jobs = len(subsets) * K
+        b = _bucket_size(min(n_jobs, cap), 1, cap)
+        for i in range(0, n_jobs, b):
+            n = min(b, n_jobs - i)
             sel = np.full(b, i, np.intp)
-            sel[:len(group)] = np.arange(i, i + len(group))
+            sel[:n] = np.arange(i, i + n)
             t0 = time.perf_counter()
+            keys = [eff[j] for j in sel // K]
             generators, init_params, streams = self._batch_start(
-                [subsets[j] for j in sel], kind == "single")
-            coal = torch.from_numpy(coal_all[sel]).to(self.device)
+                keys, single, [int(j) for j in sel % K])
+            coal = torch.from_numpy(coal_all[sel // K]).to(self.device)
             accs, _ = pipe.scores(coal, generators, self.stacked, self.val,
                                   self.test, init_params, streams)
-            self.batch_log.append({"kind": kind, "width": b, "slot_count": slot_count,
-                                   "coalitions": len(group),
+            self.batch_log.append({"kind": "single" if single else "multi", "width": b,
+                                   "slot_count": slot_count, "coalitions": n,
                                    "seconds": time.perf_counter() - t0})
-            for s, acc in zip(group, accs[:len(group)]):
-                self._store(s, float(acc))
+            for j, acc in zip(sel[:n], accs[:n]):
+                s, rep = subsets[j // K], int(j % K)
+                if K > 1:
+                    self._store_sample(s, rep, float(acc))
+                # replica 0 is v(S); a subset re-trained for a missing
+                # replica keeps the value and the call count it has
+                if rep == 0 and s not in self.charac_fct_values:
+                    self._store(s, float(acc))
             if self.autosave_path is not None:
                 self.save_cache(self.autosave_path)
 
@@ -297,8 +387,20 @@ class CharacteristicEngine:
         partner indices). Returns values in input order."""
         keys = [tuple(sorted(int(i) for i in s)) for s in subsets]
         missing = [k for k in dict.fromkeys(keys) if self._incomplete(k)]
-        singles = [k for k in missing if len(k) == 1]
-        multis = [k for k in missing if len(k) > 1]
+        if self._forever_dropped:
+            # every member dropped from epoch 1: no model is ever trained,
+            # v = v(empty) = 0, which makes a dropped partner a null player
+            for k in [k for k in missing if not self._effective_subset(k)]:
+                if k not in self.charac_fct_values:
+                    self._store(k, 0.0)
+                if self.seed_ensemble > 1:
+                    self.charac_fct_samples[k] = np.zeros(self.seed_ensemble)
+            missing = [k for k in missing if self._effective_subset(k)]
+        # routed by effective size (a coalition left with one survivor is a
+        # single training), bucketed by the full membership
+        lens = {k: len(self._effective_subset(k)) for k in missing}
+        singles = [k for k in missing if lens[k] == 1]
+        multis = [k for k in missing if lens[k] > 1]
         if singles:
             self._run_batch(singles, self.single_pipe)
         if multis and self._use_slots:
@@ -348,9 +450,8 @@ class CharacteristicEngine:
         return self._digest
 
     def _fingerprint(self) -> dict:
-        """Everything v(S) depends on, with the JAX engine's keys (its
-        defaults where the port has no such knob yet) and the port's
-        random streams."""
+        """Everything v(S) depends on, with the JAX engine's keys and the
+        port's random streams."""
         cfg = self._multi_cfg
         sc = self.scenario
         return {
@@ -363,10 +464,10 @@ class CharacteristicEngine:
             "epoch_count": cfg.epoch_count,
             "minibatch_count": cfg.minibatch_count,
             "gradient_updates_per_pass": cfg.gradient_updates_per_pass,
-            "step_width_mult": 1,
+            "step_width_mult": cfg.step_width_mult,
             "deterministic_reduce": bool(cfg.deterministic_reduce),
-            "partner_fault_plan": "",
-            "seed_ensemble": 1,
+            "partner_fault_plan": faults.normalized_plan_repr(self._partner_faults),
+            "seed_ensemble": self.seed_ensemble,
             "compute_dtype": "float32",
             "precision": cfg.precision,
             "split": [str(sc.samples_split_type), str(sc.samples_split_description)],
@@ -377,7 +478,8 @@ class CharacteristicEngine:
         }
 
     def save_cache(self, path) -> None:
-        """Save the memo, the increments and the call count as JSON,
+        """Save the memo, the increments, the call count and the
+        seed-ensemble replica rows (NaN where not yet trained) as JSON,
         durably: a sha256 checksum of the payload (`load_cache` verifies
         it), the temporary file fsync'd before the atomic replace, and the
         directory fsync'd after it."""
@@ -389,6 +491,9 @@ class CharacteristicEngine:
             "increments_values": [[[list(k), v] for k, v in d.items()]
                                   for d in self.increments_values],
         }
+        if self.charac_fct_samples:
+            payload["charac_fct_samples"] = [[list(k), [float(v) for v in arr]]
+                                             for k, arr in self.charac_fct_samples.items()]
         # the checksum field is spliced into the serialized body, so the
         # payload is serialized once a save; the load re-serializes the
         # parsed payload to the same bytes
@@ -457,6 +562,11 @@ class CharacteristicEngine:
         # streams (its older caches also lack keys it later added, which
         # it reads with defaults; they are refused here all the same)
         theirs.setdefault("rng_streams", JAX_RNG_STREAMS)
+        # a cache without these keys describes the per-sub-batch stepping,
+        # fault-free, single-seed game (the JAX package's reading)
+        theirs.setdefault("step_width_mult", 1)
+        theirs.setdefault("partner_fault_plan", "")
+        theirs.setdefault("seed_ensemble", 1)
         ours = self._fingerprint()
         mismatched = {k: (theirs.get(k), v) for k, v in ours.items()
                       if theirs.get(k) != v}
@@ -469,3 +579,5 @@ class CharacteristicEngine:
         self.increments_values = [{tuple(k): v for k, v in entries}
                                   for entries in payload["increments_values"]]
         self.first_charac_fct_calls_count = payload["first_charac_fct_calls_count"]
+        self.charac_fct_samples = {tuple(k): np.asarray(v, float)
+                                   for k, v in payload.get("charac_fct_samples", [])}

@@ -54,13 +54,19 @@ class RecordedRun:
 
 def record_updates(engine) -> RecordedRun:
     """Train the grand coalition once with update recording on, through
-    the engine's coalition-training config and the grand coalition's own
-    random stream, and return the recorded stream."""
+    the engine's coalition-training config (its partner faults included:
+    a dropped partner records exact-zero deltas and weights) and the grand
+    coalition's own random stream (that of its effective membership), and
+    return the recorded stream."""
     cfg = dataclasses.replace(engine._multi_cfg, record_updates=True)
     trainer = MplTrainer(engine.model, cfg)
     P = engine.partners_count
     full = tuple(range(P))
-    generators = [engine.coalition_generator(engine._effective_subset(full))]
+    eff = engine._effective_subset(full)
+    if not eff:
+        raise ValueError("every partner is dropped from epoch 1: there is no "
+                         "grand-coalition run to record")
+    generators = [engine.coalition_generator(eff)]
     mask = torch.from_numpy(engine._coalition_arrays([full])).to(engine.device)
     state = trainer.init_state(generators, P, engine.device)
     init_params = {g: {k: t[0].clone() for k, t in d.items()}

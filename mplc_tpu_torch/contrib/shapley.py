@@ -1,6 +1,6 @@
 """Exact Shapley values from a characteristic-function table, and the trust
-row of Monte-Carlo estimates (a copy of `mplc_tpu/contrib/shapley.py`,
-pure numpy).
+row of seed ensembles and Monte-Carlo estimates (a copy of
+`mplc_tpu/contrib/shapley.py`, pure numpy).
 
 Exact Shapley is direct bit-twiddling over coalition bitmasks: O(n 2^n)
 with O(1) lookups. The trust helpers turn a [K, n] matrix of replica
@@ -52,6 +52,22 @@ def shapley_from_characteristic(n: int, value_of: dict) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Trust row: CI + rank stability over K replica Shapley vectors
 # ---------------------------------------------------------------------------
+
+def shapley_sample_matrix(n: int, samples_of: dict) -> np.ndarray:
+    """[K, n] per-replica Shapley values from a replica-valued table
+    (`samples_of`: sorted subset tuple -> [K] array,
+    CharacteristicEngine.charac_fct_samples): replica j's Shapley vector
+    from replica j's v(S), K games in one table."""
+    if not samples_of:
+        raise ValueError("empty replica table — run a seed-ensemble sweep "
+                         "(seed_ensemble > 1) first")
+    K = len(next(iter(samples_of.values())))
+    rows = []
+    for j in range(K):
+        rows.append(shapley_from_characteristic(
+            n, {s: float(arr[j]) for s, arr in samples_of.items()}))
+    return np.stack(rows)
+
 
 def kendall_tau(a, b) -> float:
     """Kendall's tau-a between the rankings induced by two score vectors:
@@ -106,10 +122,10 @@ def confidence_intervals(sv_samples: np.ndarray, alpha: float = 0.95
 def trust_from_replicas(sv_samples, alpha: float = 0.95,
                         source: str = "replicas") -> dict:
     """The `trust` row dict from an explicit [K, n] replica Shapley
-    matrix. The retrain-free Monte-Carlo estimators pass disjoint sample
-    blocks of one run as replicas (source="mc_blocks"): Monte-Carlo
-    uncertainty, in the same schema the JAX package's seed-ensemble rows
-    use. Plain lists and floats, JSON-ready."""
+    matrix. Two producers share it: seed ensembles (replicas = independent
+    seeds, `trust_summary`, source="seed_ensemble") and the retrain-free
+    Monte-Carlo estimators (replicas = disjoint sample blocks of one run,
+    source="mc_blocks"). Plain lists and floats, JSON-ready."""
     sv = np.asarray(sv_samples, float)
     n = sv.shape[1]
     mean, lo, hi = confidence_intervals(sv, alpha)
@@ -125,3 +141,10 @@ def trust_from_replicas(sv_samples, alpha: float = 0.95,
         "ci_high": [float(x) for x in hi],
         "kendall_tau": rank_stability(sv),
     }
+
+
+def trust_summary(n: int, samples_of: dict, alpha: float = 0.95) -> dict:
+    """The exact sweep's trust row over a seed ensemble: per-partner
+    Shapley mean / std / CI bounds and the Kendall-tau rank stability."""
+    return trust_from_replicas(shapley_sample_matrix(n, samples_of), alpha,
+                               source="seed_ensemble")

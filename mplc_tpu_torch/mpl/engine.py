@@ -40,7 +40,15 @@ Loop semantics kept from the JAX package:
     `patience` epochs);
   - a coalition that has stopped is frozen (`torch.where`, the JAX
     package's `tree_where(state.done, ...)`): its parameters stay and its
-    later history rows stay NaN while the others train on.
+    later history rows stay NaN while the others train on;
+  - fused wide steps (`step_width_mult` k): every multi-partner pass takes
+    ceil(gup / k) steps, step g on the base windows g*k .. g*k+k-1 at once;
+  - partner faults (`partner_drop_epochs`, `partner_straggler_delays`;
+    fedavg and single): a dropped partner trains on zeroed loss masks and
+    weighs nothing from its drop epoch on (single: params and Adam state
+    frozen), a straggler's pass starts from the global params of `delay`
+    rounds ago (`TrainState.stale`), a round without survivors keeps the
+    global params.
 
 Randomness: each epoch's draws of a coalition come from its own
 `torch.Generator` (a CPU generator, so a run is the same on every device),
@@ -117,11 +125,35 @@ class TrainConfig:
     # (ops/aggregation.py `ordered_fold`). None resolves it from the
     # environment at construction; the resolved value is frozen in.
     deterministic_reduce: bool | None = None
+    # MPLC_TORCH_STEP_WIDTH_MULT (constants.py): fused step g of a
+    # multi-partner pass covers the base sub-batch windows g*k .. g*k+k-1
+    # as one window k times as wide, so a pass takes ceil(gup / k) steps;
+    # k = 1 is the per-sub-batch stepping. The single trainer keeps its
+    # minibatch_count x gup steps. None resolves it from the environment
+    # at construction; the resolved value is frozen in.
+    step_width_mult: int | None = None
+    # The partner fault plan's trainer entries (faults.py
+    # `trainer_fault_arrays`), tuples of length P or None:
+    #   partner_drop_epochs[p]      1-based epoch from which partner p is
+    #       gone for good (0: never): exactly-zero gradients and zero
+    #       aggregation weight, so FedAvg renormalizes over the survivors
+    #       (the single trainer freezes its params and Adam state instead);
+    #   partner_straggler_delays[p] partner p's local pass starts from the
+    #       global params of that many aggregation rounds ago (0: the
+    #       current ones), kept in `TrainState.stale`; its result joins the
+    #       current round's aggregation.
+    # fedavg (masked or on slots) and the single trainer only.
+    partner_drop_epochs: tuple | None = None
+    partner_straggler_delays: tuple | None = None
 
     def __post_init__(self):
         if self.deterministic_reduce is None:
             object.__setattr__(self, "deterministic_reduce",
                                constants.deterministic_reduce_enabled())
+        if self.step_width_mult is None:
+            object.__setattr__(self, "step_width_mult", constants.step_width_mult())
+        if self.step_width_mult < 1:
+            raise ValueError(f"step_width_mult must be >= 1, got {self.step_width_mult}")
         if self.precision is None:
             object.__setattr__(self, "precision", constants.precision_mode())
         if self.precision not in constants.PRECISION_MODES:
@@ -134,6 +166,12 @@ class TrainConfig:
         if self.aggregator not in AGGREGATOR_NAMES:
             raise KeyError(f"aggregation approach '{self.aggregator}' is not a "
                            f"valid approach. Supported: {AGGREGATOR_NAMES}")
+        if (self.partner_drop_epochs is not None
+                or self.partner_straggler_delays is not None) \
+                and self.approach not in ("fedavg", "single"):
+            raise ValueError("partner dropout and straggler faults support fedavg "
+                             "coalition training and the single-partner trainer "
+                             f"only, got '{self.approach}'")
         if self.slot_count is not None and self.approach not in SLOT_APPROACHES:
             raise ValueError("slot execution supports fedavg and the seq family "
                              f"only, got '{self.approach}'")
@@ -150,6 +188,16 @@ class TrainConfig:
     def dtype(self) -> torch.dtype:
         """The model compute dtype."""
         return torch.float32 if self.precision == "fp32" else torch.bfloat16
+
+    @property
+    def pass_steps(self) -> int:
+        """Optimizer steps of one multi-partner pass: ceil(gup / k)."""
+        return -(-self.gradient_updates_per_pass // self.step_width_mult)
+
+    @property
+    def faulted(self) -> bool:
+        return (self.partner_drop_epochs is not None
+                or self.partner_straggler_delays is not None)
 
 
 @dataclasses.dataclass
@@ -171,6 +219,8 @@ class TrainState:
     theta: torch.Tensor | None = None    # [B, P, K, K] label-flip matrices (lflip)
     theta_h: torch.Tensor | None = None  # [B, E, P, K, K] end-of-epoch theta, NaN
                                          # for epochs not run (lflip)
+    stale: dict | None = None    # [B, D, ...] the last D round-start global
+                                 # params, newest first (fedavg stragglers)
 
     def row(self, i: int) -> "TrainState":
         """Run i's state without the coalition axis: views of its tensors,
@@ -282,6 +332,13 @@ class MplTrainer:
                     B, partners_count, k, k)
             state.theta = init_theta.to(device, torch.float32).clone()
             state.theta_h = nan(B, E, partners_count, k, k)
+        if cfg.approach == "fedavg" and cfg.partner_straggler_delays \
+                and any(cfg.partner_straggler_delays):
+            # a straggler older than the run so far starts from the
+            # initial params
+            D = max(cfg.partner_straggler_delays)
+            state.stale = _tree_map(
+                lambda t: t[:, None].expand((B, D) + t.shape[1:]).clone(), params)
         if cfg.record_updates:
             # rounds the run never reaches (early stopping) stay all-zero,
             # which reconstruction skips via its zero-denominator rule
@@ -369,20 +426,23 @@ class MplTrainer:
 
     def _step_rows(self, sizes, g: int, sb_cap: int):
         """(row offsets within the minibatch, samples per minibatch,
-        validity) of gradient step g for every run and partner slot
-        (`sizes` [B, W]); offsets and validity [B, W, sb_cap]."""
+        validity) of (fused) gradient step g for every run and partner
+        slot (`sizes` [B, W]); offsets and validity [B, W, sb_cap * k].
+        Under `step_width_mult` k, step g covers the base sub-batch windows
+        g*k .. g*k+k-1 as one contiguous window; k = 1 is the base window."""
         cfg = self.cfg
         mbc, gup = cfg.minibatch_count, cfg.gradient_updates_per_pass
+        k = cfg.step_width_mult
         valid_mb = (sizes // mbc)[..., None]           # samples per minibatch
-        sb = (valid_mb + gup - 1) // gup               # samples per step
-        ar = torch.arange(sb_cap, device=sizes.device)
-        local = g * sb + ar
-        return local, valid_mb, (ar < sb) & (local < valid_mb)
+        sb = (valid_mb + gup - 1) // gup               # samples per base step
+        ar = torch.arange(sb_cap * k, device=sizes.device)
+        local = g * (sb * k) + ar
+        return local, valid_mb, (ar < sb * k) & (local < valid_mb)
 
     def _subbatch(self, perms, sizes, mb_i: int, g: int, sb_cap: int):
-        """Indices + validity mask, both [B, W, sb_cap], of gradient step g
-        of minibatch mb_i, for every run and partner slot (`perms`
-        [B, W, Nmax], `sizes` [B, W])."""
+        """Indices + validity mask, both [B, W, sb_cap * k], of (fused)
+        gradient step g of minibatch mb_i, for every run and partner slot
+        (`perms` [B, W, Nmax], `sizes` [B, W])."""
         local, valid_mb, valid = self._step_rows(sizes, g, sb_cap)
         pos = torch.clamp(mb_i * valid_mb + local, 0, perms.shape[-1] - 1)
         return torch.gather(perms, 2, pos), valid.float()
@@ -494,7 +554,14 @@ class MplTrainer:
 
         lflip (masked only) first takes every partner's EM step on its
         minibatch window (`_lflip_windows`); its steps then read their rows
-        and the drawn labels from that window. Updates `state.theta`."""
+        and the drawn labels from that window. Updates `state.theta`.
+
+        Partner faults (`cfg.faulted`) are gathered by each slot's partner
+        id, so masks and slots share them: a dropped partner's activity is
+        0 from its drop epoch on (`_drop_active`), a straggler's pass starts
+        from `state.stale` row delay - 1 (the buffer is pushed after every
+        aggregation), and a round with no survivor keeps the global params.
+        The recorded delta stays local params - round-start global params."""
         cfg = self.cfg
         B, W = coal.shape
         P = stacked.x.shape[0]
@@ -506,7 +573,13 @@ class MplTrainer:
             act, used = coal, torch.ones_like(pids, dtype=torch.bool)
         else:
             pids, act, used = self._slot_binding(coal)
+        if cfg.partner_drop_epochs is not None:
+            act = act * self._drop_active(e, dev)[pids]
         runs = torch.arange(B, device=dev)[:, None]
+        stale = state.stale
+        if stale is not None:
+            delays = torch.tensor(cfg.partner_straggler_delays, device=dev)[pids]
+            late, stale_row = delays > 0, torch.clamp(delays - 1, min=0)   # [B, W]
         draws = self._draws(generators, stacked.mask.expand(B, -1, -1), streams)
         perms = draws.perms[runs, pids]                            # [B, W, Nmax]
         sizes = stacked.sizes[pids]                                # [B, W]
@@ -527,7 +600,7 @@ class MplTrainer:
                     draws.flip_u[:, mb_i])
 
             def batches():
-                for g in range(gup):
+                for g in range(cfg.pass_steps):
                     if cfg.approach == "lflip":
                         local, _, valid = self._step_rows(sizes, g, sb_cap)
                         local = torch.clamp(local, 0, mb_cap - 1)
@@ -539,8 +612,11 @@ class MplTrainer:
                         idx, valid = self._subbatch(perms, sizes, mb_i, g, sb_cap)
                         x, y = stacked.x[rows, idx], stacked.y[rows, idx]
                     yield flat(x), flat(y), flat(valid * act[:, :, None])
-            start = _tree_map(lambda t: flat(t[:, None].expand((B, W) + t.shape[1:])),
-                              params)
+            start = _tree_map(lambda t: t[:, None].expand((B, W) + t.shape[1:]), params)
+            if stale is not None:
+                old = _tree_map(lambda st: st[runs, stale_row], stale)
+                start = _tree_map(lambda o, n: torch.where(_rows(late, o), o, n), old, start)
+            start = _tree_map(flat, start)
             new_flat, _, losses, accs = self._steps(
                 start, self.model.optimizer.init(start), batches())
             if need_pval:
@@ -564,9 +640,17 @@ class MplTrainer:
                         _write(state.upd_h[g][k][:, r_idx], t - params[g][k][:, None],
                                frozen)
                 _write(state.w_h[:, r_idx], w, frozen)
-            params = aggregate(new_params, w, deterministic=cfg.deterministic_reduce)
+            agg = aggregate(new_params, w, deterministic=cfg.deterministic_reduce)
+            if cfg.faulted:
+                agg = _keep_frozen(act.sum(1) == 0, params, agg)
+            if stale is not None:
+                stale = _tree_map(lambda st, t: torch.cat([t[:, None], st[:, :-1]], 1),
+                                  stale, params)
+            params = agg
         if theta is not None:
             state.theta = _keep_frozen(frozen, state.theta, theta)
+        if stale is not None:
+            state.stale = _keep_frozen(frozen, state.stale, stale)
         return params
 
     def _seq_epoch(self, state: TrainState, stacked, val: EvalSet,
@@ -582,7 +666,7 @@ class MplTrainer:
         the positions past the largest coalition are skipped. One Adam
         state per run and minibatch is carried along the chain: a member
         at position pos follows pos member visits, so its steps count on
-        from pos x gradient_updates_per_pass."""
+        from pos x `cfg.pass_steps`."""
         cfg = self.cfg
         B, W = coal.shape
         e = state.epoch
@@ -629,13 +713,13 @@ class MplTrainer:
                 perm_s, size_s = perms[runs, s][:, None], sizes[runs, s][:, None]
 
                 def batches():
-                    for g in range(gup):
+                    for g in range(cfg.pass_steps):
                         idx, valid = self._subbatch(perm_s, size_s, mb_i, g, sb_cap)
                         yield (stacked.x[pid[:, None], idx[:, 0]],
                                stacked.y[pid[:, None], idx[:, 0]],
                                valid[:, 0] * on[:, None])
                 new_p, new_opt, loss, acc = self._steps(
-                    params, {**mu_nu, "count": pos * gup}, batches())
+                    params, {**mu_nu, "count": pos * cfg.pass_steps}, batches())
                 params = _keep_frozen(~on, params, new_p)
                 mu_nu = {m: _keep_frozen(~on, mu_nu[m], new_opt[m]) for m in ("mu", "nu")}
                 b = torch.nonzero(on, as_tuple=True)[0]
@@ -688,8 +772,18 @@ class MplTrainer:
                 yield x_p[runs, idx], y_p[runs, idx], valid.float()
         params, opt_state, loss, acc = self._steps(state.params, state.opt_state,
                                                    batches())
-        state.opt_state = {"mu": _keep_frozen(frozen, state.opt_state["mu"], opt_state["mu"]),
-                           "nu": _keep_frozen(frozen, state.opt_state["nu"], opt_state["nu"]),
+        hold = frozen
+        if cfg.partner_drop_epochs is not None:
+            # from its drop epoch on the partner's solo training stops:
+            # params and Adam state are frozen (momentum would otherwise
+            # coast on zero gradients), and the val eval below scores the
+            # model it had. The step count is shared by the B runs; a run
+            # held here never trains again, so it never reads it.
+            dropped = self._drop_active(e, masks.device)[p] == 0
+            params = _keep_frozen(dropped, state.params, params)
+            hold = frozen | dropped
+        state.opt_state = {"mu": _keep_frozen(hold, state.opt_state["mu"], opt_state["mu"]),
+                           "nu": _keep_frozen(hold, state.opt_state["nu"], opt_state["nu"]),
                            "count": opt_state["count"]}
         if cfg.record_val_history or cfg.is_early_stopping:
             vl, va = self.evaluate_models(params, val)
@@ -705,6 +799,13 @@ class MplTrainer:
         state.es_wait = _keep_frozen(frozen, state.es_wait,
                                      torch.where(improved, 0, state.es_wait + 1))
         return params
+
+    def _drop_active(self, e: int, device) -> torch.Tensor:
+        """[P] activity under the dropout plan in (0-based) epoch e: 1.0
+        while partner p has no drop epoch (0) or e + 1 is before it, else
+        0.0. Exact factors, so a mask they multiply keeps its bits."""
+        drop = torch.tensor(self.cfg.partner_drop_epochs, device=device)
+        return ((drop == 0) | (e + 1 < drop)).float()
 
     def _early_stop_flag(self, state: TrainState) -> torch.Tensor:
         """[B]: the runs whose epoch `state.epoch` triggers early stopping."""

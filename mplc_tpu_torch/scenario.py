@@ -8,6 +8,11 @@ It runs on CUDA unless `device=` names another device (the tests pass
 `device="cpu"`); see `utils.resolve_device`. Options of the JAX package
 that are not ported yet raise NotImplementedError.
 
+`corrupted_datasets` takes every corruption of `data.partner.CORRUPTION_KINDS`,
+validated at construction; `data_corruption` then applies the partner
+fault plan's noisy and glabel entries (MPLC_TORCH_PARTNER_FAULT_PLAN) and
+keeps the parsed plan for the CharacteristicEngine.
+
 Unless `is_dry_run`, the scenario writes into its own folder under
 `experiment_path`: the coalition cache `coalition_cache.json`, saved after
 every trained batch of a method and once after the methods. A sweep
@@ -21,11 +26,11 @@ import logging
 import uuid
 from pathlib import Path
 
-from . import constants
+from . import constants, faults
 from .contrib.contributivity import Contributivity
 from .data import datasets as dataset_module
 from .data.partition import compute_batch_sizes, split_basic
-from .data.partner import Partner
+from .data.partner import CORRUPTION_KINDS, Partner
 from .mpl.approaches import MULTI_PARTNER_LEARNING_APPROACHES
 from .ops.aggregation import AGGREGATOR_NAMES
 from .utils import resolve_device
@@ -85,7 +90,17 @@ class Scenario:
                                    or ["not_corrupted"] * partners_count)
         if len(self.corrupted_datasets) != partners_count:
             raise ValueError(f"corrupted_datasets has {len(self.corrupted_datasets)} "
-                             f"entries for {partners_count} partners")
+                             f"entries for {partners_count} partners: one spec per partner")
+        # a typo'd spec must not run an uncorrupted partner through a
+        # robustness experiment
+        for idx, spec in enumerate(self.corrupted_datasets):
+            kind = spec[0] if isinstance(spec, (list, tuple)) else spec
+            if kind not in CORRUPTION_KINDS:
+                raise ValueError(f"corrupted_datasets[{idx}] = {kind!r} is not a valid "
+                                 f"corruption; valid names: {', '.join(CORRUPTION_KINDS)}")
+        # set by data_corruption(): the engine warns when the partner fault
+        # plan has data faults that never ran
+        self._data_faults_applied = False
 
         if multi_partner_learning_approach not in MULTI_PARTNER_LEARNING_APPROACHES:
             raise KeyError(
@@ -148,12 +163,34 @@ class Scenario:
                             constants.MAX_BATCH_SIZE)
 
     def data_corruption(self):
-        """Label and feature corruption is not ported yet: every partner
-        must be "not_corrupted"."""
-        for idx, spec in enumerate(self.corrupted_datasets):
-            kind = spec[0] if isinstance(spec, (list, tuple)) else spec
-            if kind != "not_corrupted":
-                raise _not_ported(f"corruption '{kind}' (partner {idx})")
+        """Each partner's corruption (the JAX package's dispatch: a spec is
+        a kind, or (kind, parameter) with the proportion 1.0 or, for
+        'noisy', the sigma 0.1 by default), then the partner fault plan's
+        noisy and glabel entries through the same seeded operators. The
+        clipped plan is kept as `_partner_fault_plan`, so the engine's
+        trainers and fingerprint follow the plan whose data faults ran."""
+        for partner, spec in zip(self.partners_list, self.corrupted_datasets):
+            kind, param = (spec[0], spec[1]) if isinstance(spec, (list, tuple)) else (spec, None)
+            label_ops = {"corrupted": partner.corrupt_labels,
+                         "shuffled": partner.shuffle_labels,
+                         "permuted": partner.permute_labels,
+                         "random": partner.random_labels,
+                         "glabel": partner.flip_to_global_label}
+            if kind == "noisy":
+                # the parameter is the noise sigma, not a proportion
+                partner.noisy_features(0.1 if param is None else param)
+            elif kind in label_ops:
+                label_ops[kind](1.0 if param is None else param)
+        plan = faults.clip_partner_plan(faults.partner_fault_plan_from_env(),
+                                        self.partners_count)
+        self._partner_fault_plan = plan
+        for pid, specs in faults.data_fault_specs(plan).items():
+            for kind, value in specs:
+                if kind == "noisy":
+                    self.partners_list[pid].noisy_features(value)
+                else:
+                    self.partners_list[pid].flip_to_global_label(value)
+        self._data_faults_applied = True
 
     def run(self):
         self.instantiate_scenario_partners()

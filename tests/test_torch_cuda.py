@@ -1,6 +1,6 @@
 """The port on the card: K1 and K1-bf16 against their plain versions, the
-retraining sweep, SVARM, seqavg and lflip against the CPU, and fp32
-reproducibility.
+retraining sweep, SVARM, seqavg, lflip, the partner fault plan and fused
+wide steps against the CPU, and fp32 reproducibility.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from mplc_tpu_torch import constants
 from mplc_tpu_torch.contrib.contributivity import Contributivity
 from mplc_tpu_torch.contrib.reconstruct import ReconstructionEvaluator, record_updates
 from mplc_tpu_torch.convert import params_to_numpy, recorded_run_from_numpy
@@ -277,3 +278,48 @@ def test_lflip_on_the_card_matches_the_cpu(cuda):
     assert far <= 1e-4 * total
     np.testing.assert_allclose(np.stack(card.history.theta[0]),
                                np.stack(cpu.history.theta[0]), rtol=0, atol=1e-5)
+
+
+def test_k1_under_a_fault_plan_matches_the_cpu(cuda, monkeypatch):
+    """A Titanic game under `dropout@p1:epoch2,straggler@p0:delay1`, recorded
+    on the card (partner 1's epoch-2 rows exact zeros) and reconstructed
+    through K1 there, against the same game on the CPU: recordings within
+    1e-4, v(S) within one test sample."""
+    monkeypatch.setenv(constants.PARTNER_FAULT_PLAN_ENV, "dropout@p1:epoch2,straggler@p0:delay1")
+    card, cpu = _titanic_game("cuda"), _titanic_game("cpu")
+    before = trk.launches
+    card.exact_reconstructed()
+    assert trk.launches > before
+    cpu.exact_reconstructed()
+    a, b = card._reconstructor().recorded, cpu._reconstructor().recorded
+    assert (a.weights[2:, 1] == 0).all() and (a.weights[:2, 1] > 0).all()
+    for x, y in ((a.deltas, b.deltas), (a.final_params, b.final_params)):
+        for g in y:
+            for k in y[g]:
+                torch.testing.assert_close(x[g][k].cpu(), y[g][k], rtol=0, atol=1e-4)
+    n_test = len(card.scenario.dataset.x_test)
+    values = [np.array([c._reconstructor().values[s] for s in powerset_order(3)])
+              for c in (card, cpu)]
+    np.testing.assert_allclose(values[0], values[1], rtol=0, atol=1.0 / n_test + 1e-6)
+
+
+def test_straggler_and_step_width_on_the_card_match_the_cpu(cuda, monkeypatch):
+    """A Titanic recording through the engine under `straggler@p1:delay2`,
+    and a fedavg fit under MPLC_TORCH_STEP_WIDTH_MULT=2, on the card and on
+    the CPU: within 1e-4."""
+    monkeypatch.setenv(constants.PARTNER_FAULT_PLAN_ENV, "straggler@p1:delay2")
+    card, cpu = (record_updates(_titanic_game(d).engine) for d in ("cuda", "cpu"))
+    torch.testing.assert_close(card.weights.cpu(), cpu.weights, rtol=0, atol=1e-4)
+    for x, y in ((card.deltas, cpu.deltas), (card.final_params, cpu.final_params)):
+        for g in y:
+            for k in y[g]:
+                torch.testing.assert_close(x[g][k].cpu(), y[g][k], rtol=0, atol=1e-4)
+    monkeypatch.setenv(constants.STEP_WIDTH_MULT_ENV, "2")
+    game = dict(epoch_count=2, minibatch_count=2, gradient_updates_per_pass_count=3)
+    (fit_card, _), (fit_cpu, _) = (_fit("fedavg", load_titanic(), d, **game)
+                                   for d in ("cuda", "cpu"))
+    assert fit_card.cfg.step_width_mult == 2
+    for g in fit_cpu.model_params:
+        for k in fit_cpu.model_params[g]:
+            torch.testing.assert_close(fit_card.model_params[g][k].cpu(),
+                                       fit_cpu.model_params[g][k], rtol=0, atol=1e-4)

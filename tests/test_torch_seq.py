@@ -294,7 +294,7 @@ def test_seqavg_sweep_matches_jax_engine(monkeypatch):
     E = game["epoch_count"]
     jtr = jeng.multi_pipe.trainer
 
-    def batch_start(subsets, single):
+    def batch_start(subsets, single, replicas=None):
         rngs = [jeng._coalition_rng(s) for s in subsets]
         init = params_from_numpy(_stacked_np([jsc.dataset.model.init(r) for r in rngs]))
         if single:

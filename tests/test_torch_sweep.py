@@ -255,7 +255,7 @@ def _engines(monkeypatch, case, slots=False):
     E = game["epoch_count"]
     jtr = jeng.multi_pipe.trainer
 
-    def batch_start(subsets, single):
+    def batch_start(subsets, single, replicas=None):
         rngs = [jeng._coalition_rng(s) for s in subsets]
         init = params_from_numpy(_stacked_np([jsc.dataset.model.init(r) for r in rngs]))
         perms = None
