@@ -97,7 +97,22 @@ Phases, each of which fails the script (non-zero exit, no result line):
    test sample of the sweep's values, fewer than twice its batches, a
    finite trust row. (d) Titanic on the card against the CPU, within 1e-4:
    a 3-partner recording under `straggler@p1:delay2` and a fedavg fit
-   under MPLC_TORCH_STEP_WIDTH_MULT=2.
+   under MPLC_TORCH_STEP_WIDTH_MULT=2;
+15. cifar10: the CIFAR10 CNN at full width (dropout, RMSprop) on bench
+   config 2's training (5 partners split (i+1)/15, fedavg, data-volume,
+   minibatch 10, gup 8, 2 epochs cut from 8), on synthetic CIFAR10 at
+   scale 0.2 whose test set is 2,000 of the loader's training rows (the
+   loader's own test set is drawn from other class prototypes, so no
+   model scores above chance on it). (a) `Scenario(methods=["TMCS"]).run()`
+   on merged slot buckets: every value finite, v(S) in [0, 1], v(N) above
+   CIFAR_V_MIN. (b) GTG-Shapley over the grand coalition's recording (K =
+   100 rows of D = 1,250,858), K1's launches counted from 0 (it must
+   launch): the reconstructed grand coalition within 1e-4 of the recorded
+   final params, K1 against its plain version on this stream, timed at
+   B = 16. (c) A 3-partner fit on the card and on the CPU from one seed:
+   every dropout mask drawn bit-equal, final params within 1e-4. (d) The
+   recording made again, bit-equal. (e) One batch of coalitions on slots
+   and masked under the deterministic reduce: bit-equal v(S).
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -133,8 +148,10 @@ from mplc_tpu_torch.contrib.reconstruct import (ReconstructionEvaluator,  # noqa
                                                 record_updates)
 from mplc_tpu_torch.contrib.shapley import powerset_order  # noqa: E402
 from mplc_tpu_torch import constants  # noqa: E402
-from mplc_tpu_torch.data.datasets import load_mnist, load_titanic  # noqa: E402
+from mplc_tpu_torch.data.datasets import (Dataset, load_cifar10, load_mnist,  # noqa: E402
+                                          load_titanic, with_held_out_test)
 from mplc_tpu_torch.obs import numerics  # noqa: E402
+from mplc_tpu_torch.mpl import dropout  # noqa: E402
 from mplc_tpu_torch.mpl.engine import MplTrainer  # noqa: E402
 from mplc_tpu_torch.ops import cuda_build, recon_kernel  # noqa: E402
 from mplc_tpu_torch.scenario import Scenario  # noqa: E402
@@ -1496,6 +1513,224 @@ def phase_faults(card, sweep: dict, smi: str) -> dict:
     return out
 
 
+# The cifar10 phase: bench config 2's training (bench.py:508-526) at its 5
+# partners, 2 epochs cut from its 8 for the script's time; synthetic
+# CIFAR10 at scale 0.2 (10,000 rows drawn from the training prototypes, of
+# which the loader's split keeps 9,000 as training rows), 2,000 of those
+# rows the phase's test set. The noise is lowered from bench.py's 0.75:
+# within 2 epochs RMSprop at 1e-4 leaves the CNN on its plateau at noise
+# 0.45 and 0.75 (test accuracy 0.13-0.16; at 0.45 it leaves it from epoch
+# 4), at 0.1 it learns (0.80): `python3 -m mplc_tpu_torch.obs.learning_curve
+# --device cpu --scale 0.05 --test-rows 500 --noise <noise>`
+CIFAR_PARTNERS = 5
+CIFAR_SCALE = 0.2
+CIFAR_TEST_ROWS = 2000
+CIFAR_EPOCHS = 2
+CIFAR_NOISE = 0.1
+# v(N) of the TMCS sweep must pass this: half of that curve's 0.80
+CIFAR_V_MIN = 0.4
+
+
+def cifar_dataset(scale: float = CIFAR_SCALE, test_rows: int = CIFAR_TEST_ROWS) -> Dataset:
+    """The loader's training rows, the first `test_rows` of them held out
+    as the test set."""
+    return with_held_out_test(load_cifar10(scale=scale, noise=CIFAR_NOISE), test_rows)
+
+
+def cifar_scenario(dataset, methods, partners: int = CIFAR_PARTNERS, device: str = DEVICE,
+                   **game) -> Scenario:
+    """Bench config 2's training at CIFAR_EPOCHS epochs, partner i holding
+    (i+1)/sum of the data, a dry run."""
+    total = sum(range(1, partners + 1))
+    cfg = dict(multi_partner_learning_approach="fedavg", aggregation_weighting="data-volume",
+               epoch_count=CIFAR_EPOCHS, minibatch_count=10, gradient_updates_per_pass_count=8,
+               is_early_stopping=False, seed=0)
+    cfg.update(game)
+    return Scenario(partners, [(i + 1) / total for i in range(partners)], is_dry_run=True,
+                    dataset=dataset, methods=methods, device=device, **cfg)
+
+
+def cifar_sweep(dataset) -> dict:
+    """(a): the TMCS sweep through `Scenario.run()`."""
+    P = CIFAR_PARTNERS
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sc = cifar_scenario(dataset, ["TMCS"])
+    sc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    eng = sc._charac_engine
+    c = sc.contributivity_list[0]
+    table = {s: v for s, v in eng.charac_fct_values.items() if s}
+    values = np.array(list(table.values()))
+    v_all = eng.charac_fct_values.get(tuple(range(P)))
+    widths = {}
+    for b in eng.batch_log:
+        key = "single" if b["kind"] == "single" else (
+            "masked" if b["slot_count"] is None else f"{b['slot_count']} slots")
+        widths.setdefault(key, []).append([b["width"], b["coalitions"], round(b["seconds"], 3)])
+    print(f"[cifar10] CIFAR10 CNN, {P} partners, TMCS: {wall:.2f} s for Scenario.run() (fit "
+          f"{sc.mpl.learning_computation_time:.2f} s, score {sc.mpl.history.score:.4f}; TMCS "
+          f"{c.computation_time_sec:.2f} s, {len(table)} coalitions trained in "
+          f"{sum(b['seconds'] for b in eng.batch_log):.2f} s, {sc.slot_bucketing} slot buckets); "
+          f"peak memory {peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB above the "
+          f"phase's start)")
+    print(f"[cifar10] batches by slot width [width, coalitions, s]: {json.dumps(widths)}")
+    print(f"[cifar10] TMCS values {np.round(c.contributivity_scores, 4).tolist()}; v(N) "
+          f"{v_all}; v(S) " + json.dumps({",".join(map(str, s)): round(float(v), 4)
+                                          for s, v in table.items()}))
+    check(sc.slot_bucketing == "merge", f"the CIFAR10 sweep ran {sc.slot_bucketing}")
+    check(bool(np.isfinite(c.contributivity_scores).all()), "non-finite TMCS values")
+    check(bool(np.isfinite(values).all() and (values >= 0).all() and (values <= 1).all()),
+          "a CIFAR10 v(S) is not finite in [0, 1]")
+    check(v_all is not None and v_all > CIFAR_V_MIN,
+          f"v(N) = {v_all} is not above {CIFAR_V_MIN}")
+    check(recon_kernel.launches == recon_kernel.launches_bf16 == 0,
+          "the TMCS sweep launched a reconstruction kernel")
+    return {"scenario": sc, "seconds": wall, "peak_gib": peak / 2 ** 30}
+
+
+def cifar_gtg(sweep: dict, card) -> dict:
+    """(b) and (d): GTG-Shapley over the grand coalition's recording, K1's
+    launches counted from 0; K1 on this stream; the recording again."""
+    sc = sweep["scenario"]
+    P = CIFAR_PARTNERS
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    recon_kernel.launch_widths = {}
+    t0 = time.perf_counter()
+    c = Contributivity(sc)
+    c.compute_contributivity("GTG-Shapley")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, bf16 = recon_kernel.launches, recon_kernel.launches_bf16
+    widths = dict(sorted(recon_kernel.launch_widths.items()))
+    recon = c._reconstructor()
+    eng, rec = recon.engine, recon.recorded
+    K, Dp = recon._d2.shape
+    D = sum(t[0].numel() for d in rec.deltas.values() for t in d.values()) // P
+    grand = recon_kernel.reconstruct_batch(torch.ones(1, P, device=DEVICE), rec.init_params,
+                                           rec.deltas, rec.weights, "fp32")
+    err = max((grand[g][k][0] - rec.final_params[g][k]).abs().max().item()
+              for g in grand for k in grand[g])
+    gtg = c.contributivity_scores
+    print(f"[cifar10] GTG-Shapley over the recording: {wall:.2f} s (recording included), "
+          f"{recon.reconstructions} coalitions reconstructed; values "
+          f"{np.round(gtg, 4).tolist()}; launches {recon_kernel.KERNEL} {launches}, "
+          f"{recon_kernel.KERNEL_BF16} {bf16}; by batch width {json.dumps(widths)}; stream K = "
+          f"{K}, D = {D} (Dp {Dp}), {recon._d2.numel() * recon._d2.element_size() / 1e9:.3f} "
+          f"GB; reconstructed grand coalition vs recorded final params: max abs err "
+          f"{err:.3g} (bound 1e-4)")
+    check(launches > 0, "the CIFAR10 GTG query never launched K1")
+    check(bf16 == 0, "the fp32 CIFAR10 query launched K1-bf16")
+    check(K == CIFAR_EPOCHS * 10 * P and D == 1_250_858,
+          f"the CIFAR10 stream is {K} x {D}, not {CIFAR_EPOCHS * 10 * P} x 1250858")
+    check(err <= 1e-4, "the reconstructed grand coalition differs from the recording's "
+                       "final params")
+    check(bool(np.isfinite(gtg).all()), "non-finite GTG-Shapley values")
+    check_same_recording(rec, record_updates(eng), "cifar10")
+    subsets = powerset_order(P)[:15] + [()]
+    masks = torch.from_numpy(eng._coalition_arrays(subsets)).to(DEVICE)
+    wn2 = recon_kernel.normalized_round_weights(masks, recon._weights).reshape(16, -1)
+    entry = kernel_entry(recon_kernel.KERNEL, wn2.contiguous(), recon._d2, recon._init,
+                         sum(n for w, n in widths.items() if w <= 16), card)
+    entry["name"] = f"{recon_kernel.KERNEL}[cifar10 B=16]"
+    entry["launch_widths"] = widths
+    print(f"[kernels] {entry['name']} {entry['shape']}: {entry['ms']:.4f} ms (plain "
+          f"{entry['plain_ms']:.4f}, {entry['library']} {entry['library_ms']:.4f}, bound "
+          f"{entry['bound_ms']:.4f} by {entry['bound_by']}), max abs err "
+          f"{entry['max_abs_err']:.3g}, {entry['launches']} launches")
+    return {"launches": launches, "widths": widths, "entry": entry, "seconds": wall}
+
+
+def cifar_card_vs_cpu(dataset) -> float:
+    """(c): a 3-partner fit of a few hundred rows for one epoch on the card
+    and on the CPU from one seed: the masks every step drew, and the final
+    params."""
+    small = Dataset(dataset.name, dataset.input_shape, dataset.num_classes,
+                    dataset.x_train[:400], dataset.y_train[:400], dataset.x_test[:100],
+                    dataset.y_test[:100], model=dataset.model)
+    drawn = {}
+    step_masks = dropout.step_masks
+    t0 = time.perf_counter()
+    fits = []
+    for device in (DEVICE, "cpu"):
+        drawn[device] = []
+
+        def record(*args, _log=drawn[device]):
+            masks = step_masks(*args)
+            _log.append([m.cpu() for m in masks])
+            return masks
+        dropout.step_masks = record
+        try:
+            fits.append(fit_on(device, "fedavg", small, epoch_count=1, minibatch_count=2,
+                               gradient_updates_per_pass_count=2))
+        finally:
+            dropout.step_masks = step_masks
+    card, cpu = drawn[DEVICE], drawn["cpu"]
+    same = sum(torch.equal(a, b) for x, y in zip(card, cpu) for a, b in zip(x, y))
+    total = sum(len(x) for x in cpu)
+    elements = sum(m.numel() for x in cpu for m in x)
+    err = max((fits[0].model_params[g][k].cpu() - fits[1].model_params[g][k]).abs().max().item()
+              for g in fits[1].model_params for k in fits[1].model_params[g])
+    wall = time.perf_counter() - t0
+    print(f"[cifar10] 3-partner fit, card vs cpu: {same} of {total} step masks bit-equal "
+          f"({len(cpu)} steps, {elements} mask elements, keep share "
+          f"{sum(int(m.sum()) for x in cpu for m in x) / max(elements, 1):.4f}); final params "
+          f"max abs err {err:.3g} (bound 1e-4); {wall:.2f} s")
+    check(total > 0 and len(card) == len(cpu) and same == total,
+          "the card and the CPU drew other dropout masks")
+    check(err <= 1e-4, "the card's and the CPU's CIFAR10 fits differ by more than 1e-4")
+    return wall
+
+
+def cifar_slots_vs_masks(sweep: dict) -> float:
+    """(e): the first 16 multi-partner coalitions in one batch, on slots
+    (3 wide) and masked, under the deterministic reduce: bit-equal v(S)."""
+    eng = sweep["scenario"]._charac_engine
+    P = CIFAR_PARTNERS
+    subsets = [s for s in powerset_order(P) if 1 < len(s) <= 3][:16]
+    t0 = time.perf_counter()
+    values = []
+    for slots in (None, 3):
+        cfg = dataclasses.replace(eng._multi_cfg, deterministic_reduce=True, slot_count=slots)
+        tr = MplTrainer(eng.model, cfg)
+        gens = [eng.coalition_generator(s) for s in subsets]
+        state = tr.init_state(gens, P, DEVICE)
+        coal = torch.from_numpy(eng._coalition_arrays(subsets, slots)).to(DEVICE)
+        tr.epoch_chunk(state, eng.stacked, eng.val, coal, gens, cfg.epoch_count)
+        values.append(tr.finalize(state, eng.test)[1].cpu().numpy())
+    wall = time.perf_counter() - t0
+    masked, slotted = values
+    same = sum(numerics.float_bits(a) == numerics.float_bits(b) for a, b in zip(masked, slotted))
+    print(f"[cifar10] deterministic reduce, {len(subsets)} coalitions on 3 slots and masked: "
+          f"{same} of {len(subsets)} v(S) bit-equal, max diff "
+          f"{float(np.abs(masked - slotted).max()):.4f}; v(S) {np.round(slotted, 4).tolist()}; "
+          f"{wall:.2f} s")
+    check(same == len(subsets), "under the deterministic reduce CIFAR10 slot and masked v(S) "
+                                "differ")
+    return wall
+
+
+def phase_cifar10(card, smi: str) -> dict:
+    """The CIFAR10 CNN on bench config 2's training: the TMCS sweep, a
+    GTG-Shapley query through K1, the card against the CPU, the recording
+    twice and slots against masks."""
+    t0 = time.perf_counter()
+    dataset = cifar_dataset()
+    data_s = time.perf_counter() - t0
+    sweep = cifar_sweep(dataset)
+    out = cifar_gtg(sweep, card)
+    seconds = {"data": data_s, "TMCS sweep": sweep["seconds"], "GTG": out["seconds"],
+               "card vs cpu": cifar_card_vs_cpu(dataset),
+               "slots vs masks": cifar_slots_vs_masks(sweep)}
+    print(f"[cifar10] seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})}, "
+          f"peak memory {sweep['peak_gib']:.2f} GiB in the sweep, on {smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1540,6 +1775,17 @@ def main() -> int:
                 faults["launches"] if B == 64 else
                 sum(n for w, n in faults["widths"].items() if w <= B))
             e["launch_widths_faults"] = faults["widths"]
+    cifar = phase_cifar10(card, smi)
+    for e in kernels:
+        if e["name"].startswith(recon_kernel.KERNEL + "[") or e["name"] == recon_kernel.KERNEL:
+            B = e["shape"]["B"]
+            e["launches_by_path"]["cifar10"] = (
+                cifar["launches"] if B == 64 else
+                sum(n for w, n in cifar["widths"].items() if w <= B))
+            e["launch_widths_cifar10"] = cifar["widths"]
+    entry = cifar["entry"]
+    entry["launches_by_path"] = {"cifar10": entry["launches"]}
+    kernels.append(entry)
 
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

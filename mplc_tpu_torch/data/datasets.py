@@ -7,8 +7,8 @@ hooks the basic partitioner calls. The synthetic loaders draw the same
 numpy streams as the JAX package's, so their arrays are byte-equal for the
 same `scale`.
 
-Only the synthetic paths are ported (no `mnist.npz` / Titanic CSV cache
-lookup yet). The port does not depend on scikit-learn: `train_test_split`
+Only the synthetic paths are ported (no `mnist.npz` / `cifar10.npz` /
+Titanic CSV cache lookup yet: ROADMAP.md queue 1). The port does not depend on scikit-learn: `train_test_split`
 below reproduces scikit-learn's shuffle split (one `RandomState`
 permutation, the first ceil(test_size * n) indices are the test rows), and
 the MNIST prototypes are the JAX package's sklearn-digits prototypes,
@@ -107,6 +107,56 @@ def load_mnist(scale: float | None = None, noise: float = 0.45) -> Dataset:
                    provenance="synthetic:sklearn-digits-prototypes")
 
 
+def synthetic_image_classification(rng: np.random.Generator, n: int,
+                                   shape: tuple, num_classes: int,
+                                   signal: float = 1.0, noise: float = 0.35
+                                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Class-prototype images plus Gaussian noise, drawn from `rng` as the
+    JAX package draws them: new prototypes every call (smoothed by a roll
+    along each spatial axis), then the labels, then the noise."""
+    protos = rng.uniform(0.0, 1.0, size=(num_classes,) + tuple(shape)).astype(np.float32)
+    if len(shape) == 3:
+        protos = 0.5 * protos + 0.25 * np.roll(protos, 1, axis=1) + 0.25 * np.roll(protos, 1, axis=2)
+    y = rng.integers(0, num_classes, size=n)
+    x = protos[y] * signal + rng.normal(0.0, noise, size=(n,) + tuple(shape)).astype(np.float32)
+    return np.clip(x, 0.0, 1.0).astype(np.float32), y.astype(np.int64)
+
+
+def load_cifar10(scale: float | None = None, noise: float = 0.45) -> Dataset:
+    """Synthetic CIFAR10 (the JAX package's route without a `cifar10.npz`
+    cache, the only one ported so far): `scale` x 50000 train and x 10000
+    test 32x32x3 images, two `synthetic_image_classification` calls on one
+    generator (seed 43, signal 0.8).
+
+    The second call draws prototypes of its own, so the test set's classes
+    are not the training set's: a classifier fitted on the training rows
+    scores chance on it, whatever it learns (ROADMAP.md, reference
+    caveats). The validation rows come from the training set."""
+    scale = constants.synth_scale() if scale is None else scale
+    rng = np.random.default_rng(43)
+    n_train = int(50000 * scale)
+    n_test = int(10000 * scale)
+    x_train, y_train = synthetic_image_classification(rng, n_train, (32, 32, 3), 10,
+                                                      signal=0.8, noise=noise)
+    x_test, y_test = synthetic_image_classification(rng, n_test, (32, 32, 3), 10,
+                                                    signal=0.8, noise=noise)
+    return Dataset(constants.CIFAR10, (32, 32, 3), 10,
+                   x_train, to_categorical(y_train, 10),
+                   x_test, to_categorical(y_test, 10),
+                   model=model_zoo.CIFAR10_CNN, provenance="synthetic:prototype-noise")
+
+
+def with_held_out_test(dataset: Dataset, rows: int) -> Dataset:
+    """A Dataset whose test set is the first `rows` of `dataset`'s training
+    rows (already shuffled by its train/val split) and whose training
+    rows are the rest, split 90/10 into train and val anew. For a loader
+    whose own test set scores nothing, as `load_cifar10`'s."""
+    return Dataset(dataset.name, dataset.input_shape, dataset.num_classes,
+                   dataset.x_train[rows:], dataset.y_train[rows:],
+                   dataset.x_train[:rows], dataset.y_train[:rows], model=dataset.model,
+                   provenance=f"{dataset.provenance}, test = {rows} training rows")
+
+
 def load_titanic() -> Dataset:
     """Synthetic 27-feature Titanic with a planted logistic rule."""
     rng = np.random.default_rng(44)
@@ -124,6 +174,7 @@ def load_titanic() -> Dataset:
 
 DATASET_LOADERS = {
     constants.MNIST: load_mnist,
+    constants.CIFAR10: load_cifar10,
     constants.TITANIC: load_titanic,
 }
 

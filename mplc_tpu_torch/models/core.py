@@ -1,19 +1,34 @@
-"""The Model contract and the optimizer (port of `mplc_tpu/models/core.py`).
+"""The Model contract and the optimizers (port of `mplc_tpu/models/core.py`).
 
 A model is a frozen bundle of pure functions over a parameter dict:
 `init(generator)` builds the parameters on the CPU, `apply(params, x,
-compute_dtype=torch.float32)` maps a batch to float32 logits, computing in
-`compute_dtype`. Because parameters are plain dicts of
+compute_dtype=torch.float32, dropout=None)` maps a batch to float32
+logits, computing in `compute_dtype`. Because parameters are plain dicts of
 tensors, a stack of per-partner or per-coalition replicas is the same dict
 with a leading axis, driven by `torch.func.vmap`.
+
+An optimizer is a frozen dataclass with `init(params) -> state` and
+`step(params, grads, state) -> (params, state)`; its state is a dict of
+parameter-shaped trees plus the step `count` (an int), so a trainer can
+freeze or reset every tree entry alike.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Protocol
 
 import torch
+
+
+def _zeros(tree: dict) -> dict:
+    return {g: {k: torch.zeros_like(t) for k, t in d.items()} for g, d in tree.items()}
+
+
+class Optimizer(Protocol):
+    def init(self, params: dict) -> dict: ...
+
+    def step(self, params: dict, grads: dict, state: dict) -> tuple[dict, dict]: ...
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,9 +45,7 @@ class Adam:
     eps: float = 1e-7
 
     def init(self, params: dict) -> dict:
-        zeros = lambda tree: {g: {k: torch.zeros_like(t) for k, t in d.items()}  # noqa: E731
-                              for g, d in tree.items()}
-        return {"mu": zeros(params), "nu": zeros(params), "count": 0}
+        return {"mu": _zeros(params), "nu": _zeros(params), "count": 0}
 
     def step(self, params: dict, grads: dict, state: dict) -> tuple[dict, dict]:
         count = state["count"] + 1
@@ -54,17 +67,48 @@ class Adam:
 
 
 @dataclasses.dataclass(frozen=True)
+class RMSprop:
+    """RMSprop as optax 0.2.6's `rmsprop(lr, decay, eps)` computes it (eps
+    inside the square root, no bias correction, no momentum):
+    `nu = (1 - decay) g^2 + decay nu`, `p - lr * g * rsqrt(nu + eps)`.
+    Not `torch.optim.RMSprop`, which adds eps outside the square root.
+    `count` counts steps and changes nothing."""
+
+    learning_rate: float = 1e-4
+    decay: float = 0.9
+    eps: float = 1e-7
+
+    def init(self, params: dict) -> dict:
+        return {"nu": _zeros(params), "count": 0}
+
+    def step(self, params: dict, grads: dict, state: dict) -> tuple[dict, dict]:
+        new_p, nu = {}, {}
+        for g, d in params.items():
+            new_p[g], nu[g] = {}, {}
+            for k, p in d.items():
+                grad = grads[g][k]
+                v = (1 - self.decay) * (grad * grad) + self.decay * state["nu"][g][k]
+                upd = torch.rsqrt(v + self.eps) * grad
+                new_p[g][k] = p + (-self.learning_rate) * upd
+                nu[g][k] = v
+        return new_p, {"nu": nu, "count": state["count"] + 1}
+
+
+@dataclasses.dataclass(frozen=True)
 class Model:
     """A pure-functional model family.
 
     Attributes:
         name: model family tag.
         init: torch.Generator -> params dict (float32, on the CPU).
-        apply: (params, x, compute_dtype) -> logits (float32).
+        apply: (params, x, compute_dtype, dropout) -> logits (float32);
+            `dropout` is None (evaluation) or one keep mask a dropout layer.
         loss_kind: "categorical" (softmax CE over one-hot labels) or
             "binary" (sigmoid CE over a single logit).
         num_outputs: logits dimensionality (1 for binary).
-        optimizer: the Adam settings every partner pass starts afresh.
+        optimizer: the optimizer every partner pass starts afresh.
+        dropout: (rate, per-sample shape) of each dropout layer, in the
+            order `apply` takes their masks; () for a model without.
     """
 
     name: str
@@ -72,7 +116,8 @@ class Model:
     apply: Callable[..., torch.Tensor]
     loss_kind: str
     num_outputs: int
-    optimizer: Adam
+    optimizer: Optimizer
+    dropout: tuple = ()
 
     def label_dim(self) -> int:
         """Width of the label array fed to the loss (one-hot width, or 1)."""

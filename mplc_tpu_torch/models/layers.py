@@ -40,13 +40,28 @@ def conv2d_init(generator: torch.Generator, kh: int, kw: int, cin: int,
             "b": torch.zeros((cout,), dtype=torch.float32)}
 
 
-def conv2d(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """VALID, stride-1 convolution: NHWC input, HWIO kernel, NHWC output."""
+def conv2d(params: dict, x: torch.Tensor, padding: str = "VALID") -> torch.Tensor:
+    """Stride-1 convolution: NHWC input, HWIO kernel, NHWC output. "SAME"
+    of an odd kernel (the ported models' only kind) pads (k - 1) / 2 on
+    each side of each spatial axis, as `lax.conv_general_dilated` does."""
+    kh, kw = params["w"].shape[:2]
+    pad = ((kh - 1) // 2, (kw - 1) // 2) if padding == "SAME" else 0
     out = F.conv2d(x.permute(0, 3, 1, 2), params["w"].permute(3, 2, 0, 1),
-                   params["b"])
+                   params["b"], padding=pad)
     return out.permute(0, 2, 3, 1)
 
 
 def max_pool_2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """VALID max-pool over the spatial axes of an NHWC tensor."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), window).permute(0, 2, 3, 1)
+
+
+def dropout(x: torch.Tensor, keep_mask: torch.Tensor | None, rate: float) -> torch.Tensor:
+    """Inverted dropout under a given keep mask (bool, x's shape), as the
+    JAX package's `jnp.where(mask, x / keep, 0)`; no mask (evaluation) is
+    the identity. The mask is an argument, never drawn here, so a vmapped
+    forward takes one mask a model."""
+    if keep_mask is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    return torch.where(keep_mask, x / keep, 0.0)

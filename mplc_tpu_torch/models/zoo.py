@@ -1,11 +1,14 @@
-"""The model families of this slice (port of `mplc_tpu/models/zoo.py`):
-the MNIST CNN at its published width and the Titanic logistic regression.
-CIFAR10, IMDB and ESC50 come with a later slice (ROADMAP.md).
+"""The ported model families (port of `mplc_tpu/models/zoo.py`): the MNIST
+CNN and the CIFAR10 CNN at their published widths and the Titanic logistic
+regression. IMDB and ESC50 come with a later slice (ROADMAP.md).
 
 Every `apply` takes `compute_dtype`: the parameters and the input are cast
 to it inside `apply` and the logits come back float32, so the carried
 parameters never leave float32 and their gradient through the cast is
 float32. Under float32 the casts are no-ops and the function is unchanged.
+Every `apply` also takes `dropout`: None in evaluation, else one keep mask
+a layer of the model's `dropout` table (the CIFAR10 CNN's three; the
+others have none and ignore it).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import layers as L
-from .core import Adam, Model
+from .core import Adam, Model, RMSprop
 
 
 # ---------------------------------------------------------------------------
@@ -33,7 +36,7 @@ def _cast(params: dict, dtype: torch.dtype) -> dict:
     return {g: {k: t.to(dtype) for k, t in d.items()} for g, d in params.items()}
 
 
-def _mnist_apply(params, x, compute_dtype=torch.float32):
+def _mnist_apply(params, x, compute_dtype=torch.float32, dropout=None):
     p = _cast(params, compute_dtype)
     h = torch.relu(L.conv2d(p["c1"], x.to(compute_dtype)))
     h = torch.relu(L.conv2d(p["c2"], h))
@@ -41,6 +44,41 @@ def _mnist_apply(params, x, compute_dtype=torch.float32):
     # NHWC flatten, as the JAX model: d1's input rows are (h, w, c)-ordered
     h = h.reshape(h.shape[0], -1)
     h = torch.relu(L.dense(p["d1"], h))
+    return L.dense(p["d2"], h).float()
+
+
+# ---------------------------------------------------------------------------
+# CIFAR10 CNN: [conv32 same, conv32, pool, drop.25] x2 (64), dense512, drop.5
+# ---------------------------------------------------------------------------
+
+# (rate, per-sample NHWC shape) of each dropout layer, in the order of
+# `_cifar_apply`'s masks
+CIFAR10_DROPOUT = ((0.25, (15, 15, 32)), (0.25, (6, 6, 64)), (0.5, (512,)))
+
+
+def _cifar_init(generator: torch.Generator) -> dict:
+    return {
+        "c1": L.conv2d_init(generator, 3, 3, 3, 32),
+        "c2": L.conv2d_init(generator, 3, 3, 32, 32),
+        "c3": L.conv2d_init(generator, 3, 3, 32, 64),
+        "c4": L.conv2d_init(generator, 3, 3, 64, 64),
+        "d1": L.dense_init(generator, 6 * 6 * 64, 512),
+        "d2": L.dense_init(generator, 512, 10),
+    }
+
+
+def _cifar_apply(params, x, compute_dtype=torch.float32, dropout=None):
+    p = _cast(params, compute_dtype)
+    m1, m2, m3 = dropout if dropout is not None else (None, None, None)
+    (r1, _), (r2, _), (r3, _) = CIFAR10_DROPOUT
+    h = torch.relu(L.conv2d(p["c1"], x.to(compute_dtype), padding="SAME"))
+    h = torch.relu(L.conv2d(p["c2"], h))
+    h = L.dropout(L.max_pool_2d(h), m1, r1)
+    h = torch.relu(L.conv2d(p["c3"], h, padding="SAME"))
+    h = torch.relu(L.conv2d(p["c4"], h))
+    h = L.dropout(L.max_pool_2d(h), m2, r2)
+    h = h.reshape(h.shape[0], -1)
+    h = L.dropout(torch.relu(L.dense(p["d1"], h)), m3, r3)
     return L.dense(p["d2"], h).float()
 
 
@@ -55,17 +93,22 @@ def _titanic_init(generator: torch.Generator) -> dict:
     return {"d1": L.dense_init(generator, TITANIC_NUM_FEATURES, 1)}
 
 
-def _titanic_apply(params, x, compute_dtype=torch.float32):
+def _titanic_apply(params, x, compute_dtype=torch.float32, dropout=None):
     p = _cast(params, compute_dtype)
     return L.dense(p["d1"], x.to(compute_dtype)).float()
 
 
 MNIST_CNN = Model("mnist_cnn", _mnist_init, _mnist_apply, "categorical", 10,
                   Adam(1e-3))
+# the reference compiles RMSprop(lr=1e-4, decay=1e-6), whose Keras decay is
+# a learning-rate schedule; the JAX package drops it, as does the port
+CIFAR10_CNN = Model("cifar10_cnn", _cifar_init, _cifar_apply, "categorical", 10,
+                    RMSprop(1e-4, decay=0.9, eps=1e-7), dropout=CIFAR10_DROPOUT)
 TITANIC_LOGREG = Model("titanic_logreg", _titanic_init, _titanic_apply,
                        "binary", 1, Adam(5e-2))
 
-MODELS = {"mnist_cnn": MNIST_CNN, "titanic_logreg": TITANIC_LOGREG}
+MODELS = {"mnist_cnn": MNIST_CNN, "cifar10_cnn": CIFAR10_CNN,
+          "titanic_logreg": TITANIC_LOGREG}
 
 
 def _conv2d_flops(h_out: int, w_out: int, kh: int, kw: int,
@@ -87,6 +130,15 @@ def fwd_flops_per_sample(model_name: str) -> int | None:
                 + _conv2d_flops(24, 24, 3, 3, 32, 64)
                 + _dense_flops(12 * 12 * 64, 128)
                 + _dense_flops(128, 10))
+    if model_name == "cifar10_cnn":
+        # 32x32x3: conv same 32x32x32, conv 30x30x32, pool 15x15;
+        # conv same 15x15x64, conv 13x13x64, pool 6x6
+        return (_conv2d_flops(32, 32, 3, 3, 3, 32)
+                + _conv2d_flops(30, 30, 3, 3, 32, 32)
+                + _conv2d_flops(15, 15, 3, 3, 32, 64)
+                + _conv2d_flops(13, 13, 3, 3, 64, 64)
+                + _dense_flops(6 * 6 * 64, 512)
+                + _dense_flops(512, 10))
     if model_name == "titanic_logreg":
         return _dense_flops(TITANIC_NUM_FEATURES, 1)
     return None

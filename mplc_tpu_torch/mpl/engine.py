@@ -8,7 +8,7 @@ the port's counterpart of the JAX package's vmap of `init_state`,
 of every coalition is one `torch.func.vmap` over `grad_and_value` of the
 functional forward, on parameters stacked `[B*P, ...]`. A coalition is a
 length-P 0/1 mask row that multiplies every per-sample loss mask (inactive
-partners get exactly-zero gradients, hence exactly-zero Adam updates) and
+partners get exactly-zero gradients, hence exactly-zero optimizer updates) and
 gates the aggregation weights. Under slot execution (`slot_count`) a
 coalition is a row of K partner ids instead, -1 marking an unused slot,
 and only its K slots train: the JAX package's `_fedavg_slot_epoch`, here
@@ -22,7 +22,7 @@ Loop semantics kept from the JAX package:
     compares val_loss[e, 0] with val_loss[e - patience, 0]; the remainder
     of n_p mod minibatch_count samples is dropped per epoch;
   - seq-pure / seq-with-final-agg / seqavg: per minibatch a random visit
-    order of the partners, the coalition's members first; one Adam state
+    order of the partners, the coalition's members first; one optimizer state
     carried along the chain, advanced only by member visits; each member
     trains the running params and leaves them in its `partner_stack` row
     (which starts each epoch at the epoch-start params). seqavg aggregates
@@ -35,7 +35,7 @@ Loop semantics kept from the JAX package:
     `theta_h` at the end of every epoch;
   - single (`approach="single"`, one active partner a coalition):
     minibatch_count x gradient_updates_per_pass steps of one persistent
-    Adam per epoch over the partner's shuffled rows, then a val eval, with
+    optimizer per epoch over the partner's shuffled rows, then a val eval, with
     Keras-style early stopping (no improvement of the val loss for
     `patience` epochs);
   - a coalition that has stopped is frozen (`torch.where`, the JAX
@@ -45,7 +45,7 @@ Loop semantics kept from the JAX package:
     ceil(gup / k) steps, step g on the base windows g*k .. g*k+k-1 at once;
   - partner faults (`partner_drop_epochs`, `partner_straggler_delays`;
     fedavg and single): a dropped partner trains on zeroed loss masks and
-    weighs nothing from its drop epoch on (single: params and Adam state
+    weighs nothing from its drop epoch on (single: params and optimizer state
     frozen), a straggler's pass starts from the global params of `delay`
     rounds ago (`TrainState.stale`), a round without survivors keeps the
     global params.
@@ -54,14 +54,21 @@ Randomness: each epoch's draws of a coalition come from its own
 `torch.Generator` (a CPU generator, so a run is the same on every device),
 in this order: the permutations of every partner's rows, then the seq
 family's visit-order keys [MB, P] or lflip's label-draw uniforms
-[MB, P, mb_cap]; or they are injected as `EpochStreams` (the tests feed
-the JAX package's). The visit-order keys are drawn for all P partners
-whatever the coalition, so slots and masks visit the members in the same
-order. The ported models have no dropout, so these draws and the initial
-parameters are the only randomness.
+[MB, P, mb_cap], then, for a model with dropout, one 64-bit dropout key;
+or they are injected as `EpochStreams` (the tests feed the JAX
+package's). The visit-order keys are drawn for all P partners whatever
+the coalition, so slots and masks visit the members in the same order.
+A training step's dropout keep masks are a hash (mpl/dropout.py) of the
+epoch key and the coordinates the JAX package folds into its step keys:
+(1, minibatch, global partner id, step) for fedavg, masked and on slots
+alike, with 7 before the step for lflip's pass; (1, minibatch, visit
+position + 1, step) for the seq family; (step + 1) for the single
+trainer. They are computed on the run's device, or injected
+(`EpochStreams.dropout_masks`). A model without dropout draws no key, so
+its runs are those of a port without dropout. Evaluation never drops.
 
 Precision (`TrainConfig.precision`): the model computes in `cfg.dtype`
-(bf16 under `mixed` and `bf16`); parameters, Adam state, aggregation
+(bf16 under `mixed` and `bf16`); parameters, optimizer state, aggregation
 weights and the recorded deltas stay float32 in every mode.
 """
 
@@ -77,6 +84,7 @@ from .. import constants
 from ..models.core import Model
 from ..ops.aggregation import AGGREGATOR_NAMES, aggregate, aggregation_weights
 from ..ops.metrics import masked_loss_and_metrics
+from . import dropout as drop_masks
 
 APPROACH_NAMES = ("fedavg", "seq-pure", "seq-with-final-agg", "seqavg", "lflip", "single")
 SEQ_APPROACHES = ("seq-pure", "seq-with-final-agg", "seqavg")
@@ -110,7 +118,7 @@ class TrainConfig:
     # MPLC_TORCH_PRECISION mode (constants.py): fp32 | mixed | bf16. None
     # resolves it from the environment at construction; the resolved mode
     # is frozen into the config. mixed and bf16 compute the model in bf16;
-    # parameters, Adam state, aggregation and the recorded stream stay
+    # parameters, optimizer state, aggregation and the recorded stream stay
     # float32 in every mode.
     precision: str | None = None
     # slot execution (fedavg and seq coalition sweeps): train `slot_count` partner
@@ -122,8 +130,11 @@ class TrainConfig:
     slot_count: int | None = None
     # MPLC_TORCH_DETERMINISTIC_REDUCE (constants.py): every aggregation
     # folds its normalizer and weighted sum left to right in partner order
-    # (ops/aggregation.py `ordered_fold`). None resolves it from the
-    # environment at construction; the resolved value is frozen in.
+    # (ops/aggregation.py `ordered_fold`), and a fedavg pass takes its
+    # gradients (and partner val scores) one slot column of the B runs at
+    # a time, so masks and slots compute each model alike on the card. None
+    # resolves it from the environment at construction; the resolved value
+    # is frozen in.
     deterministic_reduce: bool | None = None
     # MPLC_TORCH_STEP_WIDTH_MULT (constants.py): fused step g of a
     # multi-partner pass covers the base sub-batch windows g*k .. g*k+k-1
@@ -137,7 +148,7 @@ class TrainConfig:
     #   partner_drop_epochs[p]      1-based epoch from which partner p is
     #       gone for good (0: never): exactly-zero gradients and zero
     #       aggregation weight, so FedAvg renormalizes over the survivors
-    #       (the single trainer freezes its params and Adam state instead);
+    #       (the single trainer freezes its params and optimizer state instead);
     #   partner_straggler_delays[p] partner p's local pass starts from the
     #       global params of that many aggregation rounds ago (0: the
     #       current ones), kept in `TrainState.stale`; its result joins the
@@ -213,7 +224,7 @@ class TrainState:
     best_val_loss: torch.Tensor   # [B] ('single' early stopping)
     es_wait: torch.Tensor         # [B] int64 ('single' early stopping)
     epoch: int = 0           # next epoch index of the runs still training
-    opt_state: dict | None = None    # persistent Adam state ('single' only)
+    opt_state: dict | None = None    # persistent optimizer state ('single' only)
     upd_h: dict | None = None        # [B, R, P, ...] recorded deltas
     w_h: torch.Tensor | None = None  # [B, R, P] recorded weights
     theta: torch.Tensor | None = None    # [B, P, K, K] label-flip matrices (lflip)
@@ -238,10 +249,26 @@ class TrainState:
 
 class EpochStreams(NamedTuple):
     """One epoch's random draws of B runs, injected in place of their
-    generators' (or, each field with an epoch axis after B, a chunk's)."""
+    generators' (or, each field with an epoch axis after B, a chunk's).
+    A model with dropout needs `dropout_key` or `dropout_masks`; the masks,
+    one bool tensor a dropout layer, lead with [B, MB, P, S] (fedavg and
+    lflip: by global partner id and step), [B, MB, V, S] (the seq family:
+    by visit position) or [B, S] (single), then the step window's rows and
+    the layer's per-sample shape."""
     perms: torch.Tensor                     # [B, P, Nmax] ('single': [B, Nmax])
     order_keys: torch.Tensor | None = None  # [B, MB, P] seq visit-order keys
     flip_u: torch.Tensor | None = None      # [B, MB, P, mb_cap] lflip uniforms
+    dropout_key: torch.Tensor | None = None  # [B, 2] int64 dropout keys
+    dropout_masks: tuple | None = None       # per layer, see above
+
+
+def _stream_map(fn, t):
+    """fn over a stream field: a tensor, a tuple of tensors or None."""
+    if t is None:
+        return None
+    if isinstance(t, tuple):
+        return tuple(fn(m) for m in t)
+    return fn(t)
 
 
 def epoch_streams(streams_all, i: int):
@@ -250,7 +277,7 @@ def epoch_streams(streams_all, i: int):
     if streams_all is None:
         return None
     if isinstance(streams_all, EpochStreams):
-        return EpochStreams(*(None if t is None else t[:, i] for t in streams_all))
+        return EpochStreams(*(_stream_map(lambda t: t[:, i], f) for f in streams_all))
     return streams_all[:, i]
 
 
@@ -276,6 +303,18 @@ def _keep_frozen(frozen: torch.Tensor, old, new):
     if isinstance(old, dict):
         return _tree_map(lambda o, n: torch.where(_rows(frozen, n), o, n), old, new)
     return torch.where(_rows(frozen, new), old, new)
+
+
+def _keep_frozen_opt(frozen: torch.Tensor, old: dict, new: dict) -> dict:
+    """An optimizer state `new` with the frozen runs' rows of every tree
+    entry taken from `old`; `count` is new's."""
+    return {k: v if k == "count" else _keep_frozen(frozen, old[k], v)
+            for k, v in new.items()}
+
+
+def _column(t: torch.Tensor, W: int, w: int) -> torch.Tensor:
+    """Column w of a run-major [B*W, ...] stack: its B rows w, W + w, ..."""
+    return t.reshape((t.shape[0] // W, W) + t.shape[1:])[:, w].contiguous()
 
 
 def _write(view: torch.Tensor, value, frozen: torch.Tensor) -> None:
@@ -406,23 +445,43 @@ class MplTrainer:
         elif cfg.approach == "lflip":
             extra = "flip_u", (cfg.minibatch_count, mask.shape[1],
                                max(mask.shape[-1] // cfg.minibatch_count, 1))
+        dropout = bool(self.model.dropout)
         if streams is None:
-            perms, drawn = [], []
+            perms, drawn, keys = [], [], []
             for g, m in zip(generators, mask.cpu()):
                 perms.append(self.epoch_perms(g, m))
                 if extra is not None:
                     drawn.append(torch.rand(extra[1], generator=g))
+                if dropout:
+                    keys.append(drop_masks.draw_key(g))
             streams = EpochStreams(torch.stack(perms))
             if extra is not None:
                 streams = streams._replace(**{extra[0]: torch.stack(drawn)})
+            if dropout:
+                streams = streams._replace(dropout_key=torch.stack(keys))
         elif not isinstance(streams, EpochStreams):
             streams = EpochStreams(streams)
         if extra is not None and getattr(streams, extra[0]) is None:
             raise ValueError(f"injected streams of a '{cfg.approach}' run need "
                              f"{extra[0]}")
-        return EpochStreams(*(None if t is None else
-                              t.to(dev, torch.int64 if i == 0 else torch.float32)
-                              for i, t in enumerate(streams)))
+        if dropout and streams.dropout_key is None and streams.dropout_masks is None:
+            raise ValueError(f"injected streams of a run of {self.model.name}, which "
+                             "has dropout, need dropout_key or dropout_masks")
+        dtypes = (torch.int64, torch.float32, torch.float32, torch.int64, torch.bool)
+        return EpochStreams(*(_stream_map(lambda t, d=d: t.to(dev, d), f)
+                              for f, d in zip(streams, dtypes)))
+
+    def _step_masks(self, draws: EpochStreams, rows: int, coords: tuple, pick):
+        """The keep masks of a run's steps, one per dropout layer (() for a
+        model without): drawn from the epoch keys at `coords`
+        (`dropout.stream_seeds`; the masks lead with its broadcast shape),
+        or, where injected, `pick` of each injected mask."""
+        layers = self.model.dropout
+        if not layers:
+            return ()
+        if draws.dropout_masks is not None:
+            return tuple(pick(m) for m in draws.dropout_masks)
+        return drop_masks.step_masks(draws.dropout_key, rows, layers, *coords)
 
     def _step_rows(self, sizes, g: int, sb_cap: int):
         """(row offsets within the minibatch, samples per minibatch,
@@ -465,22 +524,46 @@ class MplTrainer:
         return torch.clamp(ids.long(), min=0), used.float(), used
 
     # ------------------------------------------------------------------
-    # masked Adam steps of N models at once
+    # masked optimizer steps of N models at once
     # ------------------------------------------------------------------
 
-    def _loss_fn(self, params, x, y, m):
-        logits = self.model.apply(params, x, self.cfg.dtype)
+    def _loss_fn(self, params, x, y, m, drop):
+        logits = self.model.apply(params, x, self.cfg.dtype, drop or None)
         loss, acc, cnt = masked_loss_and_metrics(self.model.loss_kind, logits, y, m)
         return loss, (acc, cnt)
 
-    def _steps(self, params: dict, opt_state: dict, batches):
-        """One masked Adam step of N models (params [N, ...]) for each
-        (x [N, sb, ...], y, m [N, sb]) of `batches`. Returns (params,
-        opt_state, mean loss [N], mean accuracy [N]) over the steps."""
+    def _column_grads(self, params, x, y, m, drop, W: int):
+        """`_grads` of N = B*W models (run-major), as W vmapped calls of one
+        column's B models each: a model's arithmetic then has the same
+        shapes whether its run trains W = P partners masked or W = K slots
+        (on the card cuDNN chooses its algorithms by the number of models
+        a call, so one call of B*W models parts from one of B*K)."""
+        N = x.shape[0]
+        outs = [self._grads(_tree_map(lambda t: _column(t, W, w), params),
+                            *(_column(t, W, w) for t in (x, y, m)),
+                            tuple(_column(d, W, w) for d in drop)) for w in range(W)]
+
+        def join(*ts):
+            return torch.stack(ts, 1).reshape((N,) + ts[0].shape[1:])
+        grads = _tree_map(join, *(o[0] for o in outs))
+        loss, acc, cnt = (join(*ts) for ts in zip(*((o[1][0],) + o[1][1] for o in outs)))
+        return grads, (loss, (acc, cnt))
+
+    def _steps(self, params: dict, opt_state: dict, batches, columns: int | None = None):
+        """One masked optimizer step of N models (params [N, ...]) for each
+        (x [N, sb, ...], y, m [N, sb], dropout keep masks: () or one
+        [N, sb, ...] a layer) of `batches`. Returns (params, opt_state,
+        mean loss [N], mean accuracy [N]) over the steps. Under the
+        deterministic reduce, `columns` W computes the gradients a column
+        of the run-major [B, W] models at a time (`_column_grads`)."""
         opt = self.model.optimizer
         loss_sum = acc_sum = cnt_sum = 0.0
-        for x, y, m in batches:
-            grads, (loss, (acc, cnt)) = self._grads(params, x, y, m)
+        by_column = columns is not None and self.cfg.deterministic_reduce
+        for x, y, m, drop in batches:
+            if by_column:
+                grads, (loss, (acc, cnt)) = self._column_grads(params, x, y, m, drop, columns)
+            else:
+                grads, (loss, (acc, cnt)) = self._grads(params, x, y, m, drop)
             params, opt_state = opt.step(params, grads, opt_state)
             loss_sum = loss_sum + loss * cnt
             acc_sum = acc_sum + acc * cnt
@@ -587,6 +670,15 @@ class MplTrainer:
         sb_cap = (mb_cap + gup - 1) // gup
         need_pval = cfg.record_partner_val or cfg.aggregator == "local-score"
         flat = lambda t: t.reshape((B * W,) + t.shape[2:])  # noqa: E731
+        # dropout: keyed (1, mb, global partner id[, 7 for lflip's pass],
+        # step), so a slot draws its partner's masks
+        lflip_tag = (7,) if cfg.approach == "lflip" else ()
+
+        def step_drop(mb_i: int, g: int):
+            masks = self._step_masks(
+                draws, sb_cap * cfg.step_width_mult, (1, mb_i, pids) + lflip_tag + (g,),
+                lambda m: m[:, mb_i][runs, pids][:, :, g])
+            return tuple(flat(m) for m in masks)
         rows = pids[:, :, None]
         params = state.params
         theta = state.theta
@@ -611,15 +703,20 @@ class MplTrainer:
                     else:
                         idx, valid = self._subbatch(perms, sizes, mb_i, g, sb_cap)
                         x, y = stacked.x[rows, idx], stacked.y[rows, idx]
-                    yield flat(x), flat(y), flat(valid * act[:, :, None])
+                    yield flat(x), flat(y), flat(valid * act[:, :, None]), step_drop(mb_i, g)
             start = _tree_map(lambda t: t[:, None].expand((B, W) + t.shape[1:]), params)
             if stale is not None:
                 old = _tree_map(lambda st: st[runs, stale_row], stale)
                 start = _tree_map(lambda o, n: torch.where(_rows(late, o), o, n), old, start)
             start = _tree_map(flat, start)
             new_flat, _, losses, accs = self._steps(
-                start, self.model.optimizer.init(start), batches())
-            if need_pval:
+                start, self.model.optimizer.init(start), batches(), columns=W)
+            if need_pval and cfg.deterministic_reduce:
+                # a column's B models at a time, as their steps
+                cols = [self.evaluate_models(_tree_map(lambda t: _column(t, W, w), new_flat), val)
+                        for w in range(W)]
+                pvl, pva = (torch.stack(ts, 1) for ts in zip(*cols))
+            elif need_pval:
                 pvl, pva = (t.reshape(B, W) for t in self.evaluate_models(new_flat, val))
             else:
                 pvl = pva = torch.full((B, W), float("nan"), device=dev)
@@ -663,7 +760,7 @@ class MplTrainer:
         come first and in the same order either way. Visit position `pos`
         of every run is one vmapped pass over B models, each run on its
         own partner; a non-member visit changes nothing (`torch.where`), so
-        the positions past the largest coalition are skipped. One Adam
+        the positions past the largest coalition are skipped. One optimizer
         state per run and minibatch is carried along the chain: a member
         at position pos follows pos member visits, so its steps count on
         from pos x `cfg.pass_steps`."""
@@ -704,7 +801,7 @@ class MplTrainer:
             _write(state.val_acc_h[:, e, mb_i], va, frozen)
             keys = torch.gather(draws.order_keys[:, mb_i], 1, pids) + (1.0 - act) * 1e3
             order = torch.argsort(keys, dim=1, stable=True)        # [B, W] slots
-            mu_nu = opt.init(params)
+            opt_state = opt.init(params)
             pva_slot = nan.clone()        # this minibatch's val accuracy a slot
             for pos in range(visits):
                 s = order[:, pos]                                  # [B]
@@ -717,11 +814,14 @@ class MplTrainer:
                         idx, valid = self._subbatch(perm_s, size_s, mb_i, g, sb_cap)
                         yield (stacked.x[pid[:, None], idx[:, 0]],
                                stacked.y[pid[:, None], idx[:, 0]],
-                               valid[:, 0] * on[:, None])
+                               valid[:, 0] * on[:, None],
+                               self._step_masks(draws, sb_cap * cfg.step_width_mult,
+                                                (1, mb_i, pos + 1, g),
+                                                lambda m: m[:, mb_i, pos, g]))
                 new_p, new_opt, loss, acc = self._steps(
-                    params, {**mu_nu, "count": pos * cfg.pass_steps}, batches())
+                    params, {**opt_state, "count": pos * cfg.pass_steps}, batches())
                 params = _keep_frozen(~on, params, new_p)
-                mu_nu = {m: _keep_frozen(~on, mu_nu[m], new_opt[m]) for m in ("mu", "nu")}
+                opt_state = _keep_frozen_opt(~on, opt_state, new_opt)
                 b = torch.nonzero(on, as_tuple=True)[0]
                 for g, d in stack.items():
                     for k, t in d.items():
@@ -747,7 +847,8 @@ class MplTrainer:
                       masks: torch.Tensor, generators, streams, frozen) -> dict:
         """One epoch of single-partner training of every run:
         minibatch_count x gradient_updates_per_pass steps of its persistent
-        Adam over its lone active partner's shuffled rows, then a val eval
+        optimizer over its lone active partner's shuffled rows, then a val
+        eval
         (reference SinglePartnerLearning, multi_partner_learning.py:230-275).
         Updates the optimizer state; returns the new params."""
         cfg = self.cfg
@@ -757,7 +858,8 @@ class MplTrainer:
         x_p, y_p = stacked.x[p], stacked.y[p]          # [B, Nmax, ...]
         size_p = stacked.sizes[p]
         n_max = x_p.shape[1]
-        perm = self._draws(generators, stacked.mask[p], streams).perms   # [B, Nmax]
+        draws = self._draws(generators, stacked.mask[p], streams)
+        perm = draws.perms                             # [B, Nmax]
         steps = cfg.minibatch_count * cfg.gradient_updates_per_pass
         sb_cap = max((n_max + steps - 1) // steps, 1)
         sb = ((size_p + steps - 1) // steps)[:, None]
@@ -769,22 +871,22 @@ class MplTrainer:
                 local = g * sb + ar
                 valid = (ar < sb) & (local < size_p[:, None])
                 idx = torch.gather(perm, 1, torch.clamp(local, 0, n_max - 1))
-                yield x_p[runs, idx], y_p[runs, idx], valid.float()
+                # dropout: keyed (step + 1)
+                yield (x_p[runs, idx], y_p[runs, idx], valid.float(),
+                       self._step_masks(draws, sb_cap, (g + 1,), lambda m: m[:, g]))
         params, opt_state, loss, acc = self._steps(state.params, state.opt_state,
                                                    batches())
         hold = frozen
         if cfg.partner_drop_epochs is not None:
             # from its drop epoch on the partner's solo training stops:
-            # params and Adam state are frozen (momentum would otherwise
+            # params and optimizer state are frozen (momentum would otherwise
             # coast on zero gradients), and the val eval below scores the
             # model it had. The step count is shared by the B runs; a run
             # held here never trains again, so it never reads it.
             dropped = self._drop_active(e, masks.device)[p] == 0
             params = _keep_frozen(dropped, state.params, params)
             hold = frozen | dropped
-        state.opt_state = {"mu": _keep_frozen(hold, state.opt_state["mu"], opt_state["mu"]),
-                           "nu": _keep_frozen(hold, state.opt_state["nu"], opt_state["nu"]),
-                           "count": opt_state["count"]}
+        state.opt_state = _keep_frozen_opt(hold, state.opt_state, opt_state)
         if cfg.record_val_history or cfg.is_early_stopping:
             vl, va = self.evaluate_models(params, val)
         else:

@@ -59,7 +59,7 @@ class Scenario:
                  samples_split_option=None,
                  corrupted_datasets=None,
                  multi_partner_learning_approach="fedavg",
-                 aggregation_weighting="data-volume",
+                 aggregation_weighting=None,
                  gradient_updates_per_pass_count=constants.DEFAULT_GRADIENT_UPDATES_PER_PASS_COUNT,
                  minibatch_count=constants.DEFAULT_BATCH_COUNT,
                  epoch_count=constants.DEFAULT_EPOCH_COUNT,
@@ -69,6 +69,7 @@ class Scenario:
                  is_dry_run=False,
                  seed=42,
                  contributivity_cache_from=None,
+                 aggregation=None,
                  device=None):
         self.device = resolve_device(device)
         # a coalition cache saved by an earlier run of the same game
@@ -86,8 +87,10 @@ class Scenario:
             samples_split_option or ("basic", "random"))
         if self.samples_split_type != "basic":
             raise _not_ported(f"the '{self.samples_split_type}' split")
-        self.corrupted_datasets = (corrupted_datasets
-                                   or ["not_corrupted"] * partners_count)
+        # an empty list is a list of no specs (and fails the count check),
+        # not the default
+        self.corrupted_datasets = (corrupted_datasets if corrupted_datasets is not None
+                                   else ["not_corrupted"] * partners_count)
         if len(self.corrupted_datasets) != partners_count:
             raise ValueError(f"corrupted_datasets has {len(self.corrupted_datasets)} "
                              f"entries for {partners_count} partners: one spec per partner")
@@ -110,6 +113,19 @@ class Scenario:
         self.multi_partner_learning_approach = \
             MULTI_PARTNER_LEARNING_APPROACHES[multi_partner_learning_approach]
         self.multi_partner_learning_approach_key = multi_partner_learning_approach
+        # `aggregation` is the JAX package's alias of `aggregation_weighting`;
+        # a conflicting pair is an error, neither unset is "data-volume"
+        if aggregation is not None:
+            if aggregation_weighting is not None and \
+                    _AGGREGATION_ALIASES.get(aggregation_weighting) != \
+                    _AGGREGATION_ALIASES.get(aggregation):
+                raise ValueError(
+                    f"Conflicting aggregation settings: aggregation="
+                    f"{aggregation!r} vs aggregation_weighting="
+                    f"{aggregation_weighting!r}; set only one")
+            aggregation_weighting = aggregation
+        if aggregation_weighting is None:
+            aggregation_weighting = "data-volume"
         try:
             self.aggregation_name = _AGGREGATION_ALIASES[aggregation_weighting]
         except KeyError:

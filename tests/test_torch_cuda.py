@@ -1,6 +1,7 @@
 """The port on the card: K1 and K1-bf16 against their plain versions, the
-retraining sweep, SVARM, seqavg, lflip, the partner fault plan and fused
-wide steps against the CPU, and fp32 reproducibility.
+retraining sweep, SVARM, seqavg, lflip, the partner fault plan, fused
+wide steps, dropout masks and the CIFAR10 CNN's training forward pass
+against the CPU, and fp32 reproducibility.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -18,6 +19,8 @@ from mplc_tpu_torch.contrib.reconstruct import ReconstructionEvaluator, record_u
 from mplc_tpu_torch.convert import params_to_numpy, recorded_run_from_numpy
 from mplc_tpu_torch.contrib.shapley import powerset_order
 from mplc_tpu_torch.data.datasets import load_mnist, load_titanic
+from mplc_tpu_torch.models import zoo as tzoo
+from mplc_tpu_torch.mpl import dropout
 from mplc_tpu_torch.ops import recon_kernel as trk
 from mplc_tpu_torch.scenario import Scenario
 
@@ -323,3 +326,33 @@ def test_straggler_and_step_width_on_the_card_match_the_cpu(cuda, monkeypatch):
         for k in fit_cpu.model_params[g]:
             torch.testing.assert_close(fit_card.model_params[g][k].cpu(),
                                        fit_cpu.model_params[g][k], rtol=0, atol=1e-4)
+
+
+def test_dropout_masks_on_the_card_match_the_cpu(cuda):
+    """One seed, the same keep masks on either device: the hash is int64
+    arithmetic that never overflows (mplc_tpu_torch/mpl/dropout.py)."""
+    g = torch.Generator().manual_seed(3)
+    keys = torch.stack([dropout.draw_key(g) for _ in range(4)])
+    pids = torch.arange(5)[None, :, None].expand(4, 5, 1)
+    for rows in (1, 27):
+        cpu = dropout.step_masks(keys, rows, tzoo.CIFAR10_DROPOUT, 1, 3, pids, 7)
+        card = dropout.step_masks(keys.to(cuda), rows, tzoo.CIFAR10_DROPOUT, 1, 3,
+                                  pids.to(cuda), 7)
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card))
+
+
+def test_cifar10_training_forward_on_the_card_matches_the_cpu(cuda):
+    """The CIFAR10 CNN's training forward pass under one set of injected
+    masks: logits within 1e-5 (fp32, TF32 off)."""
+    Scenario(3, [0.2, 0.3, 0.5], dataset=load_titanic(), is_dry_run=True)   # the card's modes
+    model = tzoo.CIFAR10_CNN
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((32, 32, 32, 3)).astype(np.float32))
+    keys = torch.tensor([[1, 2]])
+    masks = [m[0] for m in dropout.step_masks(keys, 32, model.dropout, 0)]
+    cpu = model.apply(params, x, dropout=masks)
+    card = model.apply({g: {k: t.to(cuda) for k, t in d.items()} for g, d in params.items()},
+                       x.to(cuda), dropout=[m.to(cuda) for m in masks]).cpu()
+    assert float((cpu - model.apply(params, x)).abs().max()) > 1e-3
+    np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=0, atol=1e-5)

@@ -20,7 +20,7 @@ from mplc_tpu_torch.ops import metrics as tmetrics
 
 torch.set_num_threads(1)
 
-MODELS = ["mnist_cnn", "titanic_logreg"]
+MODELS = ["mnist_cnn", "cifar10_cnn", "titanic_logreg"]
 
 
 def _setup(name, n=6, seed=0):
@@ -29,8 +29,9 @@ def _setup(name, n=6, seed=0):
     jp = jm.init(jax.random.PRNGKey(seed))
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
     rng = np.random.default_rng(seed)
-    if name == "mnist_cnn":
-        x = rng.random((n, 28, 28, 1)).astype(np.float32)
+    if name in ("mnist_cnn", "cifar10_cnn"):
+        shape = (28, 28, 1) if name == "mnist_cnn" else (32, 32, 3)
+        x = rng.random((n,) + shape).astype(np.float32)
         y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)]
     else:
         x = rng.standard_normal((n, 27)).astype(np.float32)

