@@ -112,7 +112,34 @@ Phases, each of which fails the script (non-zero exit, no result line):
    B = 16. (c) A 3-partner fit on the card and on the CPU from one seed:
    every dropout mask drawn bit-equal, final params within 1e-4. (d) The
    recording made again, bit-equal. (e) One batch of coalitions on slots
-   and masked under the deterministic reduce: bit-equal v(S).
+   and masked under the deterministic reduce: bit-equal v(S);
+16. imdb: bench config 4's scenario (bench.py:1870-1872: SMCS on IMDB, 4
+   partners split (i+1)/10) with bench's training (`_make_scenario`:
+   fedavg, data-volume, minibatch 10, gup 8, no early stopping, seed 0)
+   cut to 2 epochs of its 8, on synthetic IMDB at scale 1.0 (22,500
+   train, 2,500 val, 25,000 test rows of 500 int32 tokens), the IMDB
+   model at its published width (2,227,873 parameters). (a)
+   `Scenario(dataset_name="imdb", methods=["SMCS", "Shapley values"]).run()`:
+   SMCS within 0.05 of exact, no coalition trained twice (15 at most),
+   every v(S) in [0, 1], efficiency within 1e-6, v(N) above IMDB_V_MIN.
+   (b) GTG-Shapley over the grand coalition's recording (K = 80 rows of
+   D = 2,227,873), K1's launches counted from 0 (it must launch), the
+   grand coalition within 1e-4 of the recording, K1 against its plain
+   version on this stream, timed at B = 16. (c) A 3-partner fit card vs
+   CPU: dropout masks bit-equal, params within 1e-4. (d) The recording
+   again, bit-equal (the embedding's backward accumulates repeated
+   tokens). (e) The bf16 logits card vs CPU on tokens above 256, with a
+   control whose tokens went through bf16 that must fail;
+17. esc50: synthetic ESC50 at scale 1.0 (2,000 clips of 50 classes:
+   1,620 train, 180 val, 200 test rows), 3 partners [0.4, 0.3, 0.3]
+   (bench.py `_amounts(3)`), bench's training cut to 2 epochs, the ESC50
+   CNN at its published width (49,762 parameters). (a) The exact Shapley
+   sweep through `Scenario(dataset_name="esc50").run()`: 7 coalitions,
+   the multis on merged slots, seconds a batch and peak memory. (b)
+   GTG-Shapley through K1 on the ESC50 stream (K = 60 rows of D =
+   49,762), as [imdb] (b), with the recording again bit-equal. (c) A fit
+   card vs CPU. (d) The evaluation's peak memory under the bytes bound
+   on its rows in flight, beside the bound's row count.
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -1593,11 +1620,14 @@ def cifar_sweep(dataset) -> dict:
     return {"scenario": sc, "seconds": wall, "peak_gib": peak / 2 ** 30}
 
 
-def cifar_gtg(sweep: dict, card) -> dict:
-    """(b) and (d): GTG-Shapley over the grand coalition's recording, K1's
-    launches counted from 0; K1 on this stream; the recording again."""
-    sc = sweep["scenario"]
-    P = CIFAR_PARTNERS
+def recording_query(tag: str, sc, D_want: int, card) -> dict:
+    """GTG-Shapley over the grand coalition's recording of `sc`, K1's
+    launches counted from 0 (it must launch, K1-bf16 must not); the stream
+    must be K = epochs x minibatches x partners rows of `D_want`
+    parameters; the reconstructed grand coalition within 1e-4 of the
+    recorded final params; the recording made again bit-equal; K1 against
+    its plain version on this stream at B = 16, timed (`K1[<tag> B=16]`)."""
+    P = sc.partners_count
     recon_kernel.launches = recon_kernel.launches_bf16 = 0
     recon_kernel.launch_widths = {}
     t0 = time.perf_counter()
@@ -1616,42 +1646,47 @@ def cifar_gtg(sweep: dict, card) -> dict:
     err = max((grand[g][k][0] - rec.final_params[g][k]).abs().max().item()
               for g in grand for k in grand[g])
     gtg = c.contributivity_scores
-    print(f"[cifar10] GTG-Shapley over the recording: {wall:.2f} s (recording included), "
+    K_want = sc.epoch_count * sc.minibatch_count * P
+    print(f"[{tag}] GTG-Shapley over the recording: {wall:.2f} s (recording included), "
           f"{recon.reconstructions} coalitions reconstructed; values "
           f"{np.round(gtg, 4).tolist()}; launches {recon_kernel.KERNEL} {launches}, "
           f"{recon_kernel.KERNEL_BF16} {bf16}; by batch width {json.dumps(widths)}; stream K = "
           f"{K}, D = {D} (Dp {Dp}), {recon._d2.numel() * recon._d2.element_size() / 1e9:.3f} "
           f"GB; reconstructed grand coalition vs recorded final params: max abs err "
           f"{err:.3g} (bound 1e-4)")
-    check(launches > 0, "the CIFAR10 GTG query never launched K1")
-    check(bf16 == 0, "the fp32 CIFAR10 query launched K1-bf16")
-    check(K == CIFAR_EPOCHS * 10 * P and D == 1_250_858,
-          f"the CIFAR10 stream is {K} x {D}, not {CIFAR_EPOCHS * 10 * P} x 1250858")
+    check(launches > 0, f"the {tag} GTG query never launched K1")
+    check(bf16 == 0, f"the fp32 {tag} query launched K1-bf16")
+    check(K == K_want and D == D_want, f"the {tag} stream is {K} x {D}, not {K_want} x {D_want}")
     check(err <= 1e-4, "the reconstructed grand coalition differs from the recording's "
                        "final params")
     check(bool(np.isfinite(gtg).all()), "non-finite GTG-Shapley values")
-    check_same_recording(rec, record_updates(eng), "cifar10")
-    subsets = powerset_order(P)[:15] + [()]
+    check_same_recording(rec, record_updates(eng), tag)
+    # 15 coalitions (the powerset repeated where it has fewer) and the
+    # empty one, whose weights are all zero
+    subsets = (powerset_order(P) * 15)[:15] + [()]
     masks = torch.from_numpy(eng._coalition_arrays(subsets)).to(DEVICE)
-    wn2 = recon_kernel.normalized_round_weights(masks, recon._weights).reshape(16, -1)
+    wn2 = recon_kernel.normalized_round_weights(masks, recon._weights).reshape(len(subsets), -1)
     entry = kernel_entry(recon_kernel.KERNEL, wn2.contiguous(), recon._d2, recon._init,
                          sum(n for w, n in widths.items() if w <= 16), card)
-    entry["name"] = f"{recon_kernel.KERNEL}[cifar10 B=16]"
+    entry["name"] = f"{recon_kernel.KERNEL}[{tag} B=16]"
     entry["launch_widths"] = widths
+    entry["launches_by_path"] = {tag: entry["launches"]}
     print(f"[kernels] {entry['name']} {entry['shape']}: {entry['ms']:.4f} ms (plain "
           f"{entry['plain_ms']:.4f}, {entry['library']} {entry['library_ms']:.4f}, bound "
           f"{entry['bound_ms']:.4f} by {entry['bound_by']}), max abs err "
           f"{entry['max_abs_err']:.3g}, {entry['launches']} launches")
-    return {"launches": launches, "widths": widths, "entry": entry, "seconds": wall}
+    return {"launches": launches, "widths": widths, "entry": entry, "seconds": wall,
+            "recon": recon}
 
 
-def cifar_card_vs_cpu(dataset) -> float:
-    """(c): a 3-partner fit of a few hundred rows for one epoch on the card
-    and on the CPU from one seed: the masks every step drew, and the final
-    params."""
+def card_vs_cpu_fit(tag: str, dataset, train_rows: int, test_rows: int) -> float:
+    """A 3-partner fit of `train_rows` of the dataset's training rows for
+    one epoch (2 minibatches of 2 steps) on the card and on the CPU from one
+    seed: the dropout masks every step drew bit-equal, the final params
+    within 1e-4."""
     small = Dataset(dataset.name, dataset.input_shape, dataset.num_classes,
-                    dataset.x_train[:400], dataset.y_train[:400], dataset.x_test[:100],
-                    dataset.y_test[:100], model=dataset.model)
+                    dataset.x_train[:train_rows], dataset.y_train[:train_rows],
+                    dataset.x_test[:test_rows], dataset.y_test[:test_rows], model=dataset.model)
     drawn = {}
     step_masks = dropout.step_masks
     t0 = time.perf_counter()
@@ -1676,13 +1711,13 @@ def cifar_card_vs_cpu(dataset) -> float:
     err = max((fits[0].model_params[g][k].cpu() - fits[1].model_params[g][k]).abs().max().item()
               for g in fits[1].model_params for k in fits[1].model_params[g])
     wall = time.perf_counter() - t0
-    print(f"[cifar10] 3-partner fit, card vs cpu: {same} of {total} step masks bit-equal "
+    print(f"[{tag}] 3-partner fit, card vs cpu: {same} of {total} step masks bit-equal "
           f"({len(cpu)} steps, {elements} mask elements, keep share "
           f"{sum(int(m.sum()) for x in cpu for m in x) / max(elements, 1):.4f}); final params "
           f"max abs err {err:.3g} (bound 1e-4); {wall:.2f} s")
     check(total > 0 and len(card) == len(cpu) and same == total,
           "the card and the CPU drew other dropout masks")
-    check(err <= 1e-4, "the card's and the CPU's CIFAR10 fits differ by more than 1e-4")
+    check(err <= 1e-4, f"the card's and the CPU's {tag} fits differ by more than 1e-4")
     return wall
 
 
@@ -1722,11 +1757,258 @@ def phase_cifar10(card, smi: str) -> dict:
     dataset = cifar_dataset()
     data_s = time.perf_counter() - t0
     sweep = cifar_sweep(dataset)
-    out = cifar_gtg(sweep, card)
+    # (b) and (d): GTG through K1, the recording again; (c) a small fit
+    out = recording_query("cifar10", sweep["scenario"], 1_250_858, card)
+    del out["recon"]
     seconds = {"data": data_s, "TMCS sweep": sweep["seconds"], "GTG": out["seconds"],
-               "card vs cpu": cifar_card_vs_cpu(dataset),
+               "card vs cpu": card_vs_cpu_fit("cifar10", dataset, 400, 100),
                "slots vs masks": cifar_slots_vs_masks(sweep)}
     print(f"[cifar10] seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})}, "
+          f"peak memory {sweep['peak_gib']:.2f} GiB in the sweep, on {smi}")
+    return out
+
+
+# bench.py's `_make_scenario` training (bench.py:506-526: fedavg,
+# data-volume, minibatch 10, gup 8, no early stopping, seed 0), cut to 2
+# epochs of bench's 8 for the script's time; the phases below run it
+BENCH_GAME = dict(multi_partner_learning_approach="fedavg",
+                  aggregation_weighting="data-volume", epoch_count=2, minibatch_count=10,
+                  gradient_updates_per_pass_count=8, is_early_stopping=False, seed=0)
+
+# The imdb phase: bench config 4's scenario (bench.py:1870-1872: SMCS on
+# IMDB, 4 partners split (i+1)/10) on synthetic IMDB at scale 1.0 (22,500
+# train, 2,500 val, 25,000 test rows), at the IMDB model's published width
+# (2,227,873 parameters). v(N) must pass IMDB_V_MIN, set from the CPU
+# learning curve of this fit (`python3 -m mplc_tpu_torch.obs.learning_curve
+# --dataset imdb --device cpu --scale 1.0 --partners 4`: test accuracy 1.0
+# after 2 epochs, val 0.9996 after 1; at scale 0.1 it stays at chance, 0.51)
+IMDB_PARTNERS = 4
+IMDB_SCALE = 1.0
+IMDB_METHODS = ["SMCS", "Shapley values"]
+IMDB_V_MIN = 0.9
+# (e): rows of the test set whose bf16 logits are held card against CPU
+IMDB_BF16_ROWS = 256
+
+
+def imdb_scenario(methods, partners: int = IMDB_PARTNERS, device: str = DEVICE) -> Scenario:
+    """Bench config 4's scenario through the user entry point:
+    `Scenario(dataset_name="imdb")` loads synthetic IMDB at IMDB_SCALE."""
+    total = sum(range(1, partners + 1))
+    with knob(constants.SYNTH_SCALE_ENV, str(IMDB_SCALE)):
+        return Scenario(partners, [(i + 1) / total for i in range(partners)], is_dry_run=True,
+                        dataset_name="imdb", methods=methods, device=device, **BENCH_GAME)
+
+
+def imdb_sweep() -> dict:
+    """(a): SMCS and the exact Shapley values through `Scenario.run()`."""
+    P = IMDB_PARTNERS
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sc = imdb_scenario(IMDB_METHODS)
+    load_s = time.perf_counter() - t0
+    sc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    eng = sc._charac_engine
+    smcs, exact = (c.contributivity_scores for c in sc.contributivity_list)
+    subsets = powerset_order(P)
+    values = np.array([eng.charac_fct_values[s] for s in subsets])
+    v_all = eng.charac_fct_values[tuple(range(P))]
+    err = float(np.abs(smcs - exact).max())
+    ds = sc.dataset
+    print(f"[imdb] IMDB Conv1D, {P} partners, {len(ds.x_train)} train / {len(ds.x_val)} val / "
+          f"{len(ds.x_test)} test rows ({ds.x_train.dtype} tokens, stacked "
+          f"{eng.stacked.x.dtype}): {wall:.2f} s for Scenario.run() (loading {load_s:.2f} s, fit "
+          f"{sc.mpl.learning_computation_time:.2f} s, score {sc.mpl.history.score:.4f}; "
+          f"{eng.first_charac_fct_calls_count} coalitions trained in "
+          f"{sum(b['seconds'] for b in eng.batch_log):.2f} s, {sc.slot_bucketing} slot "
+          f"buckets); peak memory {peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB "
+          f"above the phase's start)")
+    batch_lines("imdb", eng)
+    print(f"[imdb] SMCS {np.round(smcs, 4).tolist()}; exact {np.round(exact, 4).tolist()} "
+          f"(sum {exact.sum():.6f}, v(N) {v_all:.4f}); SMCS max abs err against exact "
+          f"{err:.4f} (bound {ESTIMATE_BOUND}); v(S) " + json.dumps(
+              {",".join(map(str, s)): round(float(v), 4) for s, v in zip(subsets, values)}))
+    check(eng.stacked.x.dtype == torch.int32 and eng.test.x.dtype == torch.int32,
+          "the IMDB tokens were not staged as int32")
+    check(bool(np.isfinite(values).all() and (values >= 0).all() and (values <= 1).all()),
+          "an IMDB v(S) is not finite in [0, 1]")
+    check(bool(np.isfinite(smcs).all() and np.isfinite(exact).all()), "non-finite values")
+    check(err <= ESTIMATE_BOUND, f"SMCS is {err} from the exact Shapley values")
+    check(eng.first_charac_fct_calls_count <= 2 ** P - 1
+          and len(eng.charac_fct_values) == 2 ** P, "a coalition was trained twice")
+    check(abs(exact.sum() - v_all) <= 1e-6, "the Shapley values do not sum to v(N)")
+    check(v_all > IMDB_V_MIN, f"v(N) = {v_all} is not above {IMDB_V_MIN}")
+    check(recon_kernel.launches == recon_kernel.launches_bf16 == 0,
+          "the IMDB sweep launched a reconstruction kernel")
+    return {"scenario": sc, "seconds": wall, "peak_gib": peak / 2 ** 30}
+
+
+def imdb_bf16_logits(recon) -> float:
+    """(e): the IMDB model's bf16 logits on the card against the CPU's, at
+    the recording's final params, on test rows whose tokens reach above
+    256 (bf16 holds integers exactly up to 256 only), with its control: the
+    card's logits of the same tokens rounded through bf16 must fail the
+    limits, as a model that cast its tokens would."""
+    t0 = time.perf_counter()
+    engine = recon.engine
+    params = recon.recorded.final_params
+    x = torch.from_numpy(engine.scenario.dataset.x_test[:IMDB_BF16_ROWS])
+    rounded = x.to(torch.bfloat16).to(torch.int64)
+    high = int((x > 256).sum())
+    cpu_params = {g: {k: t.cpu() for k, t in d.items()} for g, d in params.items()}
+    with torch.no_grad():
+        ref = engine.model.apply(cpu_params, x, torch.bfloat16)
+        got = engine.model.apply(params, x.to(DEVICE), torch.bfloat16).cpu()
+        ctrl = engine.model.apply(params, rounded.to(DEVICE), torch.bfloat16).cpu()
+    top = ref.abs().max().item()
+    limit = MODEL_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+    err, err_c = ((g - ref).abs().max().item() for g in (got, ctrl))
+    equal, equal_c = ((g == ref).double().mean().item() for g in (got, ctrl))
+    print(f"[imdb] bf16 logits, card vs cpu ({IMDB_BF16_ROWS} test rows, {high} tokens above "
+          f"256, {int((rounded != x).sum())} of them moved by a bf16 rounding; max |logit| "
+          f"{top:.4g}): bit-equal share {equal:.4f} (at least {MODEL_EQUAL_SHARE}), max abs "
+          f"err {err:.3g} (limit {limit:.3g}); control, tokens through bf16: bit-equal share "
+          f"{equal_c:.4f}, max abs err {err_c:.3g}")
+    check(high > 0 and bool((rounded != x).any()), "no test token is above bf16's exact range")
+    check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+          "the card's bf16 IMDB logits are not finite float32")
+    check(equal >= MODEL_EQUAL_SHARE and err <= limit,
+          "the card's bf16 IMDB logits differ from the CPU's")
+    check(equal_c < MODEL_EQUAL_SHARE or err_c > limit,
+          "tokens rounded through bf16 pass the limit: it cannot tell a cast token")
+    return time.perf_counter() - t0
+
+
+def phase_imdb(card, smi: str) -> dict:
+    """Bench config 4's scenario on IMDB: SMCS and exact Shapley through
+    `Scenario.run()`, a GTG-Shapley query through K1 on the IMDB stream,
+    the recording twice, a small fit card vs CPU, bf16 logits card vs CPU."""
+    sweep = imdb_sweep()
+    out = recording_query("imdb", sweep["scenario"], 2_227_873, card)
+    seconds = {"SMCS + exact sweep": sweep["seconds"], "GTG + recording twice": out["seconds"],
+               "card vs cpu": card_vs_cpu_fit("imdb", sweep["scenario"].dataset, 600, 200),
+               "bf16 logits": imdb_bf16_logits(out.pop("recon"))}
+    print(f"[imdb] seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})}, "
+          f"peak memory {sweep['peak_gib']:.2f} GiB in the sweep, on {smi}")
+    return out
+
+
+# The esc50 phase: synthetic ESC50 at scale 1.0 (2,000 clips of 50 classes:
+# 1,620 train, 180 val, 200 test rows), 3 partners [0.4, 0.3, 0.3]
+# (bench.py `_amounts(3)`, config_quick_debug's split), bench's training;
+# the ESC50 CNN at its published width (49,762 parameters). The CPU
+# learning curve of this fit (`python3 -m mplc_tpu_torch.obs.learning_curve
+# --dataset esc50 --device cpu --scale 1.0 --amounts 0.4,0.3,0.3 --epochs 8`)
+# stays at chance (1/50): test accuracy 0.015 after 2 epochs and after 8,
+# the training loss flat at ln 50. The loader's prototypes are independent
+# uniform pixels of one distribution for every class, which the CNN's
+# global average pool averages away (the JAX package's loader and model
+# alike). So v(N) is gated as an accuracy in [0, 1] only
+ESC50_AMOUNTS = [0.4, 0.3, 0.3]
+ESC50_SCALE = 1.0
+
+
+def esc50_scenario(methods, device: str = DEVICE) -> Scenario:
+    """`Scenario(dataset_name="esc50")`, synthetic ESC50 at ESC50_SCALE."""
+    with knob(constants.SYNTH_SCALE_ENV, str(ESC50_SCALE)):
+        return Scenario(len(ESC50_AMOUNTS), ESC50_AMOUNTS, is_dry_run=True,
+                        dataset_name="esc50", methods=methods, device=device, **BENCH_GAME)
+
+
+def esc50_sweep() -> dict:
+    """(a): the exact Shapley sweep, 7 coalitions, the multis on merged
+    slots."""
+    P = len(ESC50_AMOUNTS)
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sc = esc50_scenario(["Shapley values"])
+    load_s = time.perf_counter() - t0
+    sc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    eng = sc._charac_engine
+    sv = sc.contributivity_list[0].contributivity_scores
+    subsets = powerset_order(P)
+    values = np.array([eng.charac_fct_values[s] for s in subsets])
+    v_all = eng.charac_fct_values[tuple(range(P))]
+    batches = [(b["kind"], b["width"], b["slot_count"], b["coalitions"]) for b in eng.batch_log]
+    ds = sc.dataset
+    print(f"[esc50] ESC50 CNN, {P} partners, {len(ds.x_train)} train / {len(ds.x_val)} val / "
+          f"{len(ds.x_test)} test rows: {wall:.2f} s for Scenario.run() (loading {load_s:.2f} s, "
+          f"fit {sc.mpl.learning_computation_time:.2f} s, score {sc.mpl.history.score:.4f}; "
+          f"batches {sum(b['seconds'] for b in eng.batch_log):.2f} s, {sc.slot_bucketing} slot "
+          f"buckets); peak memory {peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB "
+          f"above the phase's start)")
+    batch_lines("esc50", eng)
+    print(f"[esc50] Shapley values {np.round(sv, 4).tolist()} (sum {sv.sum():.6f}, v(N) "
+          f"{v_all:.4f}, chance 0.02; the CPU curve's fit scores 0.015); v(S) "
+          f"{np.round(values, 4).tolist()}")
+    check(bool(np.isfinite(values).all() and (values >= 0).all() and (values <= 1).all()),
+          "an ESC50 v(S) is not finite in [0, 1]")
+    check(abs(sv.sum() - v_all) <= 1e-6, "the Shapley values do not sum to v(N)")
+    check(sc.slot_bucketing == "merge" and batches == [("single", 4, None, 3),
+                                                       ("multi", 4, 3, 4)],
+          f"the ESC50 sweep trained other batches than its 7 coalitions need: {batches}")
+    check(recon_kernel.launches == recon_kernel.launches_bf16 == 0,
+          "the ESC50 sweep launched a reconstruction kernel")
+    return {"scenario": sc, "seconds": wall, "peak_gib": peak / 2 ** 30}
+
+
+def esc50_eval_memory(recon, B: int = 16) -> float:
+    """(d): B reconstructed ESC50 models evaluated on the test set, with
+    the peak memory above the start, beside the rows in flight the model's
+    bound allows (`constants.eval_rows_in_flight`) and the bytes of their
+    largest activation."""
+    eng = recon.engine
+    model = eng.model
+    subsets = powerset_order(eng.partners_count)
+    subsets = (subsets * B)[:B]
+    masks = torch.from_numpy(eng._coalition_arrays(subsets)).to(DEVICE)
+    params = recon_kernel.unflatten(recon.reconstruct(masks), recon._layout)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        eng.trainer.evaluate_models(params, eng.test)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    rows = constants.eval_rows_in_flight(model.eval_row_bytes)
+    per_call = max(1, rows // B)
+    act = per_call * B * model.eval_row_bytes
+    print(f"[esc50] evaluation of {B} models on {len(eng.scenario.dataset.x_test)} test rows "
+          f"(chunks of {eng.test.x.shape[1]}): {wall:.3f} s, peak memory {peak / 2 ** 30:.3f} GiB "
+          f"above the start; rows in flight {rows} (row bound {constants.EVAL_ROWS_IN_FLIGHT}, "
+          f"{model.eval_row_bytes} bytes a row), {per_call} rows a model a call, largest "
+          f"activation {act / 2 ** 30:.3f} GiB (bound {constants.EVAL_BYTES_IN_FLIGHT / 2 ** 30:.3f})")
+    check(rows < constants.EVAL_ROWS_IN_FLIGHT and act <= constants.EVAL_BYTES_IN_FLIGHT,
+          "the ESC50 CNN's rows in flight are not bounded by its bytes")
+    # a convolution's input, output and ReLU live at once: about three
+    # largest activations (6.11 GiB measured on an H100 80GB HBM3 at 700 W);
+    # at the row bound alone, 16,384 rows, the first conv would hold 16 GiB
+    check(peak <= 4 * constants.EVAL_BYTES_IN_FLIGHT,
+          f"the evaluation's peak {peak / 2 ** 30:.2f} GiB exceeds four times its bound")
+    return wall
+
+
+def phase_esc50(card, smi: str) -> dict:
+    """ESC50 on bench's training: the exact Shapley sweep, GTG-Shapley
+    through K1 on the ESC50 stream and the recording twice, a fit card vs
+    CPU, the evaluation's memory under its bytes bound."""
+    sweep = esc50_sweep()
+    out = recording_query("esc50", sweep["scenario"], 49_762, card)
+    seconds = {"exact sweep": sweep["seconds"], "GTG + recording twice": out["seconds"],
+               "card vs cpu": card_vs_cpu_fit("esc50", sweep["scenario"].dataset, 400, 100),
+               "evaluation": esc50_eval_memory(out.pop("recon"))}
+    print(f"[esc50] seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})}, "
           f"peak memory {sweep['peak_gib']:.2f} GiB in the sweep, on {smi}")
     return out
 
@@ -1767,25 +2049,24 @@ def main() -> int:
     phase_cache(sweep)
     phase_estimators(sweep)
     phase_variants()
-    faults = phase_faults(card, sweep, smi)
+    paths = {"faults": phase_faults(card, sweep, smi), "cifar10": phase_cifar10(card, smi),
+             "imdb": phase_imdb(card, smi), "esc50": phase_esc50(card, smi)}
     for e in kernels:
-        if e["name"].startswith(recon_kernel.KERNEL + "[") or e["name"] == recon_kernel.KERNEL:
-            B = e["shape"]["B"]
-            e["launches_by_path"]["faults"] = (
-                faults["launches"] if B == 64 else
-                sum(n for w, n in faults["widths"].items() if w <= B))
-            e["launch_widths_faults"] = faults["widths"]
-    cifar = phase_cifar10(card, smi)
-    for e in kernels:
-        if e["name"].startswith(recon_kernel.KERNEL + "[") or e["name"] == recon_kernel.KERNEL:
-            B = e["shape"]["B"]
-            e["launches_by_path"]["cifar10"] = (
-                cifar["launches"] if B == 64 else
-                sum(n for w, n in cifar["widths"].items() if w <= B))
-            e["launch_widths_cifar10"] = cifar["widths"]
-    entry = cifar["entry"]
-    entry["launches_by_path"] = {"cifar10": entry["launches"]}
-    kernels.append(entry)
+        B = e["shape"]["B"]
+        if not e["name"].startswith(recon_kernel.KERNEL_BF16):
+            # K1's entries on the main stream: each fp32 path's launches by
+            # the entry's width (the 64-wide entry all of them)
+            for tag, path in paths.items():
+                e["launches_by_path"][tag] = (
+                    path["launches"] if B == 64 else
+                    sum(n for w, n in path["widths"].items() if w <= B))
+                e[f"launch_widths_{tag}"] = path["widths"]
+        else:
+            # K1-bf16 launches on the bf16 main path only (every fp32 path
+            # gates its K1-bf16 launches at 0)
+            e["launches_by_path"] = {"slice bf16": e["launches"],
+                                     **{tag: 0 for tag in ("svarm", *paths)}}
+    kernels += [path["entry"] for path in paths.values() if "entry" in path]
 
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

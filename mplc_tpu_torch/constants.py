@@ -107,6 +107,16 @@ def synth_scale() -> float:
     return _env_float(SYNTH_SCALE_ENV, 1.0)
 
 
+# Noise of the synthetic image datasets (MNIST, CIFAR10), the JAX package's
+# synthetic-noise knob: read by `load_mnist` and `load_cifar10` when no
+# `noise` argument is given; unset, each loader keeps its default.
+SYNTH_NOISE_ENV = "MPLC_TORCH_SYNTH_NOISE"
+
+
+def synth_noise(default: float) -> float:
+    return _env_float(SYNTH_NOISE_ENV, default)
+
+
 # Samples per evaluation chunk (the JAX package's default).
 EVAL_CHUNK_SIZE = 2048
 
@@ -114,6 +124,19 @@ EVAL_CHUNK_SIZE = 2048
 # one eval set: bounds the activation memory of a reconstruction batch
 # (the MNIST CNN's second conv alone holds 147 KB per sample).
 EVAL_ROWS_IN_FLIGHT = 16384
+# ... and those rows' largest activation, in bytes: EVAL_ROWS_IN_FLIGHT rows
+# of the MNIST CNN's 147,456 (2.25 GiB). A model whose rows are wider (the
+# ESC50 CNN's first conv: 1,073,280 bytes a row) evaluates fewer rows at
+# once; the MNIST CNN, the CIFAR10 CNN and Titanic stay at the row bound.
+EVAL_BYTES_IN_FLIGHT = EVAL_ROWS_IN_FLIGHT * 24 * 24 * 64 * 4
+
+
+def eval_rows_in_flight(row_bytes: int) -> int:
+    """Models x rows of one evaluation forward call, for models whose
+    largest activation is `row_bytes` a row (0: unknown, the row bound)."""
+    if row_bytes <= 0:
+        return EVAL_ROWS_IN_FLIGHT
+    return max(1, min(EVAL_ROWS_IN_FLIGHT, EVAL_BYTES_IN_FLIGHT // row_bytes))
 
 # Coalitions trained per batch by the retraining sweep
 # (contrib/engine.py): the JAX package's default ceiling per device.

@@ -84,7 +84,8 @@ def compute_batch_sizes(partners_list: Sequence[Partner], minibatch_count: int,
 class StackedPartners(NamedTuple):
     """All partners' train data as padded stacked tensors.
 
-    x:     [P, Nmax, ...]   float32
+    x:     [P, Nmax, ...]   float32 (int32 token ids when every partner's
+                            features are integer)
     y:     [P, Nmax, L]     float32 (one-hot, or [.,1] binary)
     mask:  [P, Nmax]        float32 validity
     sizes: [P]              int64 true sample counts
@@ -109,12 +110,12 @@ class StackedPartners(NamedTuple):
         P = len(partners_list)
         n_max = max(len(p.x_train) for p in partners_list)
         x0 = np.asarray(partners_list[0].x_train)
-        if any(np.issubdtype(np.asarray(p.x_train).dtype, np.integer)
-               for p in partners_list):
-            raise NotImplementedError(
-                "integer (token) features are not ported yet (ROADMAP.md "
-                "queue 1, other datasets and models)")
-        x = np.zeros((P, n_max) + x0.shape[1:], np.float32)
+        # int32 only when EVERY partner's features are integer: a partner
+        # whose features were floated (feature noise) must not be
+        # truncated back to integers
+        x_dtype = (np.int32 if all(np.issubdtype(np.asarray(p.x_train).dtype, np.integer)
+                                   for p in partners_list) else np.float32)
+        x = np.zeros((P, n_max) + x0.shape[1:], x_dtype)
         y = np.zeros((P, n_max, label_dim), np.float32)
         mask = np.zeros((P, n_max), np.float32)
         sizes = np.zeros((P,), np.int64)
@@ -134,14 +135,16 @@ class StackedPartners(NamedTuple):
 def stack_eval_set(x: np.ndarray, y: np.ndarray, label_dim: int,
                    chunk: int, device) -> tuple[torch.Tensor, ...]:
     """Pad an eval set to a multiple of `chunk` and reshape it to
-    [n_chunks, chunk, ...]: (x, y, mask) tensors on `device`."""
+    [n_chunks, chunk, ...]: (x, y, mask) tensors on `device`; x int32 for
+    integer features, else float32."""
     n = len(x)
     n_pad = (-n) % chunk
-    x = np.asarray(x, np.float32)
+    x = np.asarray(x)
+    x = x.astype(np.int32 if np.issubdtype(x.dtype, np.integer) else np.float32)
     y = np.asarray(y, np.float32)
     if y.ndim == 1:
         y = y[:, None]
-    xp = np.concatenate([x, np.zeros((n_pad,) + x.shape[1:], np.float32)])
+    xp = np.concatenate([x, np.zeros((n_pad,) + x.shape[1:], x.dtype)])
     yp = np.concatenate([y, np.zeros((n_pad, y.shape[1]), np.float32)])
     mask = np.concatenate([np.ones(n, np.float32), np.zeros(n_pad, np.float32)])
     n_chunks = (n + n_pad) // chunk

@@ -109,6 +109,10 @@ class Model:
         optimizer: the optimizer every partner pass starts afresh.
         dropout: (rate, per-sample shape) of each dropout layer, in the
             order `apply` takes their masks; () for a model without.
+        eval_row_bytes: float32 bytes of the largest activation one row
+            holds in the forward pass; evaluation bounds its rows in
+            flight by it (`constants.eval_rows_in_flight`). 0: unknown,
+            the row bound alone.
     """
 
     name: str
@@ -118,6 +122,7 @@ class Model:
     num_outputs: int
     optimizer: Optimizer
     dropout: tuple = ()
+    eval_row_bytes: int = 0
 
     def label_dim(self) -> int:
         """Width of the label array fed to the loss (one-hot width, or 1)."""

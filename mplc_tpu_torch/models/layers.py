@@ -5,8 +5,10 @@ weights `[in, out]`, convolution kernels HWIO, activations NHWC, so
 parameters converted from the JAX package compute the same function.
 `conv2d` and `max_pool_2d` take NHWC and view it as NCHW for
 `F.conv2d`/`F.max_pool2d` (a permuted view: an NHWC tensor is channels-last
-NCHW memory). Initializers match Keras defaults (glorot-uniform kernels,
-zero biases) and draw from an explicit `torch.Generator`.
+NCHW memory); `conv1d` and `max_pool_1d` take NWC (WIO kernels) and view
+it as NCW likewise. Initializers match Keras defaults (glorot-uniform
+kernels, zero biases, uniform(-0.05, 0.05) embeddings) and draw from an
+explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -51,9 +53,49 @@ def conv2d(params: dict, x: torch.Tensor, padding: str = "VALID") -> torch.Tenso
     return out.permute(0, 2, 3, 1)
 
 
+def conv1d_init(generator: torch.Generator, k: int, cin: int, cout: int) -> dict:
+    return {"w": _glorot_uniform(generator, (k, cin, cout), k * cin, k * cout),
+            "b": torch.zeros((cout,), dtype=torch.float32)}
+
+
+def conv1d(params: dict, x: torch.Tensor, padding: str = "SAME") -> torch.Tensor:
+    """Stride-1 convolution: NWC input, WIO kernel, NWC output. "SAME" of
+    an odd kernel pads (k - 1) / 2 on each side, as
+    `lax.conv_general_dilated` does."""
+    k = params["w"].shape[0]
+    pad = (k - 1) // 2 if padding == "SAME" else 0
+    out = F.conv1d(x.permute(0, 2, 1), params["w"].permute(2, 1, 0), params["b"],
+                   padding=pad)
+    return out.permute(0, 2, 1)
+
+
 def max_pool_2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """VALID max-pool over the spatial axes of an NHWC tensor."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), window).permute(0, 2, 3, 1)
+
+
+def max_pool_1d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """VALID max-pool over the length of an NWC tensor (an odd length
+    drops its last position)."""
+    return F.max_pool1d(x.permute(0, 2, 1), window).permute(0, 2, 1)
+
+
+def global_avg_pool_2d(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the spatial axes of an NHWC tensor: [N, C]. A plain
+    mean, not `nn.AdaptiveAvgPool2d`, whose CUDA backward has no
+    deterministic implementation (it raises under the card's mode)."""
+    return x.mean(dim=(1, 2))
+
+
+def embedding_init(generator: torch.Generator, vocab: int, dim: int) -> dict:
+    return {"table": torch.empty((vocab, dim), dtype=torch.float32).uniform_(
+        -0.05, 0.05, generator=generator)}
+
+
+def embedding(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The table's rows of integer `tokens` (never cast to a float type:
+    bf16 holds integers exactly only up to 256)."""
+    return F.embedding(tokens.long(), params["table"])
 
 
 def dropout(x: torch.Tensor, keep_mask: torch.Tensor | None, rate: float) -> torch.Tensor:

@@ -23,7 +23,9 @@ The hash is a 32-bit integer finalizer (two multiply-xorshift rounds with
 the odd constant 0x45d9f3b); a coordinate v is mixed in as
 `fmix(h ^ fmix(v + 0x9e3779b9))`. A bit keeps its element when the top 24
 bits of `fmix(layer seed ^ fmix(counter + 0x9e3779b9))` fall below
-keep * 2^24 (exact for the models' keep rates 0.75 and 0.5).
+round(keep * 2^24). The threshold is exact for the keep rates 0.75 and 0.5
+(the CIFAR10 CNN's, IMDB's). For ESC50's 0.8, keep * 2^24 = 13421772.8
+rounds up to 13421773: a bit keeps with probability 0.8 + 1.2e-8.
 """
 
 from __future__ import annotations

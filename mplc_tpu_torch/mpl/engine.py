@@ -400,9 +400,10 @@ class MplTrainer:
     def evaluate_models(self, params_b: dict, ev: EvalSet) -> tuple[torch.Tensor, torch.Tensor]:
         """([B] mean_loss, [B] accuracy) of B models stacked on a leading
         axis, vmapped over the models. Each eval chunk is cut so that
-        models x rows in one forward stay within EVAL_ROWS_IN_FLIGHT."""
+        models x rows in one forward stay within the model's rows in flight
+        (`constants.eval_rows_in_flight`)."""
         B = next(iter(next(iter(params_b.values())).values())).shape[0]
-        rows = max(1, constants.EVAL_ROWS_IN_FLIGHT // B)
+        rows = max(1, constants.eval_rows_in_flight(self.model.eval_row_bytes) // B)
         ls = cs = cnt = 0.0
         for cx, cy, cm in zip(ev.x, ev.y, ev.mask):
             for s in range(0, cx.shape[0], rows):

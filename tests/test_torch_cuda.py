@@ -1,7 +1,8 @@
 """The port on the card: K1 and K1-bf16 against their plain versions, the
 retraining sweep, SVARM, seqavg, lflip, the partner fault plan, fused
-wide steps, dropout masks and the CIFAR10 CNN's training forward pass
-against the CPU, and fp32 reproducibility.
+wide steps, dropout masks and the CIFAR10 and ESC50 CNNs' training forward
+passes against the CPU, and fp32 reproducibility (the IMDB model's
+embedding gradient too).
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -355,4 +356,50 @@ def test_cifar10_training_forward_on_the_card_matches_the_cpu(cuda):
     card = model.apply({g: {k: t.to(cuda) for k, t in d.items()} for g, d in params.items()},
                        x.to(cuda), dropout=[m.to(cuda) for m in masks]).cpu()
     assert float((cpu - model.apply(params, x)).abs().max()) > 1e-3
+    np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=0, atol=1e-5)
+
+
+def test_embedding_gradient_on_the_card_is_bit_equal_twice(cuda):
+    """The IMDB model's gradient vmapped over 4 stacked models, its tokens
+    drawn from 40 values so that every row repeats them: the table's
+    gradient accumulates the repeats, twice bit-equal under the card's
+    deterministic mode, and within 1e-6 of the CPU's."""
+    Scenario(3, [0.2, 0.3, 0.5], dataset=load_titanic(), is_dry_run=True)   # the card's modes
+    model = tzoo.IMDB_CONV1D
+    p = model.init(torch.Generator().manual_seed(0))
+    stacked = {g: {k: torch.stack([t * (1 + 0.1 * i) for i in range(4)]) for k, t in d.items()}
+               for g, d in p.items()}
+    x = torch.randint(300, 340, (4, 8, tzoo.IMDB_SEQ_LEN),
+                      generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    y = torch.randint(0, 2, (4, 8, 1), generator=torch.Generator().manual_seed(2)).float()
+    m = torch.ones(4, 8)
+
+    def loss(q, xb, yb, mb):
+        from mplc_tpu_torch.ops import metrics
+        return metrics.masked_loss_and_metrics("binary", model.apply(q, xb), yb, mb)[0]
+    grad = torch.func.vmap(torch.func.grad(loss))
+    on = lambda t: t.to(cuda)  # noqa: E731
+    card = [grad({g: {k: on(t) for k, t in d.items()} for g, d in stacked.items()},
+                 on(x), on(y), on(m)) for _ in range(2)]
+    cpu = grad(stacked, x, y, m)
+    for g in cpu:
+        for k in cpu[g]:
+            assert torch.equal(card[0][g][k], card[1][g][k]), (g, k)
+            torch.testing.assert_close(card[0][g][k].cpu(), cpu[g][k], rtol=1e-5, atol=1e-6)
+    table = card[0]["emb"]["table"]
+    assert float(table[:, 300:340].abs().sum()) > 0 and float(table[:, :300].abs().sum()) == 0
+
+
+def test_esc50_training_forward_on_the_card_matches_the_cpu(cuda):
+    """The ESC50 CNN's training forward pass under one set of injected
+    masks: logits within 1e-5 (fp32, TF32 off)."""
+    Scenario(3, [0.2, 0.3, 0.5], dataset=load_titanic(), is_dry_run=True)   # the card's modes
+    model = tzoo.ESC50_CNN
+    params = model.init(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).random((16, 40, 431, 1)).astype(np.float32))
+    masks = [m[0] for m in dropout.step_masks(torch.tensor([[3, 4]]), 16, model.dropout, 0)]
+    cpu = model.apply(params, x, dropout=masks)
+    card = model.apply({g: {k: t.to(cuda) for k, t in d.items()} for g, d in params.items()},
+                       x.to(cuda), dropout=[m.to(cuda) for m in masks]).cpu()
+    assert float((cpu - model.apply(params, x)).abs().max()) > 1e-4
     np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=0, atol=1e-5)

@@ -95,3 +95,31 @@ def test_split_batch_sizes_and_stacking_byte_equal(synthetic_env, name, descript
     for a, b in zip(jpartition.stack_eval_set(jd.x_test, jd.y_test, label_dim, 128),
                     tpartition.stack_eval_set(td.x_test, td.y_test, label_dim, 128, "cpu")):
         _assert_same(np.asarray(a), b.numpy())
+
+
+def test_synth_noise_knob(synthetic_env, monkeypatch):
+    """MPLC_TORCH_SYNTH_NOISE, the port's MPLC_TPU_SYNTH_NOISE: read by
+    `load_mnist` and `load_cifar10` only when no `noise` is passed;
+    unset, each keeps its default (0.45). The port at the knob's noise is
+    byte-equal to the JAX package at its knob's."""
+    from mplc_tpu_torch import constants
+    scale = 0.002
+    monkeypatch.delenv(constants.SYNTH_NOISE_ENV, raising=False)
+    default = {}
+    for name in ("mnist", "cifar10"):
+        load = getattr(tdatasets, f"load_{name}")
+        default[name] = load(scale).x_train
+        _assert_same(default[name], load(scale, noise=0.45).x_train)
+    monkeypatch.setenv(constants.SYNTH_NOISE_ENV, "0.3")
+    monkeypatch.setenv("MPLC_TPU_SYNTH_NOISE", "0.3")
+    monkeypatch.setenv("MPLC_TPU_SYNTH_SCALE", str(scale))
+    for name in ("mnist", "cifar10"):
+        load = getattr(tdatasets, f"load_{name}")
+        got = load(scale)
+        _assert_same(got.x_train, load(scale, noise=0.3).x_train)
+        assert not np.array_equal(got.x_train, default[name])
+        # an explicit noise wins over the knob
+        _assert_same(load(scale, noise=0.45).x_train, default[name])
+        jd = getattr(jdatasets, f"load_{name}")()
+        for split in _SPLITS:
+            _assert_same(getattr(jd, split), getattr(got, split))

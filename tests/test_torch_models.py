@@ -20,7 +20,7 @@ from mplc_tpu_torch.ops import metrics as tmetrics
 
 torch.set_num_threads(1)
 
-MODELS = ["mnist_cnn", "cifar10_cnn", "titanic_logreg"]
+MODELS = ["mnist_cnn", "cifar10_cnn", "imdb_conv1d", "esc50_cnn", "titanic_logreg"]
 
 
 def _setup(name, n=6, seed=0):
@@ -29,10 +29,16 @@ def _setup(name, n=6, seed=0):
     jp = jm.init(jax.random.PRNGKey(seed))
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
     rng = np.random.default_rng(seed)
-    if name in ("mnist_cnn", "cifar10_cnn"):
-        shape = (28, 28, 1) if name == "mnist_cnn" else (32, 32, 3)
+    if name in ("mnist_cnn", "cifar10_cnn", "esc50_cnn"):
+        shape = {"mnist_cnn": (28, 28, 1), "cifar10_cnn": (32, 32, 3),
+                 "esc50_cnn": (40, 431, 1)}[name]
         x = rng.random((n,) + shape).astype(np.float32)
-        y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)]
+        y = np.eye(tm.num_outputs, dtype=np.float32)[rng.integers(0, tm.num_outputs, n)]
+    elif name == "imdb_conv1d":
+        # int32 token ids over the whole vocabulary, most above bf16's
+        # exact integers (256)
+        x = rng.integers(1, tzoo.IMDB_NUM_WORDS, (n, tzoo.IMDB_SEQ_LEN)).astype(np.int32)
+        y = rng.integers(0, 2, (n, 1)).astype(np.float32)
     else:
         x = rng.standard_normal((n, 27)).astype(np.float32)
         y = rng.integers(0, 2, (n, 1)).astype(np.float32)
