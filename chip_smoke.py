@@ -139,7 +139,30 @@ Phases, each of which fails the script (non-zero exit, no result line):
    GTG-Shapley through K1 on the ESC50 stream (K = 60 rows of D =
    49,762), as [imdb] (b), with the recording again bit-equal. (c) A fit
    card vs CPU. (d) The evaluation's peak memory under the bytes bound
-   on its rows in flight, beside the bound's row count.
+   on its rows in flight, beside the bound's row count;
+18. cli: the user's entry point, `python3 -m mplc_tpu_torch.main -f
+   <config>`, called in-process from a temporary folder outside the
+   checkout (`mplc_tpu_torch.main.main`, so K1's launch counts, reset just
+   before and read just after, are the CLI's). (a) A YAML grid with the
+   `dataset_name` dict sub-syntax (`mnist: ~`) on synthetic MNIST at the
+   slice's scale and noise, the MNIST CNN at full width, 4 partners [0.1,
+   0.2, 0.3, 0.4], the splits ['basic', 'stratified'] and ['advanced',
+   [[3, 'specific'], [3, 'specific'], [4, 'shared'], [2, 'shared']]],
+   fedavg, data-volume, 2 epochs of minibatch 10 and gup 8, GTG-Shapley
+   and Shapley values: exit 0; results.csv 2 x 2 x 4 = 16 rows in the
+   JAX package's columns and order (`RESULTS_COLUMNS`, held to the JAX
+   `to_dataframe()` by tests/test_torch_cli.py); the test score above 0.3
+   (basic split) and 0.15 (advanced: 1.5 times chance, `CLI_V_MIN`) and
+   every score finite; K1 launched, K1-bf16 not; two scenario
+   folders (the dry runs made none), each with its final weights,
+   `coalition_cache.json` and `history_data.p`, and the experiment's
+   `info.log` and `debug.log`; K1 against its plain version on the
+   first scenario's stream. (b) A warm start, `mnist: [<(a)'s first final
+   weights>]`, 1 epoch, no method: the weights loaded on the card equal
+   the file bit for bit, and its test score is no lower than (a)'s first
+   scenario's minus 0.05. (c) Seconds a scenario (dry runs apart), the
+   peak memory above the phase's start, K1's launches by batch width and
+   whether the graphs were drawn (the card's machine has no matplotlib).
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -155,6 +178,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -167,6 +191,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import numpy as np  # noqa: E402
+import pandas as pd  # noqa: E402
 import torch  # noqa: E402
 
 from mplc_tpu_torch.contrib.contributivity import Contributivity  # noqa: E402
@@ -179,9 +204,11 @@ from mplc_tpu_torch.data.datasets import (Dataset, load_cifar10, load_mnist,  # 
                                           load_titanic, with_held_out_test)
 from mplc_tpu_torch.obs import numerics  # noqa: E402
 from mplc_tpu_torch.mpl import dropout  # noqa: E402
+from mplc_tpu_torch.mpl import approaches  # noqa: E402
 from mplc_tpu_torch.mpl.engine import MplTrainer  # noqa: E402
 from mplc_tpu_torch.ops import cuda_build, recon_kernel  # noqa: E402
 from mplc_tpu_torch.scenario import Scenario  # noqa: E402
+from mplc_tpu_torch.main import main as cli_main  # noqa: E402
 
 # Published peaks per card (NVIDIA data sheets, dense): fp32 outside the
 # tensor cores, bf16 and TF32 on the tensor cores (FLOP/s), device-memory
@@ -2013,6 +2040,200 @@ def phase_esc50(card, smi: str) -> dict:
     return out
 
 
+# The cli phase: the user's entry point, `python3 -m mplc_tpu_torch.main -f
+# <config>` (called in-process, so that K1's launch counts are the CLI's),
+# on synthetic MNIST at the slice's scale and noise and the MNIST CNN at its
+# full width: 4 partners [0.1, 0.2, 0.3, 0.4], a basic stratified split and
+# an advanced one (3 + 3 specific label clusters and 4 shared, of 10
+# labels), fedavg, data-volume, 2 epochs of bench's minibatch 10 and gup 8,
+# GTG-Shapley (through K1) and the exact sweep. The `dataset_name` dict
+# sub-syntax maps mnist to random weights, then, for the warm start, to the
+# first scenario's final weights.
+CLI_GRID = """experiment_name: {name}
+n_repeats: 1
+scenario_params_list:
+  - dataset_name:
+      mnist: {init}
+    partners_count: [4]
+    amounts_per_partner: [[0.1, 0.2, 0.3, 0.4]]
+    samples_split_option:
+      - ['basic', 'stratified']
+{advanced}    multi_partner_learning_approach: ['fedavg']
+    aggregation_weighting: ['data-volume']
+    epoch_count: [{epochs}]
+    minibatch_count: [10]
+    gradient_updates_per_pass_count: [8]
+    is_early_stopping: [false]
+{methods}"""
+CLI_ADVANCED = ("      - ['advanced', [[3, 'specific'], [3, 'specific'], [4, 'shared'], "
+                "[2, 'shared']]]\n")
+CLI_METHODS = "    methods: [['GTG-Shapley', 'Shapley values']]\n"
+# The test score each scenario of the grid must beat: 0.3 for the basic
+# split; for the advanced split 1.5 times chance (0.15). That split leaves
+# the partners 300 to 1,213 rows (3 to 15 rows a step) of 2 to 4 labels
+# each, and two epochs of FedAvg on it scored 0.216 on an H100 80GB HBM3 at
+# 700 W (the first run of this phase); the split is byte-equal to the JAX
+# package's (tests/test_torch_split.py)
+CLI_V_MIN = {"basic": 0.3, "advanced": 0.15}
+CLI_WARM_DROP = 0.05
+
+# The JAX package's results.csv columns (`Scenario.to_dataframe()` of a
+# scenario with a method, then `random_state` and `scenario_id`); the card's
+# machine has no JAX, so tests/test_torch_cli.py holds this list to it
+RESULTS_COLUMNS = [
+    "scenario_name", "short_scenario_name", "dataset_name", "train_data_samples_count",
+    "test_data_samples_count", "partners_count", "dataset_fraction_per_partner",
+    "samples_split_description", "nb_samples_used", "final_relative_nb_samples",
+    "multi_partner_learning_approach", "aggregation", "partner_shards", "slot_bucketing",
+    "epoch_count", "minibatch_count", "gradient_updates_per_pass_count", "is_early_stopping",
+    "mpl_test_score", "mpl_nb_epochs_done", "learning_computation_time_sec",
+    "contributivity_method", "contributivity_scores", "contributivity_stds",
+    "computation_time_sec", "first_characteristic_calls_count", "partner_id",
+    "dataset_fraction_of_partner", "contributivity_score", "contributivity_std",
+    "random_state", "scenario_id"]
+
+
+@contextlib.contextmanager
+def watched_cli(folder: Path):
+    """Inside the block: the working directory is `folder`, the CLI's
+    console log goes to `folder/console.log`, every `Scenario.run()` is
+    timed (its scenario kept) and every weights file loaded is kept. The
+    logger's handlers are closed and removed after."""
+    runs, loads = [], []
+    run, load = Scenario.run, approaches.load_params_npz
+
+    def timed_run(sc):
+        t0 = time.perf_counter()
+        out = run(sc)
+        torch.cuda.synchronize()
+        runs.append((sc, time.perf_counter() - t0))
+        return out
+
+    def kept_load(path, like, device):
+        params = load(path, like, device)
+        loads.append((Path(path), params))
+        return params
+
+    cwd = os.getcwd()
+    Scenario.run, approaches.load_params_npz = timed_run, kept_load
+    try:
+        with open(folder / "console.log", "w") as console, contextlib.redirect_stdout(console):
+            os.chdir(folder)
+            yield runs, loads
+    finally:
+        os.chdir(cwd)
+        Scenario.run, approaches.load_params_npz = run, load
+        logger = logging.getLogger("mplc_tpu_torch")
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+            h.close()
+
+
+def cli_experiment(folder: Path, name: str, **fields) -> tuple[int, Path]:
+    """The CLI on the config CLI_GRID.format(name=name, **fields) in
+    `folder`: its exit code and its experiment folder."""
+    (folder / f"{name}.yml").write_text(CLI_GRID.format(name=name, **fields))
+    rc = cli_main(["-f", f"{name}.yml", "--device", DEVICE])
+    if rc != 0:
+        # the CLI logged its traceback to the console log: show its end
+        sys.stdout.flush()
+        sys.__stdout__.write((folder / "console.log").read_text()[-4000:])
+    found = sorted((folder / constants.EXPERIMENTS_FOLDER_NAME).glob(f"{name}_*"))
+    check(rc == 0 and len(found) == 1, f"the CLI on {name}.yml exited {rc}")
+    return rc, found[0]
+
+
+def phase_cli(card, smi: str) -> dict:
+    """(a) The grid through the CLI; (b) a warm start from (a)'s first final
+    weights; (c) seconds a scenario, peak memory, K1's launches by batch
+    width and whether the graphs were drawn."""
+    with tempfile.TemporaryDirectory() as tmp, \
+            knob(constants.SYNTH_SCALE_ENV, str(SCALE)), knob(constants.SYNTH_NOISE_ENV, str(NOISE)):
+        folder = Path(tmp)
+        recon_kernel.launches = recon_kernel.launches_bf16 = 0
+        recon_kernel.launch_widths = {}
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with watched_cli(folder) as (runs, _):
+            _, exp = cli_experiment(folder, "cli_grid", init="~", advanced=CLI_ADVANCED,
+                                    epochs=2, methods=CLI_METHODS)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches, bf16 = recon_kernel.launches, recon_kernel.launches_bf16
+        widths = dict(sorted(recon_kernel.launch_widths.items()))
+        df = pd.read_csv(exp / "results.csv")
+        scores = df[["mpl_test_score", "contributivity_score", "contributivity_std"]].to_numpy()
+        folders = sorted(exp.glob("scenario_*"))
+        parts = ("model/mnist_final_weights.npz", "coalition_cache.json", "history_data.p")
+        graphs = all((f / "graphs" / "data_distribution.png").exists() for f in folders)
+        print(f"[cli] `python3 -m mplc_tpu_torch.main` on a grid of {len(runs)} scenarios "
+              f"(MNIST CNN, 4 partners, basic stratified and advanced splits, GTG-Shapley and "
+              f"Shapley values): {wall:.2f} s, dry runs included; seconds a scenario "
+              f"{[round(s, 2) for _, s in runs]}; peak memory {(peak - base) / 2 ** 30:.2f} GiB "
+              f"above the phase's start; results.csv {df.shape[0]} rows x {df.shape[1]} columns; "
+              f"test scores {df.groupby('scenario_id')['mpl_test_score'].first().round(4).tolist()}; "
+              f"partners' training rows {[[len(p.x_train) for p in sc.partners_list] for sc, _ in runs]}; "
+              f"graphs {'drawn' if graphs else 'skipped (no matplotlib)'}")
+        for method, group in df.groupby("contributivity_method", sort=False):
+            print(f"[cli] {method}: {np.round(group['contributivity_score'].to_numpy(), 4).tolist()}")
+        print(f"[cli] launches {recon_kernel.KERNEL} {launches}, {recon_kernel.KERNEL_BF16} {bf16};"
+              f" {recon_kernel.KERNEL} launches by batch width {json.dumps(widths)}")
+        check(list(df.columns) == RESULTS_COLUMNS, f"results.csv columns {list(df.columns)}")
+        check(len(df) == 2 * 2 * 4 and len(runs) == 2,
+              f"results.csv has {len(df)} rows from {len(runs)} scenarios, not 16 from 2")
+        check(bool(np.isfinite(scores).all()), "a score in results.csv is not finite")
+        firsts = df.groupby("scenario_id").first()
+        bounds = [CLI_V_MIN["advanced" if d.startswith("[") else "basic"]
+                  for d in firsts["samples_split_description"]]
+        check(bool((firsts["mpl_test_score"].to_numpy() > bounds).all()),
+              f"a scenario's test score is not above its bound {CLI_V_MIN}")
+        check(launches > 0, "the CLI never launched K1")
+        check(bf16 == 0, "the fp32 CLI launched K1-bf16")
+        check(len(folders) == 2, f"{len(folders)} scenario folders, not 2: a dry run wrote one")
+        check(all((f / part).exists() for f in folders for part in parts),
+              "a scenario folder lacks its final weights, coalition cache or history")
+        check((exp / "info.log").exists() and (exp / "debug.log").exists(),
+              "the experiment folder lacks info.log or debug.log")
+
+        # K1 on the CLI's stream (the first scenario's recording), against its
+        # plain version: the 15 coalitions of 4 partners and the empty one
+        recon = runs[0][0].contributivity_list[0]._reconstructor()
+        subsets = powerset_order(4) + [()]
+        masks = torch.from_numpy(recon.engine._coalition_arrays(subsets)).to(DEVICE)
+        wn2 = recon_kernel.normalized_round_weights(masks, recon._weights).reshape(len(subsets), -1)
+        entry = kernel_entry(recon_kernel.KERNEL, wn2.contiguous(), recon._d2, recon._init,
+                             launches, card, timed=False)
+        print(f"[cli] {recon_kernel.KERNEL} on the CLI's stream {entry['shape']}: max abs err "
+              f"against its plain version {entry['max_abs_err']:.3g}")
+
+        # (b) the warm start
+        first = folders[0] / parts[0]
+        cold = float(df.loc[df["scenario_id"] == 0, "mpl_test_score"].iloc[0])
+        with watched_cli(folder) as (warm_runs, loads):
+            _, warm = cli_experiment(folder, "cli_warm", init=f"['{first}']", advanced="",
+                                     epochs=1, methods="")
+        wdf = pd.read_csv(warm / "results.csv")
+        with np.load(first) as f:
+            stored = [f[f"leaf_{i}"] for i in range(len(f.files) - 1)]
+        (path, params), = loads
+        leaves = approaches._flatten(params)
+        same = (path == first and len(leaves) == len(stored)
+                and all(t.device.type == torch.device(DEVICE).type
+                        and torch.equal(t.cpu(), torch.from_numpy(a)) for t, a in zip(leaves, stored)))
+        score = float(wdf["mpl_test_score"].iloc[0])
+        print(f"[cli] warm start from {first.relative_to(folder)}: {len(leaves)} tensors loaded "
+              f"on {leaves[0].device}, bit-equal to the file: {same}; 1 epoch in "
+              f"{warm_runs[0][1]:.2f} s, test score {score:.4f} (the cold scenario's "
+              f"{cold:.4f}); on {smi}")
+        check(same, "the warm start's weights on the card differ from the file")
+        check(len(wdf) == 1 and list(wdf.columns) == RESULTS_COLUMNS[:21] + RESULTS_COLUMNS[-2:],
+              "the warm start's results.csv is not one row of the method-less columns")
+        check(score >= cold - CLI_WARM_DROP,
+              f"the warm start scores {score:.4f}, below {cold:.4f} - {CLI_WARM_DROP}")
+    return {"launches": launches, "widths": widths, "seconds": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2050,7 +2271,8 @@ def main() -> int:
     phase_estimators(sweep)
     phase_variants()
     paths = {"faults": phase_faults(card, sweep, smi), "cifar10": phase_cifar10(card, smi),
-             "imdb": phase_imdb(card, smi), "esc50": phase_esc50(card, smi)}
+             "imdb": phase_imdb(card, smi), "esc50": phase_esc50(card, smi),
+             "cli": phase_cli(card, smi)}
     for e in kernels:
         B = e["shape"]["B"]
         if not e["name"].startswith(recon_kernel.KERNEL_BF16):

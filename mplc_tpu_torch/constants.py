@@ -18,6 +18,25 @@ PATIENCE = 10  # early-stopping patience, in epochs
 DEFAULT_BATCH_COUNT = 20
 DEFAULT_EPOCH_COUNT = 40
 
+# Logging file names of an experiment folder (utils.set_log_file)
+INFO_LOGGING_FILE_NAME = "info.log"
+DEBUG_LOGGING_FILE_NAME = "debug.log"
+
+# The CLI's experiment folders live under this folder of the working
+# directory
+EXPERIMENTS_FOLDER_NAME = "experiments"
+
+# Quick-demo shrink sizes (`Scenario(is_quick_demo=True)`)
+TRAIN_SET_MAX_SIZE_QUICK_DEMO = 1000
+VAL_SET_MAX_SIZE_QUICK_DEMO = 500
+TEST_SET_MAX_SIZE_QUICK_DEMO = 500
+
+# A folder of cached or raw datasets (`mnist.npz`, `cifar10.npz`,
+# `titanic.npz`, `titanic.csv`, `imdb.npz`, `esc50.npz`, `esc50/`), looked
+# at before `~/.keras/datasets`; where neither holds a dataset, its loader
+# synthesizes it. Read when a loader runs.
+DATA_DIR_ENV = "MPLC_TORCH_DATA_DIR"
+
 # Contributivity method registry names: every method the JAX package
 # knows, all of them computed by the port.
 CONTRIBUTIVITY_METHODS = [
@@ -186,6 +205,9 @@ PLANNER_DEADLINE_ENV = "MPLC_TORCH_PLANNER_DEADLINE_SEC"
 # Read when a TrainConfig is built and frozen into it.
 PRECISION_ENV = "MPLC_TORCH_PRECISION"
 PRECISION_MODES = ("fp32", "mixed", "bf16")
+# The Scenario's `compute_dtype`: "bfloat16" computes the model in bf16
+# under the fp32 mode too
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def precision_mode() -> str:

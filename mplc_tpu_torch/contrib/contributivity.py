@@ -970,6 +970,7 @@ class Contributivity:
             minibatch_count=sc.minibatch_count,
             gradient_updates_per_pass=sc.gradient_updates_per_pass_count,
             is_early_stopping=False,
+            compute_dtype=sc.compute_dtype,
             record_partner_val=False,
             # the reward comes from a fresh end-of-epoch eval below
             record_val_history=False,

@@ -165,6 +165,7 @@ class CharacteristicEngine:
             # the reference trains coalitions with early stopping on, but
             # with epoch_count <= patience the stop rule can never fire
             is_early_stopping=scenario.epoch_count > constants.PATIENCE,
+            compute_dtype=scenario.compute_dtype,
             record_partner_val=False,
             record_val_history=False,
             partner_drop_epochs=drop_epochs,
@@ -468,7 +469,7 @@ class CharacteristicEngine:
             "deterministic_reduce": bool(cfg.deterministic_reduce),
             "partner_fault_plan": faults.normalized_plan_repr(self._partner_faults),
             "seed_ensemble": self.seed_ensemble,
-            "compute_dtype": "float32",
+            "compute_dtype": cfg.compute_dtype,
             "precision": cfg.precision,
             "split": [str(sc.samples_split_type), str(sc.samples_split_description)],
             "corruption": [str(c) for c in sc.corrupted_datasets],

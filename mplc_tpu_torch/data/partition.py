@@ -1,8 +1,10 @@
 """Data partitioning among partners, and the stacked device layout (port of
-`mplc_tpu/data/partition.py`: the basic split, batch sizes, stacking).
+`mplc_tpu/data/partition.py`: the basic and advanced splits, batch sizes,
+stacking).
 
-`split_basic` and `compute_batch_sizes` are numpy and reproduce the JAX
-package's splits byte for byte (same seed-42 shuffle, same label order).
+`split_basic`, `split_advanced` and `compute_batch_sizes` are numpy and
+reproduce the JAX package's splits byte for byte (same seed-42 shuffles,
+same label order, the same `random.Random(42)` draws).
 `StackedPartners` pads every partner's train data to a common length and
 stacks it on a leading partner axis `[P, Nmax, ...]` with a validity mask,
 on the requested device: every multi-partner strategy is then a batch
@@ -11,12 +13,13 @@ dimension over axis 0 and every coalition a length-P mask.
 
 from __future__ import annotations
 
+import random
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from .datasets import Dataset
+from .datasets import Dataset, train_test_split
 from .partner import Partner
 
 
@@ -66,6 +69,102 @@ def split_basic(dataset: Dataset, partners_list: Sequence[Partner],
     if minibatch_count > min(amounts_per_partner) * len(y_train_enc):
         raise ValueError("a partner doesn't have enough data samples to "
                          "create the minibatches")
+
+
+def split_advanced(dataset: Dataset, partners_list: Sequence[Partner],
+                   amounts_per_partner: Sequence[float],
+                   description: Sequence, minibatch_count: int) -> tuple[int, list[float]]:
+    """The cluster split: partner i takes `description[i]` = (count,
+    "specific" | "shared") label clusters. The labels are shuffled by
+    `random.Random(42)`; the "specific" partners, largest count first, take
+    consecutive runs of them; the next max(shared counts) labels are the
+    shared clusters, from which each "shared" partner, largest count first,
+    draws its own with the same generator. Every partner's amount is then
+    scaled by one factor so that no cluster is overdrawn, split evenly over
+    its clusters (shared clusters handed out in partner order), and its rows
+    split 90/10 into train and val, then train and test.
+
+    Returns (nb_samples_used, final_relative_nb_samples)."""
+    y_train = _encode_labels(dataset.y_train)
+    x_full = np.asarray(dataset.x_train)
+    y_full = np.asarray(dataset.y_train)
+
+    for p in partners_list:
+        p.cluster_count = int(description[p.id][0])
+        p.cluster_split_option = description[p.id][1]
+    shared_ps = [p for p in partners_list if p.cluster_split_option == "shared"]
+    specific_ps = [p for p in partners_list if p.cluster_split_option == "specific"]
+    shared_ps.sort(key=lambda p: p.cluster_count, reverse=True)
+    specific_ps.sort(key=lambda p: p.cluster_count, reverse=True)
+
+    labels = sorted(set(y_train.tolist()))
+    rnd = random.Random(42)
+    rnd.shuffle(labels)
+
+    specific_clusters_count = sum(p.cluster_count for p in specific_ps)
+    shared_clusters_count = max((p.cluster_count for p in shared_ps), default=0)
+    if specific_clusters_count + shared_clusters_count > len(labels):
+        raise AssertionError(
+            "Incompatibility between the advanced split arguments and the dataset's "
+            "label count: total requested clusters exceed the number of labels")
+
+    x_c, y_c, n_c = {}, {}, {}
+    for label in labels:
+        idx = np.where(y_train == label)[0]
+        x_c[label] = x_full[idx]
+        y_c[label] = y_full[idx]
+        n_c[label] = len(idx)
+
+    index = 0
+    for p in specific_ps:
+        p.clusters_list = labels[index:index + p.cluster_count]
+        index += p.cluster_count
+    shared_clusters = labels[index:index + shared_clusters_count]
+    for p in shared_ps:
+        p.clusters_list = rnd.sample(shared_clusters, k=p.cluster_count)
+
+    resize_specific = 1.0
+    for p in specific_ps:
+        available = sum(n_c[cl] for cl in p.clusters_list)
+        requested = int(amounts_per_partner[p.id] * len(y_train))
+        resize_specific = min(resize_specific, available / requested)
+
+    resize_shared = 1.0
+    needed = dict.fromkeys(shared_clusters, 0)
+    for p in shared_ps:
+        amount = int(amounts_per_partner[p.id] * len(y_train) * resize_specific)
+        per_cluster = int(amount / p.cluster_count)
+        for cl in p.clusters_list:
+            needed[cl] += per_cluster
+    for cl in needed:
+        if needed[cl] > 0:
+            resize_shared = min(resize_shared, n_c[cl] / needed[cl])
+
+    final_resize = resize_specific * resize_shared
+    for p in partners_list:
+        p.final_nb_samples = int(amounts_per_partner[p.id] * len(y_train) * final_resize)
+        p.final_nb_samples_p_cluster = int(p.final_nb_samples / p.cluster_count)
+    nb_samples_used = sum(p.final_nb_samples for p in partners_list)
+    final_relative = [p.final_nb_samples / nb_samples_used for p in partners_list]
+
+    shared_index = dict.fromkeys(shared_clusters, 0)
+    for p in partners_list:
+        xs, ys = [], []
+        for cl in p.clusters_list:
+            i0 = shared_index[cl] if p.cluster_split_option == "shared" else 0
+            xs.append(x_c[cl][i0:i0 + p.final_nb_samples_p_cluster])
+            ys.append(y_c[cl][i0:i0 + p.final_nb_samples_p_cluster])
+            if p.cluster_split_option == "shared":
+                shared_index[cl] += p.final_nb_samples_p_cluster
+        p.x_train, p.x_val, p.y_train, p.y_val = train_test_split(
+            np.concatenate(xs), np.concatenate(ys), test_size=0.1, random_state=42)
+        p.x_train, p.x_test, p.y_train, p.y_test = train_test_split(
+            p.x_train, p.y_train, test_size=0.1, random_state=42)
+
+    if minibatch_count > min(len(p.x_train) for p in partners_list):
+        raise AssertionError("Error: a partner doesn't have enough data samples to "
+                             "create the minibatches")
+    return nb_samples_used, final_relative
 
 
 def compute_batch_sizes(partners_list: Sequence[Partner], minibatch_count: int,

@@ -68,7 +68,8 @@ trainer. They are computed on the run's device, or injected
 its runs are those of a port without dropout. Evaluation never drops.
 
 Precision (`TrainConfig.precision`): the model computes in `cfg.dtype`
-(bf16 under `mixed` and `bf16`); parameters, optimizer state, aggregation
+(bf16 under `mixed` and `bf16`, or under `fp32` with `compute_dtype`
+"bfloat16"); parameters, optimizer state, aggregation
 weights and the recorded deltas stay float32 in every mode.
 """
 
@@ -121,6 +122,10 @@ class TrainConfig:
     # parameters, optimizer state, aggregation and the recorded stream stay
     # float32 in every mode.
     precision: str | None = None
+    # the Scenario's `compute_dtype`: "bfloat16" computes the model in bf16
+    # under the fp32 precision mode too (the JAX package's rule); "float32"
+    # leaves the dtype to the precision mode
+    compute_dtype: str = "float32"
     # slot execution (fedavg and seq coalition sweeps): train `slot_count` partner
     # slots a coalition instead of all P partners masked. The coalition
     # argument is then int slot ids [B, slot_count], -1 marking an unused
@@ -170,6 +175,9 @@ class TrainConfig:
         if self.precision not in constants.PRECISION_MODES:
             raise ValueError(f"precision must be one of "
                              f"{constants.PRECISION_MODES}, got {self.precision!r}")
+        if self.compute_dtype not in constants.COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {constants.COMPUTE_DTYPES}, "
+                             f"got {self.compute_dtype!r}")
         if self.approach not in APPROACH_NAMES:
             raise KeyError(
                 f"Multi-partner learning approach '{self.approach}' is not a valid "
@@ -197,8 +205,11 @@ class TrainConfig:
 
     @property
     def dtype(self) -> torch.dtype:
-        """The model compute dtype."""
-        return torch.float32 if self.precision == "fp32" else torch.bfloat16
+        """The model compute dtype: bf16 under `mixed` and `bf16`, and
+        under `fp32` when `compute_dtype` is "bfloat16"."""
+        if self.precision == "fp32" and self.compute_dtype == "float32":
+            return torch.float32
+        return torch.bfloat16
 
     @property
     def pass_steps(self) -> int:

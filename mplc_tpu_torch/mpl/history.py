@@ -16,6 +16,8 @@ from pathlib import Path
 import numpy as np
 import pandas as pd
 
+from ..utils import pyplot
+
 
 def _host(t) -> np.ndarray:
     """A tensor (on any device) or array as a host numpy array."""
@@ -80,14 +82,15 @@ class History:
         return pd.DataFrame.from_dict(temp)
 
     def save_data(self):
+        """`history_data.p` (the pickled matrices), then, where matplotlib
+        is installed, the loss, accuracy and per-partner graphs."""
         if self.save_folder is None:
             return
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
         with open(self.save_folder / "history_data.p", "wb") as f:
             pickle.dump(self.history, f)
+        plt = pyplot()
+        if plt is None:
+            return
 
         graphs = self.save_folder / "graphs"
         os.makedirs(graphs, exist_ok=True)

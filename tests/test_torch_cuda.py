@@ -1,8 +1,8 @@
 """The port on the card: K1 and K1-bf16 against their plain versions, the
 retraining sweep, SVARM, seqavg, lflip, the partner fault plan, fused
 wide steps, dropout masks and the CIFAR10 and ESC50 CNNs' training forward
-passes against the CPU, and fp32 reproducibility (the IMDB model's
-embedding gradient too).
+passes against the CPU, fp32 reproducibility (the IMDB model's embedding
+gradient too), and the CLI's Titanic grid against the CPU's.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -10,7 +10,11 @@ so they run on a machine that has only the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import logging
+import re
+
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -20,6 +24,7 @@ from mplc_tpu_torch.contrib.reconstruct import ReconstructionEvaluator, record_u
 from mplc_tpu_torch.convert import params_to_numpy, recorded_run_from_numpy
 from mplc_tpu_torch.contrib.shapley import powerset_order
 from mplc_tpu_torch.data.datasets import load_mnist, load_titanic
+from mplc_tpu_torch.main import main as cli_main
 from mplc_tpu_torch.models import zoo as tzoo
 from mplc_tpu_torch.mpl import dropout
 from mplc_tpu_torch.ops import recon_kernel as trk
@@ -403,3 +408,60 @@ def test_esc50_training_forward_on_the_card_matches_the_cpu(cuda):
                        x.to(cuda), dropout=[m.to(cuda) for m in masks]).cpu()
     assert float((cpu - model.apply(params, x)).abs().max()) > 1e-4
     np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=0, atol=1e-5)
+
+
+TITANIC_GRID = """experiment_name: titanic_grid
+n_repeats: 1
+scenario_params_list:
+  - dataset_name:
+      titanic: null
+    partners_count: [3]
+    amounts_per_partner: [[0.2, 0.3, 0.5]]
+    samples_split_option: [['basic', 'random'], ['advanced', [[1, 'specific'], [1, 'shared'], [1, 'shared']]]]
+    aggregation_weighting: ['uniform', 'local-score']
+    epoch_count: [2]
+    minibatch_count: [2]
+    gradient_updates_per_pass_count: [2]
+    is_early_stopping: [False]
+    methods: [['Independent scores', 'GTG-Shapley']]
+"""
+
+
+def _cli_results(folder, device, monkeypatch):
+    folder.mkdir()
+    (folder / "cfg.yml").write_text(TITANIC_GRID)
+    monkeypatch.chdir(folder)
+    logger = logging.getLogger("mplc_tpu_torch")
+    handlers = list(logger.handlers)
+    try:
+        assert cli_main(["-f", "cfg.yml", "--device", device]) == 0
+    finally:
+        # the CLI's console handler writes to the test's captured stdout
+        for h in list(logger.handlers):
+            if h not in handlers:
+                logger.removeHandler(h)
+    (exp,) = (folder / "experiments").glob("titanic_grid_*")
+    return pd.read_csv(exp / "results.csv")
+
+
+def test_titanic_cli_grid_on_the_card_matches_the_cpu(cuda, monkeypatch, tmp_path):
+    """`python3 -m mplc_tpu_torch.main` on a Titanic grid of four scenarios
+    on the card and on the CPU: the same results.csv but for the scenario
+    names and the times, the scores within one test sample (90 rows)."""
+    monkeypatch.delenv(constants.PRECISION_ENV, raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    card = _cli_results(tmp_path / "card", "cuda", monkeypatch)
+    cpu = _cli_results(tmp_path / "cpu", "cpu", monkeypatch)
+    assert list(card.columns) == list(cpu.columns) and len(card) == len(cpu) == 4 * 2 * 3
+    for col in card.columns:
+        if col in ("scenario_name", "learning_computation_time_sec", "computation_time_sec"):
+            continue
+        if col in ("mpl_test_score", "contributivity_score", "contributivity_std",
+                   "contributivity_scores", "contributivity_stds"):
+            for a, b in zip(card[col], cpu[col]):
+                a, b = ([float(x) for x in re.findall(r"[-+]?\d*\.?\d+(?:[eE][-+]?\d+)?",
+                                                      re.sub(r"np\.float\d+", "", v))]
+                        if isinstance(v, str) else [v] for v in (a, b))
+                np.testing.assert_allclose(a, b, rtol=0, atol=1.0 / 90 + 1e-6, err_msg=col)
+        else:
+            pd.testing.assert_series_equal(card[col], cpu[col], obj=col)
