@@ -163,6 +163,30 @@ Phases, each of which fails the script (non-zero exit, no result line):
    scenario's minus 0.05. (c) Seconds a scenario (dry runs apart), the
    peak memory above the phase's start, K1's launches by batch width and
    whether the graphs were drawn (the card's machine has no matplotlib).
+19. obs: the observability base. (a) The slice's main path again, with
+   MPLC_TORCH_TRACE_FILE set to a temporary file, inside `trace.collect()`
+   and with K1's launch counts reset just before: every value bit-equal to
+   the slice's (tracing changes no number), K1 launched, the report's
+   `reconstruction.recon_batches` equal to K1's launches, its eval-only
+   `engine.batch` events counted by width equal to K1's launches by width,
+   `reconstruction.reconstructions` the evaluator's count, memo hits plus
+   misses the requests, every batch's dispatch and harvest inside an
+   `engine.evaluate` span (the recording's dispatch inside `recon.record`),
+   every record's name registered, each `contributivity` span's duration
+   its method's `computation_time_sec`; the report printed with the traced
+   seconds beside the slice's. (b) The JSONL converted to Chrome
+   trace-event JSON: no torn line, the output loads, an event for every
+   record. (c) `utils.profile_trace` around a fresh reconstruction
+   evaluator on the slice's recording valuing 128 coalitions (two K1
+   launches at B = 64): the profiler's CUDA kernel events hold K1's kernel
+   exactly as many times as its launch count rose; K1's mean profiled time
+   printed beside its CUDA-event time, with the window's device busy share
+   and its top kernels. (d) The sweep phase's run, collected: the report's
+   batch count equal to the engine's batch log, 31 coalitions, the
+   device-memory high water above 0 and at most
+   `torch.cuda.max_memory_allocated()`. (e) `obs.flight.dump` into a
+   temporary folder: one file that parses, a ring no larger than its size,
+   a metrics snapshot.
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -202,12 +226,14 @@ from mplc_tpu_torch.contrib.shapley import powerset_order  # noqa: E402
 from mplc_tpu_torch import constants  # noqa: E402
 from mplc_tpu_torch.data.datasets import (Dataset, load_cifar10, load_mnist,  # noqa: E402
                                           load_titanic, with_held_out_test)
-from mplc_tpu_torch.obs import numerics  # noqa: E402
+from mplc_tpu_torch.obs import (analyze_trace, chrome_trace, flight, metrics,  # noqa: E402
+                                numerics, report, trace)
 from mplc_tpu_torch.mpl import dropout  # noqa: E402
 from mplc_tpu_torch.mpl import approaches  # noqa: E402
 from mplc_tpu_torch.mpl.engine import MplTrainer  # noqa: E402
 from mplc_tpu_torch.ops import cuda_build, recon_kernel  # noqa: E402
 from mplc_tpu_torch.scenario import Scenario  # noqa: E402
+from mplc_tpu_torch.utils import profile_trace  # noqa: E402
 from mplc_tpu_torch.main import main as cli_main  # noqa: E402
 
 # Published peaks per card (NVIDIA data sheets, dense): fp32 outside the
@@ -312,6 +338,19 @@ def mnist_scenario(methods, partners: int = PARTNERS, approach: str = "fedavg",
                     device=DEVICE, **kw)
 
 
+def main_path(precision: str = "fp32") -> tuple:
+    """(scenario, GTG-Shapley, exact) of the main path under `precision`:
+    `Scenario.run()` with GTG-Shapley, then the exact reconstruction over
+    every coalition, synchronized."""
+    with precision_env(precision):
+        sc = mnist_scenario(["GTG-Shapley"])
+        sc.run()
+    exact = Contributivity(sc)
+    exact.exact_reconstructed()
+    torch.cuda.synchronize()
+    return sc, sc.contributivity_list[0], exact
+
+
 def phase_slice(precision: str = "fp32") -> dict:
     """The main path under `precision`, through the user entry points."""
     tag = "slice" if precision == "fp32" else f"slice {precision}"
@@ -320,13 +359,7 @@ def phase_slice(precision: str = "fp32") -> dict:
     recon_kernel.launch_widths = {}
     recon_kernel.launch_widths_bf16 = {}
     t0 = time.perf_counter()
-    with precision_env(precision):
-        sc = mnist_scenario(["GTG-Shapley"])
-        sc.run()
-    gtg = sc.contributivity_list[0]
-    exact = Contributivity(sc)
-    exact.exact_reconstructed()
-    torch.cuda.synchronize()
+    sc, gtg, exact = main_path(precision)
     wall = time.perf_counter() - t0
     launches = {recon_kernel.KERNEL: recon_kernel.launches,
                 recon_kernel.KERNEL_BF16: recon_kernel.launches_bf16}
@@ -379,7 +412,8 @@ def phase_slice(precision: str = "fp32") -> dict:
     check(err <= bound, "reconstructed grand coalition differs from the "
                         "recording run's final params")
     return {"launches": launches[kernel], "widths": widths, "recon": recon,
-            "values": values, "sv": sv}
+            "values": values, "sv": sv, "gtg": gtg.contributivity_scores,
+            "score": sc.mpl.history.score, "seconds": wall}
 
 
 def titanic_recording(device: str, epochs: int, precision: str) -> tuple:
@@ -759,12 +793,17 @@ def phase_sweep() -> dict:
     recon_kernel.launches = recon_kernel.launches_bf16 = 0
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    # collected for the obs phase (d); the registry starts empty, so its
+    # memory high water is this run's
+    metrics.reset()
     t0 = time.perf_counter()
-    sc = mnist_scenario(SWEEP_METHODS, P)
-    sc.run()
+    with trace.collect() as records:
+        sc = mnist_scenario(SWEEP_METHODS, P)
+        sc.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    snapshot = metrics.snapshot()
     sv_c, ind_c = sc.contributivity_list
     eng = sc._charac_engine
     subsets = powerset_order(P)
@@ -800,7 +839,8 @@ def phase_sweep() -> dict:
           f"the sweep trained other batches than its 31 coalitions need: {batches}")
     check(recon_kernel.launches == recon_kernel.launches_bf16 == 0,
           "the retraining sweep launched a reconstruction kernel")
-    return {"scenario": sc, "sv": sv}
+    return {"scenario": sc, "sv": sv, "records": records, "metrics": snapshot,
+            "peak": peak}
 
 
 # The slots phase: bench config 1's 10 partners; the masked reference
@@ -2234,6 +2274,156 @@ def phase_cli(card, smi: str) -> dict:
     return {"launches": launches, "widths": widths, "seconds": wall}
 
 
+# The obs phase: the main path traced, its JSONL converted, a profiled
+# reconstruction window, the sweep's collected report, a flight dump
+OBS_PROFILE_COALITIONS = 128    # two K1 launches at B = 64
+OBS_TOP_KERNELS = 10
+
+
+def obs_main_path(sl) -> tuple[dict, list, Path]:
+    """(a): the main path again, traced to a JSONL file and collected, with
+    K1's launch counts reset just before; gated against the slice phase's
+    values and against K1's launch counts. Returns its path entry, the
+    records and the JSONL file (inside a folder the caller removes)."""
+    jsonl = Path(tempfile.mkdtemp(prefix="mplc_obs_")) / "main_path.jsonl"
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    recon_kernel.launch_widths = {}
+    t0 = time.perf_counter()
+    with knob(trace.TRACE_FILE_ENV, str(jsonl)), trace.collect() as records:
+        sc, gtg, exact = main_path()
+    wall = time.perf_counter() - t0
+    trace._sink_file()  # the env is restored: closes the sink, the file is whole
+    launches, widths = recon_kernel.launches, dict(sorted(recon_kernel.launch_widths.items()))
+    recon = exact._reconstructor()
+    values = np.array([recon.values[s] for s in powerset_order(PARTNERS)])
+    rep = report.sweep_report(records)
+    print(report.format_report(rep))
+    print(f"[obs] main path traced: {wall:.2f} s (the slice's untraced {sl['seconds']:.2f} s), "
+          f"{len(records)} records; launches {recon_kernel.KERNEL} {launches}, by width "
+          f"{json.dumps(widths)}")
+    check(bool(np.array_equal(values, sl["values"]) and np.array_equal(exact.contributivity_scores, sl["sv"])
+               and np.array_equal(gtg.contributivity_scores, sl["gtg"])
+               and sc.mpl.history.score == sl["score"]),
+          "the traced main path's values differ from the slice's")
+    check(launches > 0 and recon_kernel.launches_bf16 == 0,
+          "the traced main path did not launch K1 alone")
+    r = rep["reconstruction"]
+    check(r["recon_batches"] == launches,
+          f"the report counts {r['recon_batches']} reconstruction batches, K1 launched {launches}")
+    by_width: dict = {}
+    for rec in records:
+        if rec["name"] == "engine.batch" and rec["attrs"].get("eval_only"):
+            w = rec["attrs"]["width"]
+            by_width[w] = by_width.get(w, 0) + 1
+    check(by_width == widths, f"eval-only batches by width {by_width}, K1's launches {widths}")
+    check(r["reconstructions"] == recon.reconstructions,
+          f"the report counts {r['reconstructions']} reconstructions, the evaluator "
+          f"{recon.reconstructions}")
+    m = rep["memo"]
+    check(m["hits"] + m["misses"] == m["requested"], f"memo {m}")
+    by_id = {rec["id"]: rec for rec in records}
+    for rec in records:
+        check(rec["name"] in trace.SPAN_REGISTRY, f"unregistered record {rec['name']}")
+        if rec["name"] in ("engine.dispatch", "engine.harvest"):
+            want = "recon.record" if rec["attrs"].get("recording") else "engine.evaluate"
+            parent = by_id.get(rec["parent"], {}).get("name")
+            check(parent == want, f"a {rec['name']} record's parent is {parent}, not {want}")
+    spans = [rec for rec in records if rec["name"] == "contributivity"]
+    check([(rec["attrs"]["method"], rec["dur"]) for rec in spans]
+          == [(c.name, c.computation_time_sec) for c in (gtg, exact)],
+          "the contributivity spans are not the methods' timers")
+    return {"launches": launches, "widths": widths, "seconds": wall}, records, jsonl
+
+
+def obs_chrome(records: list, jsonl: Path) -> None:
+    """(b): the JSONL converted to Chrome trace-event JSON."""
+    summary = chrome_trace.convert(str(jsonl))
+    with open(summary["out"]) as f:
+        doc = json.load(f)
+    slices = sum(1 for e in doc["traceEvents"] if e["ph"] == "X")
+    print(f"[obs] chrome trace {Path(summary['out']).name}: {summary['events']} events from "
+          f"{summary['records']} records, {summary['torn_lines']} torn lines")
+    check(summary["torn_lines"] == 0, "the JSONL has a torn line")
+    check(summary["records"] == len(records) and slices == len(records)
+          and summary["events"] >= len(records),
+          "the Chrome trace does not hold an event for every record")
+
+
+def obs_profile(sl, kernels: list) -> None:
+    """(c): a profiled reconstruction window, K1's kernel events counted."""
+    subsets = powerset_order(PARTNERS)[:OBS_PROFILE_COALITIONS]
+    recon = ReconstructionEvaluator(sl["recon"].engine, sl["recon"].recorded)
+    launches = recon_kernel.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp) as prof:
+            recon.evaluate(subsets)
+            torch.cuda.synchronize()
+        launched = recon_kernel.launches - launches
+        summary = analyze_trace.summarize(prof.path)
+    k1 = {n: k for n, k in summary["kernels"].items() if "recon_matmul_kernel" in n}
+    profiled = sum(k["count"] for k in k1.values())
+    k1_ms = sum(k["us"] for k in k1.values()) / max(profiled, 1) / 1e3
+    event_ms = next(e["ms"] for e in kernels if e["name"] == recon_kernel.KERNEL)
+    d = summary["device"]
+    print(f"[obs] profiled window: {len(subsets)} coalitions, {launched} K1 launches, "
+          f"{profiled} K1 kernel events ({', '.join(k1)}); K1 {k1_ms:.4f} ms profiled "
+          f"against {event_ms:.4f} ms from CUDA events at B = 64 ([kernels]); device busy "
+          f"{d['busy_us'] / 1e3:.3f} ms of a {summary['window_us'] / 1e3:.3f} ms window "
+          f"({d['busy_share']:.4f}), {d['events']} device events on "
+          f"{len(summary['streams'])} streams")
+    for name, k in list(summary["kernels"].items())[:OBS_TOP_KERNELS]:
+        print(f"[obs]   {k['us'] / 1e3:9.3f} ms x{k['count']:<4d} {name[:100]}")
+    check(summary["kind"] == "cuda", "the profile holds no CUDA activity")
+    check(launched == 2, f"the profiled window launched K1 {launched} times, not 2")
+    check(profiled == launched,
+          f"the profiler saw K1's kernel {profiled} times, its counter rose {launched}")
+
+
+def obs_sweep(sweep: dict) -> None:
+    """(d): the sweep phase's run, collected."""
+    rep = report.sweep_report(sweep["records"])
+    eng = sweep["scenario"]._charac_engine
+    hw = sweep["metrics"]["gauges"].get("engine.device_mem_high_water_bytes")
+    print(report.format_report(rep))
+    print(f"[obs] sweep: {rep['batches']['count']} batches, {len(eng.batch_log)} in the "
+          f"batch log; memory high water {hw} bytes, peak {sweep['peak']} bytes")
+    check(rep["batches"]["count"] == len(eng.batch_log),
+          "the sweep report's batches differ from the engine's batch log")
+    check(rep["batches"]["coalitions"] == 31, f"{rep['batches']['coalitions']} coalitions, not 31")
+    check(hw is not None and 0 < hw <= sweep["peak"],
+          f"the memory high water {hw} is not in (0, {sweep['peak']}]")
+
+
+def obs_flight() -> None:
+    """(e): one flight-recorder dump."""
+    with tempfile.TemporaryDirectory() as tmp, knob(flight.FLIGHT_DIR_ENV, tmp):
+        path = flight.dump("chip_smoke")
+        files = list(Path(tmp).iterdir())
+        with open(path) as f:
+            doc = json.load(f)
+    print(f"[obs] flight dump: {len(doc['ring_records'])} ring records (ring of "
+          f"{trace._flight_ring.maxlen}), {len(doc['metrics']['counters'])} counters")
+    check(files == [Path(path)], f"the flight dump wrote {files}")
+    check(0 < len(doc["ring_records"]) <= trace._flight_ring.maxlen,
+          "the flight dump's ring is empty or larger than the ring")
+    check(set(doc["metrics"]) == {"counters", "gauges", "histograms"},
+          "the flight dump lacks a metrics snapshot")
+
+
+def phase_obs(sl, sweep: dict, kernels: list) -> dict:
+    path, records, jsonl = obs_main_path(sl)
+    try:
+        obs_chrome(records, jsonl)
+    finally:
+        for f in jsonl.parent.iterdir():
+            f.unlink()
+        jsonl.parent.rmdir()
+    obs_profile(sl, kernels)
+    obs_sweep(sweep)
+    obs_flight()
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2272,7 +2462,7 @@ def main() -> int:
     phase_variants()
     paths = {"faults": phase_faults(card, sweep, smi), "cifar10": phase_cifar10(card, smi),
              "imdb": phase_imdb(card, smi), "esc50": phase_esc50(card, smi),
-             "cli": phase_cli(card, smi)}
+             "cli": phase_cli(card, smi), "obs": phase_obs(sl, sweep, kernels)}
     for e in kernels:
         B = e["shape"]["B"]
         if not e["name"].startswith(recon_kernel.KERNEL_BF16):

@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import datetime
 import logging
-import time
 from math import comb, factorial
 
 import numpy as np
@@ -47,6 +46,7 @@ import torch
 
 from .. import constants
 from ..mpl.engine import MplTrainer, TrainConfig, epoch_streams
+from ..obs import trace as obs_trace
 from .engine import CharacteristicEngine
 from .planner import estimate_eval_seconds, plan_query
 from .sampling import (WithoutReplacementRanks, make_importance_sampler,
@@ -166,13 +166,20 @@ class Contributivity:
     def first_charac_fct_calls_count(self):
         return self.engine.first_charac_fct_calls_count
 
-    def _finish(self, name, scores, std, t0):
+    def _method_span(self, method: str) -> obs_trace.Span:
+        """The method's timer: `_finish` takes `computation_time_sec` from
+        it, and ending it emits one `contributivity` record a method run
+        when tracing is on."""
+        return obs_trace.start_span("contributivity", method=method)
+
+    def _finish(self, name, scores, std, span: obs_trace.Span):
         self.name = name
         self.contributivity_scores = np.asarray(scores, float)
         self.scores_std = np.asarray(std, float)
         total = np.sum(self.contributivity_scores)
         self.normalized_scores = self.contributivity_scores / (total if total else 1.0)
-        self.computation_time_sec = time.perf_counter() - t0
+        span.attrs["method"] = name  # the final display name
+        self.computation_time_sec = span.end().duration
 
     @property
     def _n(self):
@@ -233,7 +240,7 @@ class Contributivity:
         Shapley sum. Under a seed ensemble (K > 1) the replicas' Shapley
         values give the trust row (source "seed_ensemble") and their std
         is scores_std; otherwise scores_std is exactly zero."""
-        t0 = time.perf_counter()
+        t0 = self._method_span("Shapley")
         logger.info("# Launching computation of Shapley Value of all partners")
         n = self._n
         self.engine.evaluate(powerset_order(n))
@@ -243,6 +250,7 @@ class Contributivity:
         if getattr(self.engine, "seed_ensemble", 1) > 1 and samples:
             self.trust = trust_summary(n, samples)
             std = np.asarray(self.trust["std"])
+            obs_trace.event("contrib.trust", **self.trust)
             logger.info("# Seed-ensemble trust: K=%d, kendall_tau=%.3f",
                         self.trust["ensemble"], self.trust["kendall_tau"])
         self._finish("Shapley", sv, std, t0)
@@ -250,7 +258,7 @@ class Contributivity:
     def compute_independent_scores(self):
         """v({i}) of every partner: a model trained on its data alone
         (memo hits after a Shapley sweep)."""
-        t0 = time.perf_counter()
+        t0 = self._method_span("Independent scores raw")
         logger.info("# Launching computation of perf. scores of models trained "
                     "independently on each partner")
         n = self._n
@@ -263,7 +271,7 @@ class Contributivity:
 
     def _tmc(self, sv_accuracy, alpha, truncation, interpolate, perm_batch=16):
         name = "ITMCS" if interpolate else "TMC Shapley"
-        t0 = time.perf_counter()
+        t0 = self._method_span(name)
         n = self._n
         v_all = float(self.engine.evaluate([tuple(range(n))])[0])
         if n == 1:
@@ -342,7 +350,7 @@ class Contributivity:
 
     def IS_lin(self, sv_accuracy=0.01, alpha=0.95):
         """Linear-interpolation importance sampling (reference :326-439)."""
-        t0 = time.perf_counter()
+        t0 = self._method_span("IS_lin Shapley")
         logger.info("# Launching IS_lin Shapley")
         n = self._n
         v_all = float(self.engine.evaluate([tuple(range(n))])[0])
@@ -373,10 +381,12 @@ class Contributivity:
     def IS_reg(self, sv_accuracy=0.01, alpha=0.95):
         """Regression importance sampling (reference :443-569). Falls back to
         exact SV for n < 4 like the reference."""
-        t0 = time.perf_counter()
+        t0 = self._method_span("IS_reg Shapley")
         logger.info("# Launching IS_reg Shapley")
         n = self._n
         if n < 4:
+            # compute_SV times itself through its own span
+            t0.cancel()
             self.compute_SV()
             self.name = "IS_reg Shapley values"
             return
@@ -419,7 +429,7 @@ class Contributivity:
     def AIS_Kriging(self, sv_accuracy=0.01, alpha=0.95, update=50):
         """Adaptive Kriging importance sampling (reference :573-723): the
         samplers are refit every `update` iterations."""
-        t0 = time.perf_counter()
+        t0 = self._method_span("AIS Shapley")
         logger.info("# Launching AIS Kriging Shapley")
         n = self._n
         # seed evaluations: full set, singletons, pairs + their complements
@@ -549,7 +559,7 @@ class Contributivity:
         iterations' draws, simulated on a cloned rng under the current
         sigma2, so consecutive iterations' pairs pack into one batch;
         lookahead=0 evaluates strictly one iteration at a time."""
-        t0 = time.perf_counter()
+        t0 = self._method_span("Stratified MC Shapley")
         logger.info("# Launching Stratified MC Shapley")
         N = self._n
         v_all = float(self.engine.evaluate([tuple(range(N))])[0])
@@ -630,7 +640,7 @@ class Contributivity:
         spelling is the reference's). The same lookahead as
         `Stratified_MC`, replayed on a cloned rng with cloned pools and
         continuer state, so the real stream and its pools are untouched."""
-        t0 = time.perf_counter()
+        t0 = self._method_span("WR_SMC Shapley")
         logger.info("# Launching WR_SMC Shapley")
         N = self._n
         v_all = float(self.engine.evaluate([tuple(range(N))])[0])
@@ -702,6 +712,16 @@ class Contributivity:
             eng._reconstruction = ReconstructionEvaluator(eng)
         return eng._reconstruction
 
+    def _recon_for(self, span: obs_trace.Span):
+        """`_reconstructor()` for a retrain-free method whose span is open:
+        when the recording raises, the span is dropped, so no later
+        evaluate attributes its memo traffic to this method."""
+        try:
+            return self._reconstructor()
+        except BaseException:
+            span.cancel()
+            raise
+
     def _set_mc_trust(self, contributions, alpha, method):
         """The trust row from a Monte-Carlo run: the iteration rows split
         into up to 5 disjoint blocks whose means are independent unbiased
@@ -713,16 +733,17 @@ class Contributivity:
         reps = np.stack([b.mean(axis=0) for b in blocks])
         self.trust = {**trust_from_replicas(reps, alpha, source="mc_blocks"),
                       "method": method}
+        obs_trace.event("contrib.trust", **self.trust)
 
     def exact_reconstructed(self, alpha=0.95):
         """Exact Shapley over reconstructed coalition models: the full
         2^P - 1 powerset evaluated by the shared ReconstructionEvaluator
         (the one recorded grand-coalition run is the only training), then
         the closed-form Shapley sum; scores_std is exactly zero."""
-        t0 = time.perf_counter()
+        t0 = self._method_span("exact (reconstructed)")
         logger.info("# Launching exact Shapley over reconstructed models")
         n = self._n
-        recon = self._reconstructor()
+        recon = self._recon_for(t0)
         recon.evaluate(powerset_order(n))
         sv = np.asarray(shapley_from_characteristic(n, recon.values))
         self._finish("exact (reconstructed)", sv, np.zeros(n), t0)
@@ -733,10 +754,10 @@ class Contributivity:
         over reconstructed coalition models. A permutation's remaining
         positions are pruned once |v(N) - v(prefix)| < `truncation`
         (default MPLC_TORCH_GTG_TRUNCATION, 0.05)."""
-        t0 = time.perf_counter()
+        t0 = self._method_span("GTG-Shapley")
         logger.info("# Launching GTG-Shapley (retrain-free reconstruction)")
         n = self._n
-        recon = self._reconstructor()
+        recon = self._recon_for(t0)
         if truncation is None:
             truncation = constants.gtg_truncation()
         v_all = float(recon.evaluate([tuple(range(n))])[0])
@@ -761,10 +782,10 @@ class Contributivity:
         are exact anchors, every other (partner, size) stratum gets one
         warm-up sample, then `budget` sampled coalitions
         (MPLC_TORCH_SVARM_SAMPLES; 0 or unset: max(4 n^2, 128))."""
-        t0 = time.perf_counter()
+        t0 = self._method_span("SVARM")
         logger.info("# Launching SVARM (stratified, marginal-free sampling)")
         n = self._n
-        recon = self._reconstructor()
+        recon = self._recon_for(t0)
         full = tuple(range(n))
         v_all = float(recon.evaluate([full])[0])
         if n == 1:
@@ -878,6 +899,7 @@ class Contributivity:
             reps[r] = (pm - mm).mean(axis=1)
         self.trust = {**trust_from_replicas(reps, alpha, source="mc_blocks"),
                       "method": "SVARM"}
+        obs_trace.event("contrib.trust", **self.trust)
         self._finish("SVARM", sv, std, t0)
 
     # ------------------------------------------------------------------
@@ -904,7 +926,7 @@ class Contributivity:
         return rel[first:last, :]
 
     def _sbs(self, importance_fn, name):
-        t0 = time.perf_counter()
+        t0 = self._method_span(name)
         rel = self.compute_relative_perf_matrix()
         scores = importance_fn(rel.shape[0]) @ np.nan_to_num(rel)
         self._finish(name, scores, np.zeros(self._n), t0)
@@ -920,7 +942,7 @@ class Contributivity:
                   "Federated step by step quadratic scores")
 
     def federated_SBS_constant(self):
-        t0 = time.perf_counter()
+        t0 = self._method_span("Federated step by step constant scores")
         logger.info("# Federated SBS constant")
         scores = np.nanmean(self.compute_relative_perf_matrix(), axis=0)
         self._finish("Federated step by step constant scores", scores,
@@ -933,7 +955,7 @@ class Contributivity:
     def flip_label(self):
         """Train MplLabelFlip; partner i scores exp(-||theta_i - I||_F) of
         its last epoch's theta."""
-        t0 = time.perf_counter()
+        t0 = self._method_span("Label Flip")
         from ..mpl.approaches import MplLabelFlip
         mpl = MplLabelFlip(self.scenario)
         mpl.fit()
@@ -958,7 +980,7 @@ class Contributivity:
         val-loss improvement, the selection being the epoch's coalition
         mask; the probabilities in the gradient are clamped and the logits
         bounded, so the update never produces inf or NaN."""
-        t0 = time.perf_counter()
+        t0 = self._method_span("PVRL")
         logger.info("# Launching PVRL")
         sc = self.scenario
         n = self._n
@@ -1026,6 +1048,7 @@ class Contributivity:
                               eval_sec=eval_sec, cost_basis=basis,
                               live=False)
             self.plan = plan
+            obs_trace.event("contrib.plan", **plan.describe())
             if plan.method == "exact":
                 # the planner's exact row is the retrain-free exact
                 # powerset, not the retraining sweep ("Shapley values")

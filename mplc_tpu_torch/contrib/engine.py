@@ -28,6 +28,16 @@ ensemble (`seed_ensemble` K > 1) trains K replicas of every coalition as
 extra rows of the same batches; replica 0 is the single-seed run and gives
 v(S), every replica lands in `charac_fct_samples`.
 
+Observability (the JAX engine's names, `obs/trace.py`): `evaluate` is an
+`engine.evaluate` span holding, for each bucket, an `engine.prep` span and
+for each batch an `engine.dispatch` span (everything up to the batch's
+first host read: the trainer's own reads, early stopping's flag and the
+seq family's visit count, fall inside it) and an `engine.harvest` span
+(that read, the batch's one sync), then an `engine.batch` event with the
+batch's accounting, and one `engine.hbm` event a call that did device
+work. The memo, coalition, epoch, sample and partner-pass counters go to
+`obs/metrics.py`. None of it adds a sync.
+
 The fault ladder, the program bank and batch pipelining are not ported
 yet (ROADMAP.md).
 """
@@ -48,6 +58,8 @@ from .. import constants, faults
 from ..data.partition import StackedPartners
 from ..mpl.approaches import stage_eval_set
 from ..mpl.engine import SLOT_APPROACHES, MplTrainer, TrainConfig
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 
 
 # one deprecation warning a process for legacy no-checksum caches
@@ -76,6 +88,22 @@ def _bucket_size(n: int, n_dev: int, cap_per_dev: int) -> int:
     return min(b, cap)
 
 
+def _memo_counters(hits: int, misses: int) -> "str | None":
+    """Global and per-estimator memo accounting, shared by the engine and
+    the reconstruction evaluator so their counter keys cannot drift apart.
+    The method is that of the enclosing `contributivity` span; returned
+    (or None) for the caller's span attrs."""
+    obs_metrics.counter("engine.memo_hits").inc(hits)
+    obs_metrics.counter("engine.memo_misses").inc(misses)
+    method_span = obs_trace.active_span("contributivity")
+    method = (method_span.attrs.get("method")
+              if method_span is not None else None)
+    if method:
+        obs_metrics.counter(f"engine.memo_hits[{method}]").inc(hits)
+        obs_metrics.counter(f"engine.memo_misses[{method}]").inc(misses)
+    return method
+
+
 class BatchedTrainerPipeline:
     """init -> epoch chunk -> finalize over a batch of coalitions, one
     trainer (the JAX package's vmapped pipeline, synchronous)."""
@@ -84,21 +112,29 @@ class BatchedTrainerPipeline:
         self.trainer = trainer
         self.partners_count = partners_count
 
-    def scores(self, coal: torch.Tensor, generators, stacked, val, test,
-               init_params: dict | None = None,
-               streams_all=None) -> tuple[np.ndarray, np.ndarray]:
-        """(test accuracies, epochs trained) of the coalitions `coal`
-        (masks [B, P], or slot ids [B, K] on a slot trainer), each trained
-        from its generator's stream, or from injected initial params
-        ([B, ...] leaves) and streams (`MplTrainer.epoch_chunk`'s
-        `streams_all`)."""
+    def dispatch(self, coal: torch.Tensor, generators, stacked, val, test,
+                 init_params: dict | None = None,
+                 streams_all=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(test accuracies [B], epochs trained [B]) of the coalitions
+        `coal` (masks [B, P], or slot ids [B, K] on a slot trainer), on
+        their device and not yet read, each trained from its generator's
+        stream, or from injected initial params ([B, ...] leaves) and
+        streams (`MplTrainer.epoch_chunk`'s `streams_all`)."""
         tr = self.trainer
         state = tr.init_state(generators, self.partners_count, coal.device,
                               init_params)
         tr.epoch_chunk(state, stacked, val, coal, generators,
                        tr.cfg.epoch_count, streams_all)
         _, accs = tr.finalize(state, test)
-        return accs.cpu().numpy(), state.nb_epochs_done.cpu().numpy()
+        return accs, state.nb_epochs_done
+
+    def scores(self, coal: torch.Tensor, generators, stacked, val, test,
+               init_params: dict | None = None,
+               streams_all=None) -> tuple[np.ndarray, np.ndarray]:
+        """`dispatch`, its results read to the host."""
+        accs, epochs = self.dispatch(coal, generators, stacked, val, test,
+                                     init_params, streams_all)
+        return accs.cpu().numpy(), epochs.cpu().numpy()
 
 
 class CharacteristicEngine:
@@ -111,6 +147,9 @@ class CharacteristicEngine:
     # coalitions without a scenario (a table of v(S)) describes
     _forever_dropped: frozenset = frozenset()
     seed_ensemble = 1
+    # batches dispatched so far (the recording included), 1-based; such a
+    # subclass dispatches none
+    _batch_ordinal = 0
 
     def __init__(self, scenario, seed_ensemble: int | None = None):
         self.scenario = scenario
@@ -210,6 +249,17 @@ class CharacteristicEngine:
         # masked and single batches), coalitions (the batch's real rows:
         # coalition replicas under a seed ensemble), seconds
         self.batch_log: list[dict] = []
+        # throughput accounting over non-padding rows: epochs trained, and
+        # the training samples a partner consumes an epoch, size // MB *
+        # MB on the multi and slot trainers (the minibatch window), the
+        # whole size on the single trainer (the JAX engine's accounting)
+        self.epochs_trained = 0
+        self.samples_trained = 0
+        sizes = np.array([len(p.x_train) for p in self.partners_list], np.int64)
+        mbc = self._multi_cfg.minibatch_count
+        self._epoch_samples_multi = sizes // mbc * mbc
+        self._epoch_samples_single = sizes
+        self._param_bytes: int | None = None
         # the cache is saved here after every trained batch (Scenario.run)
         self.autosave_path = None
         # a legacy (no-checksum) cache loaded from this path is rewritten
@@ -354,24 +404,38 @@ class CharacteristicEngine:
         cap = constants.MAX_COALITIONS_PER_DEVICE_BATCH
         K = self.seed_ensemble
         single = pipe is self.single_pipe
-        eff = [self._effective_subset(s) for s in subsets]
-        coal_all = self._coalition_arrays(eff if single else subsets, slot_count)
+        per_partner = self._epoch_samples_single if single else self._epoch_samples_multi
+        # partner passes a coalition-minibatch runs on this pipe, padded
+        # slots included (what the device ran)
+        passes_per_mb = 1 if single else slot_count or self.partners_count
         n_jobs = len(subsets) * K
         b = _bucket_size(min(n_jobs, cap), 1, cap)
+        with obs_trace.span("engine.prep", coalitions=n_jobs, width=b,
+                            slot_count=slot_count):
+            eff = [self._effective_subset(s) for s in subsets]
+            coal_all = self._coalition_arrays(eff if single else subsets, slot_count)
         for i in range(0, n_jobs, b):
             n = min(b, n_jobs - i)
             sel = np.full(b, i, np.intp)
             sel[:n] = np.arange(i, i + n)
+            self._batch_ordinal += 1
+            attrs = {"width": b, "slot_count": slot_count, "coalitions": n,
+                     "padding": b - n}
             t0 = time.perf_counter()
-            keys = [eff[j] for j in sel // K]
-            generators, init_params, streams = self._batch_start(
-                keys, single, [int(j) for j in sel % K])
-            coal = torch.from_numpy(coal_all[sel // K]).to(self.device)
-            accs, _ = pipe.scores(coal, generators, self.stacked, self.val,
-                                  self.test, init_params, streams)
+            with obs_trace.span("engine.dispatch", **attrs):
+                keys = [eff[j] for j in sel // K]
+                generators, init_params, streams = self._batch_start(
+                    keys, single, [int(j) for j in sel % K])
+                coal = torch.from_numpy(coal_all[sel // K]).to(self.device)
+                accs, epochs = pipe.dispatch(coal, generators, self.stacked, self.val,
+                                             self.test, init_params, streams)
+            with obs_trace.span("engine.harvest", width=b, slot_count=slot_count,
+                                coalitions=n):
+                accs, epochs = accs.cpu().numpy(), epochs.cpu().numpy()
+            seconds = time.perf_counter() - t0
             self.batch_log.append({"kind": "single" if single else "multi", "width": b,
                                    "slot_count": slot_count, "coalitions": n,
-                                   "seconds": time.perf_counter() - t0})
+                                   "seconds": seconds})
             for j, acc in zip(sel[:n], accs[:n]):
                 s, rep = subsets[j // K], int(j % K)
                 if K > 1:
@@ -380,14 +444,55 @@ class CharacteristicEngine:
                 # replica keeps the value and the call count it has
                 if rep == 0 and s not in self.charac_fct_values:
                     self._store(s, float(acc))
+            batch_epochs = int(epochs[:n].sum())
+            batch_samples = int(sum(int(ep) * int(per_partner[list(eff[j // K])].sum())
+                                    for j, ep in zip(sel[:n], epochs[:n])))
+            batch_passes = batch_epochs * pipe.trainer.cfg.minibatch_count * passes_per_mb
+            self._account_batch(seconds, attrs, batch_epochs, batch_samples, batch_passes)
+            obs_metrics.histogram("engine.pad_waste_fraction").observe((b - n) / b)
+            obs_metrics.sample_device_memory(device=self.device)
             if self.autosave_path is not None:
                 self.save_cache(self.autosave_path)
+
+    def _account_batch(self, seconds: float, attrs: dict, epochs: int, samples: int,
+                       passes: int, **extra) -> None:
+        """A training batch's counters and its `engine.batch` event
+        (`seconds`: dispatch start to harvest end); the recording's too."""
+        self.epochs_trained += epochs
+        self.samples_trained += samples
+        obs_metrics.counter("engine.batches").inc()
+        obs_trace.event("engine.batch", dur=seconds, ordinal=self._batch_ordinal,
+                        **attrs, epochs=epochs, samples=samples,
+                        partner_passes=passes, **extra)
+        obs_metrics.counter("engine.epochs_trained").inc(epochs)
+        obs_metrics.counter("engine.samples_trained").inc(samples)
+        obs_metrics.counter("engine.partner_passes").inc(passes)
+
+    def _model_param_bytes(self) -> int:
+        """Bytes of one model's parameters (from one CPU init, once)."""
+        if self._param_bytes is None:
+            params = self.model.init(torch.Generator().manual_seed(0))
+            self._param_bytes = sum(t.numel() * t.element_size()
+                                    for d in params.values() for t in d.values())
+        return self._param_bytes
+
+    def _hbm_event(self, slot_count: int | None) -> None:
+        """One device-memory snapshot for a call that did device work: the
+        JAX engine's `engine.hbm` event with the fields the port can fill
+        (the footprint model and donation have no counterpart yet)."""
+        obs_metrics.sample_device_memory(device=self.device)
+        obs_trace.event(
+            "engine.hbm", param_bytes=self._model_param_bytes(),
+            slot_count=slot_count if slot_count is not None else self.partners_count,
+            peak_in_use_bytes=obs_metrics.gauge("engine.device_mem_high_water_bytes").value)
 
     def evaluate(self, subsets) -> np.ndarray:
         """Batched memoized v(S) for a list of subsets (any iterables of
         partner indices). Returns values in input order."""
         keys = [tuple(sorted(int(i) for i in s)) for s in subsets]
-        missing = [k for k in dict.fromkeys(keys) if self._incomplete(k)]
+        unique = dict.fromkeys(keys)
+        missing = [k for k in unique if self._incomplete(k)]
+        n_requested_missing = len(missing)
         if self._forever_dropped:
             # every member dropped from epoch 1: no model is ever trained,
             # v = v(empty) = 0, which makes a dropped partner a null player
@@ -397,18 +502,29 @@ class CharacteristicEngine:
                 if self.seed_ensemble > 1:
                     self.charac_fct_samples[k] = np.zeros(self.seed_ensemble)
             missing = [k for k in missing if self._effective_subset(k)]
-        # routed by effective size (a coalition left with one survivor is a
-        # single training), bucketed by the full membership
-        lens = {k: len(self._effective_subset(k)) for k in missing}
-        singles = [k for k in missing if lens[k] == 1]
-        multis = [k for k in missing if lens[k] > 1]
-        if singles:
-            self._run_batch(singles, self.single_pipe)
-        if multis and self._use_slots:
-            for width, group in self._slot_buckets(multis):
-                self._run_batch(group, self._slot_pipe(width), slot_count=width)
-        elif multis:
-            self._run_batch(multis, self.multi_pipe)
+            # neither memo hits nor misses: nothing was cached, nothing trains
+            obs_metrics.counter("engine.null_coalitions").inc(
+                n_requested_missing - len(missing))
+        method = _memo_counters(len(unique) - n_requested_missing, len(missing))
+        obs_metrics.counter("engine.coalitions_evaluated").inc(len(missing))
+        ordinal = self._batch_ordinal
+        with obs_trace.span("engine.evaluate", requested=len(unique),
+                            missing=len(missing), method=method):
+            # routed by effective size (a coalition left with one survivor
+            # is a single training), bucketed by the full membership
+            lens = {k: len(self._effective_subset(k)) for k in missing}
+            singles = [k for k in missing if lens[k] == 1]
+            multis = [k for k in missing if lens[k] > 1]
+            if singles:
+                self._run_batch(singles, self.single_pipe)
+            if multis and self._use_slots:
+                for width, group in self._slot_buckets(multis):
+                    self._run_batch(group, self._slot_pipe(width), slot_count=width)
+            elif multis:
+                self._run_batch(multis, self.multi_pipe)
+            if self._batch_ordinal != ordinal:
+                self._hbm_event(max((self._slot_width(lens[k]) for k in multis), default=None)
+                                if multis and self._use_slots else None)
         if self._cache_needs_upgrade and self.autosave_path is not None:
             # a legacy cache is rewritten with a checksum even when every
             # value was memoized and no batch's autosave ran

@@ -12,6 +12,14 @@ which the fused contraction K1 (ops/recon_kernel.py) does for a whole batch
 of coalitions in one pass. v(S) then costs an evaluation, not a training
 run. Reconstructed values live in the evaluator's own memo.
 
+Observability (the JAX package's names, `obs/trace.py`): the recording is
+a `recon.record` span holding one `engine.dispatch` (recording=True) and
+followed by its `engine.batch` event; `ReconstructionEvaluator.evaluate` is
+an `engine.evaluate` span (mode=reconstruct) holding, for each batch, an
+`engine.prep`, an `engine.dispatch` (where K1 launches) and an
+`engine.harvest` (the host read of the accuracies, the batch's one sync),
+then an eval-only `engine.batch` event.
+
 Precision: the evaluator answers for the engine's frozen mode. Under fp32
 and mixed it reconstructs in fp32 (K1); under bf16 it keeps the flattened
 stream in bf16 only and reconstructs through K1-bf16 (fp32 accumulation),
@@ -22,14 +30,17 @@ casting the models to bf16. Models are evaluated in the trainer's
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from .. import constants
 from ..mpl.engine import MplTrainer
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from ..ops import recon_kernel
-from .engine import _bucket_size
+from .engine import _bucket_size, _memo_counters
 
 
 @dataclasses.dataclass
@@ -68,22 +79,41 @@ def record_updates(engine) -> RecordedRun:
                          "grand-coalition run to record")
     generators = [engine.coalition_generator(eff)]
     mask = torch.from_numpy(engine._coalition_arrays([full])).to(engine.device)
-    state = trainer.init_state(generators, P, engine.device)
-    init_params = {g: {k: t[0].clone() for k, t in d.items()}
-                   for g, d in state.params.items()}
-    trainer.epoch_chunk(state, engine.stacked, engine.val, mask, generators,
-                        cfg.epoch_count)
+    engine._batch_ordinal += 1
+    rounds = cfg.epoch_count * cfg.minibatch_count
+    span = obs_trace.start_span("recon.record", partners=P, rounds=rounds)
+    t0 = time.perf_counter()
+    try:
+        with obs_trace.span("engine.dispatch", width=1, slot_count=None,
+                            coalitions=1, padding=0, recording=True):
+            state = trainer.init_state(generators, P, engine.device)
+            init_params = {g: {k: t[0].clone() for k, t in d.items()}
+                           for g, d in state.params.items()}
+            trainer.epoch_chunk(state, engine.stacked, engine.val, mask, generators,
+                                cfg.epoch_count)
+    except BaseException:
+        # dropped without emitting, so the caller's nesting stays intact
+        span.cancel()
+        raise
     run = state.row(0)
     epochs = run.nb_epochs_done
     mem = sum(t.numel() * t.element_size()
               for d in run.upd_h.values() for t in d.values())
     mem += run.w_h.numel() * run.w_h.element_size()
-    return RecordedRun(init_params=init_params, deltas=run.upd_h,
-                       weights=run.w_h,
-                       rounds=cfg.epoch_count * cfg.minibatch_count,
-                       partners_count=P, epochs_done=epochs,
-                       training_passes=epochs * cfg.minibatch_count * P,
-                       memory_bytes=mem, final_params=run.params)
+    rec = RecordedRun(init_params=init_params, deltas=run.upd_h,
+                      weights=run.w_h, rounds=rounds,
+                      partners_count=P, epochs_done=epochs,
+                      training_passes=epochs * cfg.minibatch_count * P,
+                      memory_bytes=mem, final_params=run.params)
+    # the recording is training work: it owns every training counter of
+    # the retrain-free path
+    samples = epochs * int(engine._epoch_samples_multi[list(eff)].sum())
+    engine._account_batch(time.perf_counter() - t0,
+                          {"width": 1, "slot_count": None, "coalitions": 1, "padding": 0},
+                          epochs, samples, rec.training_passes, recording=True)
+    span.attrs.update(rec.describe())
+    span.end()
+    return rec
 
 
 class ReconstructionEvaluator:
@@ -123,21 +153,53 @@ class ReconstructionEvaluator:
             return self.engine.trainer.evaluate_models(params, self.engine.test)[1]
 
     def evaluate(self, subsets) -> np.ndarray:
-        """Batched memoized reconstructed v(S); values in input order."""
+        """Batched memoized reconstructed v(S); values in input order. A
+        coalition whose every member is dropped from epoch 1 is worth 0,
+        as in the engine (the JAX evaluator's rule): its recorded weights
+        are all zero, so a replay would score the untrained model."""
+        eng = self.engine
         keys = [tuple(sorted(int(i) for i in s)) for s in subsets]
-        missing = [k for k in dict.fromkeys(keys) if k not in self.values]
-        for i in range(0, len(missing), constants.RECON_BATCH):
-            self._run_batch(missing[i:i + constants.RECON_BATCH])
+        unique = dict.fromkeys(keys)
+        missing = [k for k in unique if k not in self.values]
+        n_requested_missing = len(missing)
+        if eng._forever_dropped:
+            for k in [k for k in missing if not eng._effective_subset(k)]:
+                self.values[k] = 0.0
+            missing = [k for k in missing if eng._effective_subset(k)]
+            obs_metrics.counter("engine.null_coalitions").inc(
+                n_requested_missing - len(missing))
+        method = _memo_counters(len(unique) - n_requested_missing, len(missing))
+        with obs_trace.span("engine.evaluate", requested=len(unique),
+                            missing=len(missing), mode="reconstruct",
+                            method=method):
+            for i in range(0, len(missing), constants.RECON_BATCH):
+                self._run_batch(missing[i:i + constants.RECON_BATCH])
         return np.array([self.values[k] for k in keys])
 
     def _run_batch(self, group: list[tuple]) -> None:
         """One batch, padded to a power-of-two width with copies of its
         first coalition (so kernel shapes repeat across batches)."""
-        b = _bucket_size(len(group), 1, constants.RECON_BATCH)
-        masks = self.engine._coalition_arrays(group)
-        sel = np.zeros(b, np.intp)
-        sel[:len(group)] = np.arange(len(group))
-        accs = self._apply(torch.from_numpy(masks[sel]).to(self.engine.device))
-        for s, acc in zip(group, accs[:len(group)].tolist()):
+        eng = self.engine
+        n = len(group)
+        b = _bucket_size(n, 1, constants.RECON_BATCH)
+        with obs_trace.span("engine.prep", coalitions=n, width=b, slot_count=None):
+            masks = eng._coalition_arrays(group)
+            sel = np.zeros(b, np.intp)
+            sel[:n] = np.arange(n)
+        eng._batch_ordinal += 1
+        attrs = {"width": b, "slot_count": None, "coalitions": n, "padding": b - n}
+        t0 = time.perf_counter()
+        with obs_trace.span("engine.dispatch", **attrs, eval_only=True):
+            accs = self._apply(torch.from_numpy(masks[sel]).to(eng.device))
+        with obs_trace.span("engine.harvest", width=b, slot_count=None, coalitions=n):
+            accs = accs[:n].tolist()
+        for s, acc in zip(group, accs):
             self.values[s] = float(acc)
-        self.reconstructions += len(group)
+        self.reconstructions += n
+        obs_metrics.counter("engine.batches").inc()
+        obs_metrics.counter("engine.reconstructions").inc(n)
+        obs_metrics.histogram("engine.pad_waste_fraction").observe((b - n) / b)
+        # eval-only: no epochs, samples or partner passes
+        obs_trace.event("engine.batch", dur=time.perf_counter() - t0,
+                        ordinal=eng._batch_ordinal, **attrs, epochs=0, samples=0,
+                        partner_passes=0, eval_only=True)

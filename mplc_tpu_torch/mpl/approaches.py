@@ -20,7 +20,6 @@ JAX package's keys, so a file saved by either package loads in the other.
 from __future__ import annotations
 
 import dataclasses
-import time
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +27,7 @@ import torch
 
 from .. import constants
 from ..data.partition import StackedPartners, stack_eval_set
+from ..obs import trace as obs_trace
 from .engine import EvalSet, MplTrainer, TrainConfig
 from .history import History
 
@@ -161,7 +161,16 @@ class MultiPartnerLearning:
         return {g: {k: t[None] for k, t in d.items()} for g, d in params.items()}
 
     def fit(self):
-        t0 = time.perf_counter()
+        # the fit span is the timer: learning_computation_time is its
+        # duration, and the span lands in the trace and the sweep report
+        with obs_trace.span("mpl.fit", approach=self.approach_key,
+                            partners=self.partners_count,
+                            epochs=self.epoch_count) as sp:
+            self._fit()
+        self.learning_computation_time = sp.duration
+        return self.history.score
+
+    def _fit(self):
         stacked, val, test = self._stage()
         generators, init_params, streams = self._fit_start()
         if self.use_saved_weights:
@@ -183,8 +192,6 @@ class MultiPartnerLearning:
         if self.is_save_data:
             self.save_final_model()
             self.history.save_data()
-        self.learning_computation_time = time.perf_counter() - t0
-        return self.history.score
 
     def save_final_model(self):
         if self.save_folder is None or self.model_params is None:

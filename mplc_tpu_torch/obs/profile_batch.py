@@ -10,9 +10,10 @@ The scenario is `chip_smoke.py`'s MNIST CNN at full width (synthetic
 MNIST at scale 0.2, noise 0.75, bench config 1's training, partner i
 holding (i+1)/sum of the data). Masked, then at the size's slot width
 (merged buckets), it trains one batch of 16 coalitions of one size
-(`--size`, default 2) once to warm up and once under `torch.profiler`,
-and reads the kernels from the profile's Chrome trace. Prints one JSON
-line a mode. The profile of a batch (some 150,000 kernels) takes minutes
+(`--size`, default 2) once to warm up and once under `torch.profiler`
+(`utils.profile_trace`), and reads the device's kernels and copies from
+the profile's Chrome trace (`obs/analyze_trace.py`). Prints one JSON line
+a mode. The profile of a batch (some 150,000 kernels) takes minutes
 to write out.
 """
 
@@ -25,13 +26,14 @@ import tempfile
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from .. import constants
 from ..contrib.engine import CharacteristicEngine
 from ..contrib.shapley import powerset_order
 from ..data.datasets import load_mnist
 from ..scenario import Scenario
+from ..utils import profile_trace
+from . import analyze_trace
 
 
 def _scenario(partners: int) -> Scenario:
@@ -53,44 +55,22 @@ def _batch(eng: CharacteristicEngine, group: list, slot_count):
     pipe.scores(coal, gens, eng.stacked, eng.val, eng.test, init, streams)
 
 
-def kernel_summary(trace_path: str, top: int) -> dict:
-    """Kernel launches, device busy seconds (the union of the kernels'
-    intervals) and the kernels with the most device time, from a Chrome
-    trace of `torch.profiler`."""
-    with open(trace_path) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
-    busy_us, end = 0.0, float("-inf")
-    for lo, hi in spans:
-        if hi > end:
-            busy_us += hi - max(lo, end)
-            end = hi
-    by_name: dict[str, list] = {}
-    for e in events:
-        entry = by_name.setdefault(e["name"][:80], [0.0, 0])
-        entry[0] += e["dur"]
-        entry[1] += 1
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"kernel_launches": len(events), "device_busy_s": busy_us / 1e6,
-            "top_kernels": [{"name": n, "device_s": t / 1e6, "launches": c}
-                            for n, (t, c) in ranked]}
-
-
 def profile_mode(eng: CharacteristicEngine, group: list, slot_count, top: int) -> dict:
     _batch(eng, group, slot_count)                      # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _batch(eng, group, slot_count)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        summary = kernel_summary(path, top)
+        with profile_trace(tmp, device=eng.device) as prof:
+            t0 = time.perf_counter()
+            _batch(eng, group, slot_count)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        summary = analyze_trace.summarize(prof.path)
+    busy_s = summary["device"]["busy_us"] / 1e6
     return {"mode": "masked" if slot_count is None else f"{slot_count} slots",
-            "coalitions": len(group), "wall_s": wall,
-            "device_busy_share": summary["device_busy_s"] / wall, **summary}
+            "coalitions": len(group), "wall_s": wall, "device_busy_share": busy_s / wall,
+            "kernel_launches": summary["device"]["events"], "device_busy_s": busy_s,
+            "top_kernels": [{"name": n[:80], "device_s": k["us"] / 1e6, "launches": k["count"]}
+                            for n, k in list(summary["kernels"].items())[:top]]}
 
 
 def main() -> None:

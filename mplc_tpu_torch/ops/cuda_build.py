@@ -4,6 +4,13 @@ Each `mplc_tpu_torch/csrc/<name>.cu` exposes a plain C entry point and is
 compiled by `nvcc` for `sm_90a` into `build/kernels/lib<name>.so` at the
 root of the checkout (listed in `.gitignore`), then loaded with `ctypes`.
 A library newer than its source is reused. Nothing is built at import.
+
+Each source nvcc builds emits a `trainer.compile` trace event (`fn` the
+source's name, `dur` nvcc's seconds) and adds to the `trainer.compiles_total`
+and `trainer.compile_seconds_total` counters: the port's counterpart of the
+JAX package's jit-miss event (`mplc_tpu/mpl/engine.py`). A library loaded
+from the build folder emits nothing. These builds are the port's only
+compiles: its trainers run eagerly, with nothing traced or compiled.
 """
 
 from __future__ import annotations
@@ -12,7 +19,11 @@ import ctypes
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from ..obs import metrics, trace
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -58,16 +69,30 @@ def build(names) -> None:
         # load a half-written library
         tmp = BUILD_DIR / f".lib{n}.{os.getpid()}.so"
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        jobs.append((n, tmp, subprocess.Popen(
+        jobs.append((n, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failures = []
-    for n, tmp, proc in jobs:
+
+    def finish(job):
+        # each process waited on by its own thread, so each build's
+        # seconds end when that nvcc ends
+        n, tmp, t0, proc = job
         log, _ = proc.communicate()
-        if proc.returncode != 0:
+        return n, tmp, proc.returncode, log, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        done = list(pool.map(finish, jobs))
+    failures = []
+    for n, tmp, rc, log, seconds in done:
+        if rc != 0:
             failures.append(f"{n}.cu:\n{log}")
             tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, library_path(n))
+            continue
+        os.replace(tmp, library_path(n))
+        trace.event("trainer.compile", dur=seconds, fn=n)
+        metrics.counter("trainer.compiles_total").inc()
+        metrics.counter("trainer.compile_seconds_total").inc(seconds)
+        metrics.counter(f"trainer.compiles[{n}]").inc()
+        metrics.counter(f"trainer.compile_seconds[{n}]").inc(seconds)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
 

@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points, and the CLI's helpers
+"""Device selection for the port's entry points, a `torch.profiler` trace of a
+region (`profile_trace`), and the CLI's helpers
 (`python3 -m mplc_tpu_torch.main`): YAML experiment files of the shape
 {experiment_name, n_repeats, scenario_params_list}, whose list-valued
 parameters are expanded into one scenario a combination, experiment
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import itertools
 import logging
 import os
 import sys
@@ -55,6 +57,67 @@ def resolve_device(device=None) -> torch.device:
         # outputs included
         torch.utils.deterministic.fill_uninitialized_memory = False
     return dev
+
+
+PROFILE_DIR_ENV = "MPLC_TORCH_PROFILE_DIR"
+_profile_seq = itertools.count(1)
+
+
+class profile_trace:
+    """A `torch.profiler` device trace of a region (port of
+    `mplc_tpu/utils.py` `profile_trace`, there a `jax.profiler` trace):
+
+        with utils.profile_trace("/tmp/mplc_trace"):
+            scenario.run()
+
+    A no-op unless a directory is given or MPLC_TORCH_PROFILE_DIR is set,
+    so it can stay in production paths. On a `device` of type cuda (the
+    default: the port runs on the card unless asked otherwise) it records
+    CPU and CUDA activity, on a CPU device CPU activity only, and writes
+    one Chrome trace `<dir>/mplc_torch_<pid>_<n>.pt.trace.json` (`path`
+    after the block), which `python3 -m mplc_tpu_torch.obs.analyze_trace`
+    summarizes. A CUDA run whose trace holds no device event (CUPTI gave
+    none) raises instead of writing a CPU-only trace. The profiler adds
+    its own cost: time nothing gated inside it."""
+
+    def __init__(self, trace_dir: str | None = None, device=None):
+        self.trace_dir = trace_dir or os.environ.get(PROFILE_DIR_ENV)
+        self.cuda = torch.device(device or "cuda").type == "cuda"
+        self.path = None
+        self._prof = None
+
+    def __enter__(self):
+        if self.trace_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            if self.cuda and not torch.cuda.is_available():
+                raise RuntimeError("profile_trace: a CUDA trace was asked for and "
+                                   "no CUDA device is available; pass device='cpu'")
+            activities = [ProfilerActivity.CPU]
+            if self.cuda:
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is None:
+            return False
+        from .obs import analyze_trace
+
+        self._prof.__exit__(*exc)
+        if exc[0] is not None:
+            return False
+        os.makedirs(self.trace_dir, exist_ok=True)
+        path = os.path.join(self.trace_dir, f"mplc_torch_{os.getpid()}_"
+                            f"{next(_profile_seq)}{analyze_trace.TRACE_SUFFIX}")
+        self._prof.export_chrome_trace(path)
+        if self.cuda and analyze_trace.summarize(path)["kind"] != "cuda":
+            os.remove(path)
+            raise RuntimeError("profile_trace: the CUDA trace holds no device "
+                               "activity (CUPTI recorded none); no trace written")
+        self.path = path
+        return False
 
 
 # ---------------------------------------------------------------------------

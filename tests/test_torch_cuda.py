@@ -2,7 +2,8 @@
 retraining sweep, SVARM, seqavg, lflip, the partner fault plan, fused
 wide steps, dropout masks and the CIFAR10 and ESC50 CNNs' training forward
 passes against the CPU, fp32 reproducibility (the IMDB model's embedding
-gradient too), and the CLI's Titanic grid against the CPU's.
+gradient too), the CLI's Titanic grid against the CPU's, and the
+retrain-free path traced and profiled on the card.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -465,3 +466,35 @@ def test_titanic_cli_grid_on_the_card_matches_the_cpu(cuda, monkeypatch, tmp_pat
                 np.testing.assert_allclose(a, b, rtol=0, atol=1.0 / 90 + 1e-6, err_msg=col)
         else:
             pd.testing.assert_series_equal(card[col], cpu[col], obj=col)
+
+
+def test_titanic_traced_and_profiled_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The retrain-free path traced on the card and on the CPU: the same
+    span and event names and memo counts; on the card the report's
+    reconstruction batches equal K1's launches, and `profile_trace` sees
+    K1's kernel as often as it launched."""
+    from mplc_tpu_torch import utils
+    from mplc_tpu_torch.obs import analyze_trace, report, trace
+
+    def run(device):
+        sc = Scenario(3, [0.2, 0.3, 0.5], is_dry_run=True, dataset=load_titanic(),
+                      epoch_count=2, minibatch_count=2, gradient_updates_per_pass_count=2,
+                      is_early_stopping=False, seed=0, device=device)
+        sc.instantiate_scenario_partners()
+        sc.split_data()
+        with trace.collect() as recs:
+            Contributivity(sc).exact_reconstructed()
+        return recs
+
+    cpu = report.sweep_report(run("cpu"))
+    launches = trk.launches
+    with utils.profile_trace(str(tmp_path)) as prof:
+        recs = run(cuda)
+    launched = trk.launches - launches
+    ours = report.sweep_report(recs)
+    assert ours["memo"] == cpu["memo"]
+    assert ours["reconstruction"]["reconstructions"] == 7
+    assert ours["reconstruction"]["recon_batches"] == launched > 0
+    k1 = [k for n, k in analyze_trace.summarize(prof.path)["kernels"].items()
+          if "recon_matmul_kernel" in n]
+    assert sum(k["count"] for k in k1) == launched

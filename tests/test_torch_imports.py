@@ -26,9 +26,12 @@ def test_port_files_found():
     assert len(FILES) > 20
     for name in ("recon_matmul.cu", "recon_matmul_bf16.cu"):
         assert (REPO / "mplc_tpu_torch" / "csrc" / name).exists()
-    # the modules the scan below must cover, the precision slice's included
+    # the modules the scan below must cover, the precision slice's and the
+    # observability base's included
     for module in ("obs/numerics.py", "ops/recon_kernel.py", "constants.py",
-                   "contrib/reconstruct.py", "models/zoo.py", "mpl/engine.py"):
+                   "contrib/reconstruct.py", "models/zoo.py", "mpl/engine.py",
+                   "obs/trace.py", "obs/report.py", "obs/chrome_trace.py",
+                   "obs/metrics.py", "obs/flight.py", "obs/analyze_trace.py"):
         assert REPO / "mplc_tpu_torch" / module in FILES, module
 
 
