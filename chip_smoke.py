@@ -187,6 +187,38 @@ Phases, each of which fails the script (non-zero exit, no result line):
    `torch.cuda.max_memory_allocated()`. (e) `obs.flight.dump` into a
    temporary folder: one file that parses, a ring no larger than its size,
    a metrics snapshot.
+20. ladder: the fault ladder and the engine's batch control (backoff 0;
+   each run a fresh Scenario, whose engine reads the knobs once). (a) The
+   main path under MPLC_TORCH_FAULT_PLAN=transient@batch1,
+   transient@harvest3,oom@batch5, K1's counts reset just before: 3 faults
+   injected, 2 retries, 1 cap halving, K1 launched at B = 32 (and no more
+   at 64), no CPU-degraded batch, the recording and every value bit-equal
+   to the slice's (the GTG scores too), any value the halved width parts
+   printed and held within one test sample. (b) The ladder's end: the
+   slice's configuration under MPLC_TORCH_MAX_CAP_HALVINGS=1 and
+   oom@batch2,oom@batch3, valuing 8 coalitions: the recording (batch 1)
+   bit-equal, then a `LadderExhaustedError` (mode 1d, 2 halvings,
+   permanent for the classifier, from the injected
+   `torch.cuda.OutOfMemoryError`), the events halve_cap then
+   ladder_exhausted, one flight dump, no CPU rung, no kernel launch, no
+   value stored. (c) The sweep phase's run under
+   transient@batch2,oom@harvest3: the counters as planned, 31 coalitions
+   stored once, the batches (width 16, then the 4 coalitions of the
+   failed harvest again at width 4), values within one test sample of the
+   sweep phase's (bit-equal: a re-run pads its gradient calls to its
+   call's first width). (d) The sweep phase's dispatch/harvest split; one
+   slot batch of 16 coalitions dispatched under
+   `torch.cuda.set_sync_debug_mode("error")` (no synchronizing call), its
+   values bit-equal to the sweep's. (e) A real OOM, in a process of its
+   own (`--real-oom`, expandable segments): the evaluator's peak memory
+   at B = 64 and 32 measured, the allocator capped halfway
+   (`set_per_process_memory_fraction`), a full-width evaluator meets the
+   card's `torch.cuda.OutOfMemoryError`, takes one rung and finishes at
+   B = 32 with the B = 64 values. (f) The footprint model (bytes a
+   coalition, a batch's fixed bytes) beside the peaks of (d)'s batch and
+   of a batch of 8, within 2x of each, and the autotuned cap. No phase
+   takes a CPU rung: every phase is gated on the CPU-degraded batch
+   counter not moving.
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -223,14 +255,14 @@ from mplc_tpu_torch.contrib.engine import CharacteristicEngine  # noqa: E402
 from mplc_tpu_torch.contrib.reconstruct import (ReconstructionEvaluator,  # noqa: E402
                                                 record_updates)
 from mplc_tpu_torch.contrib.shapley import powerset_order  # noqa: E402
-from mplc_tpu_torch import constants  # noqa: E402
+from mplc_tpu_torch import constants, faults  # noqa: E402
 from mplc_tpu_torch.data.datasets import (Dataset, load_cifar10, load_mnist,  # noqa: E402
                                           load_titanic, with_held_out_test)
 from mplc_tpu_torch.obs import (analyze_trace, chrome_trace, flight, metrics,  # noqa: E402
                                 numerics, report, trace)
 from mplc_tpu_torch.mpl import dropout  # noqa: E402
 from mplc_tpu_torch.mpl import approaches  # noqa: E402
-from mplc_tpu_torch.mpl.engine import MplTrainer  # noqa: E402
+from mplc_tpu_torch.mpl.engine import MplTrainer, upload  # noqa: E402
 from mplc_tpu_torch.ops import cuda_build, recon_kernel  # noqa: E402
 from mplc_tpu_torch.scenario import Scenario  # noqa: E402
 from mplc_tpu_torch.utils import profile_trace  # noqa: E402
@@ -840,7 +872,7 @@ def phase_sweep() -> dict:
     check(recon_kernel.launches == recon_kernel.launches_bf16 == 0,
           "the retraining sweep launched a reconstruction kernel")
     return {"scenario": sc, "sv": sv, "records": records, "metrics": snapshot,
-            "peak": peak}
+            "peak": peak, "seconds": wall}
 
 
 # The slots phase: bench config 1's 10 partners; the masked reference
@@ -2424,10 +2456,366 @@ def phase_obs(sl, sweep: dict, kernels: list) -> dict:
     return path
 
 
+# The ladder phase: each run builds a fresh Scenario (its engine reads the
+# knobs once). Backoff 0 throughout
+LADDER_PLAN = "transient@batch1,transient@harvest3,oom@batch5"
+LADDER_END_PLAN = "oom@batch2,oom@batch3"
+LADDER_END_COALITIONS = 8
+LADDER_SWEEP_PLAN = "transient@batch2,oom@harvest3"
+LADDER_OOM_COALITIONS = 64     # one K1 batch at full width, two halved
+
+
+@contextlib.contextmanager
+def ladder_knobs(plan: str | None, **extra):
+    """The fault plan (None: no plan) and backoff 0, plus `extra` knobs
+    (constants' env names to values), inside the block."""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(knob(constants.RETRY_BACKOFF_ENV, "0"))
+        if plan is None:
+            old = os.environ.pop(constants.FAULT_PLAN_ENV, None)
+            stack.callback(lambda: old is not None and os.environ.__setitem__(
+                constants.FAULT_PLAN_ENV, old))
+        else:
+            stack.enter_context(knob(constants.FAULT_PLAN_ENV, plan))
+        for name, value in extra.items():
+            stack.enter_context(knob(name, value))
+        yield
+
+
+def ladder_counters() -> dict:
+    snap = metrics.snapshot()["counters"]
+    return {k: int(snap.get(f"engine.{k}", 0)) for k in (
+        "faults_injected", "retries", "cap_halvings", "cpu_degraded_batches",
+        "cpu_degraded_coalitions", "ladder_exhausted")}
+
+
+def value_gap(tag: str, got: np.ndarray, want: np.ndarray, n_test: int, what: str) -> int:
+    """How many values part and the largest gap, printed; gated within one
+    test sample. Returns the count."""
+    parted = int((got != want).sum())
+    gap = float(np.abs(got - want).max()) if len(got) else 0.0
+    print(f"[{tag}] {what}: {len(got) - parted} of {len(got)} bit-equal, {parted} part, "
+          f"largest gap {gap:.6g} (one test sample {1 / n_test:.6g})")
+    check(gap <= 1.0 / n_test + 1e-7, f"{what}: a value parts by more than one test sample")
+    return parted
+
+
+def prepared(sc: Scenario) -> Scenario:
+    """`sc`'s partners made and split, as `Scenario.run` makes them before
+    its fit (the ladder's runs need the engine, not the fit)."""
+    sc.instantiate_scenario_partners()
+    sc.split_data()
+    sc.compute_batch_sizes()
+    sc.data_corruption()
+    return sc
+
+
+def ladder_main_path(sl) -> dict:
+    """(a) The main path under LADDER_PLAN, K1's counts reset just before:
+    the recording retried (batch 1), a GTG batch re-dispatched at harvest
+    (batch 3), an OOM at batch 5's dispatch halving the evaluator's width
+    to 32. Values against the slice's."""
+    metrics.reset()
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    recon_kernel.launch_widths = {}
+    t0 = time.perf_counter()
+    with ladder_knobs(LADDER_PLAN), trace.collect() as records:
+        sc, gtg, exact = main_path()
+    wall = time.perf_counter() - t0
+    launches = recon_kernel.launches
+    widths = dict(sorted(recon_kernel.launch_widths.items()))
+    got = ladder_counters()
+    recon = exact._reconstructor()
+    values = np.array([recon.values[s] for s in powerset_order(PARTNERS)])
+    n_test = len(sc.dataset.x_test)
+    print(f"[ladder] (a) main path under {LADDER_PLAN}: {wall:.2f} s (the slice's "
+          f"{sl['seconds']:.2f} s); counters {json.dumps(got)}; launches {recon_kernel.KERNEL} "
+          f"{launches}, by batch width {json.dumps(widths)} (the slice's "
+          f"{json.dumps(sl['widths'])})")
+    check(got["faults_injected"] == 3 and got["retries"] == 2 and got["cap_halvings"] == 1,
+          f"the plan's faults were not recovered as planned: {got}")
+    check(got["cpu_degraded_batches"] == 0, "the main path under a plan took the CPU rung")
+    check(recon.engine._cap_halvings == 1 and recon._chunk() == 32,
+          "the evaluator's width was not halved")
+    check(launches > 0 and recon_kernel.launches_bf16 == 0, "K1 did not launch alone")
+    check(widths.get(32, 0) > 0 and 64 not in widths, f"K1 never launched at B = 32: {widths}")
+    check_same_recording(recon.recorded, sl["recon"].recorded, "ladder")
+    check(sc.mpl.history.score == sl["score"], "the fit's score differs from the slice's")
+    parted = value_gap("ladder", values, sl["values"], n_test,
+                       "(a) v(S) against the slice's")
+    check(bool(np.array_equal(gtg.contributivity_scores, sl["gtg"])),
+          "GTG-Shapley (its batches all narrower than 32) differs from the slice's")
+    events = [r["attrs"] for r in records if r["name"] in ("engine.retry", "engine.degrade")]
+    print(f"[ladder] (a) ladder events {json.dumps(events)}")
+    return {"launches": launches, "widths": widths, "seconds": wall, "parted": parted}
+
+
+def ladder_end(sl) -> dict:
+    """(b) The ladder's end on the card: the slice's configuration under
+    LADDER_END_PLAN and one cap halving at most. Batch 1 is the recording
+    (bit-equal to the slice's); batch 2 OOMs at dispatch (B = 8) and halves
+    the cap, batch 3 (B = 8 at the halved cap of 32) OOMs again, and the
+    ladder ends in the classified LadderExhaustedError with its flight
+    dump: no CPU rung, no K1 launch."""
+    metrics.reset()
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    subsets = powerset_order(PARTNERS)[:LADDER_END_COALITIONS]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            ladder_knobs(LADDER_END_PLAN, **{constants.MAX_CAP_HALVINGS_ENV: "1",
+                                             flight.FLIGHT_DIR_ENV: tmp}), \
+            trace.collect() as records:
+        sc = prepared(mnist_scenario([]))
+        recon = Contributivity(sc)._reconstructor()
+        try:
+            recon.evaluate(subsets)
+            err = None
+        except faults.LadderExhaustedError as e:
+            err = e
+        dumps = [p.name for p in Path(tmp).iterdir()]
+    wall = time.perf_counter() - t0
+    got = ladder_counters()
+    degrades = [r["attrs"]["action"] for r in records if r["name"] == "engine.degrade"]
+    print(f"[ladder] (b) the ladder's end under {LADDER_END_PLAN}, at most 1 halving: "
+          f"{wall:.2f} s; {type(err).__name__}: {str(err)[:160]}; counters {json.dumps(got)}; "
+          f"degrade events {degrades}; flight dumps {dumps}; launches "
+          f"{recon_kernel.launches} / {recon_kernel.launches_bf16}")
+    check_same_recording(recon.recorded, sl["recon"].recorded, "ladder")
+    check(err is not None and err.mode == "1d" and err.halvings == 2
+          and not faults.is_transient(err) and not faults.is_oom(err)
+          and isinstance(err.__cause__, torch.cuda.OutOfMemoryError),
+          f"the ladder did not end in a classified, permanent error: {err!r}")
+    check(degrades == ["halve_cap", "ladder_exhausted"] and not recon.engine._cpu_degraded,
+          f"the ladder's rungs: {degrades}")
+    check(got["ladder_exhausted"] == 1 and got["cpu_degraded_batches"] == 0
+          and got["cpu_degraded_coalitions"] == 0, f"the ladder's counters: {got}")
+    check(len(dumps) == 1 and err.postmortem_path is not None
+          and Path(err.postmortem_path).name == dumps[0], f"the flight dump: {dumps}")
+    check(recon_kernel.launches == 0 and recon_kernel.launches_bf16 == 0
+          and len(recon.values) == 1, "a batch past the ladder's end launched or stored")
+    return {"seconds": wall}
+
+
+def ladder_sweep(sweep: dict) -> dict:
+    """(c) The sweep phase's run under LADDER_SWEEP_PLAN: the first
+    width-3 batch retried at dispatch, the second OOM at its harvest and
+    its 4 coalitions trained again at width 4 (cap 8)."""
+    metrics.reset()
+    t0 = time.perf_counter()
+    with ladder_knobs(LADDER_SWEEP_PLAN), trace.collect() as records:
+        sc = mnist_scenario(SWEEP_METHODS, SWEEP_PARTNERS)
+        sc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng = sc._charac_engine
+    got = ladder_counters()
+    subsets = powerset_order(SWEEP_PARTNERS)
+    values = np.array([eng.charac_fct_values[s] for s in subsets])
+    ref_eng = sweep["scenario"]._charac_engine
+    ref = np.array([ref_eng.charac_fct_values[s] for s in subsets])
+    batches = [(b["kind"], b["width"], b["slot_count"], b["coalitions"]) for b in eng.batch_log]
+    rep = report.sweep_report(records)
+    print(f"[ladder] (c) sweep under {LADDER_SWEEP_PLAN}: {wall:.2f} s; counters "
+          f"{json.dumps(got)}; batches {batches}; resilience {json.dumps(rep['resilience'])}")
+    check(got["faults_injected"] == 2 and got["retries"] == 1 and got["cap_halvings"] == 1
+          and got["cpu_degraded_batches"] == 0, f"the sweep's plan ran otherwise: {got}")
+    check(eng.first_charac_fct_calls_count == 31, "a coalition was stored twice")
+    check(batches == [("single", 8, None, 5), ("multi", 16, 3, 16), ("multi", 4, 3, 4),
+                      ("multi", 8, 5, 6)], f"the sweep's batches under the plan: {batches}")
+    parted = value_gap("ladder", values, ref, len(sc.dataset.x_test),
+                       "(c) v(S) against the sweep phase's")
+    return {"seconds": wall, "parted": parted}
+
+
+def slot_batch(eng, group: list, sync_errors: bool = False) -> tuple:
+    """One slot batch of the width-3 bucket (`group`) dispatched on `eng`'s
+    pipeline, under `torch.cuda.set_sync_debug_mode("error")` when
+    `sync_errors`: (accuracies, dispatch seconds, harvest seconds, peak
+    bytes allocated above the batch's start)."""
+    pipe = eng._slot_pipe(3)
+    coal_host = torch.from_numpy(eng._coalition_arrays(group, 3))
+    generators = [eng.coalition_generator(s) for s in group]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error" if sync_errors else 0)
+    try:
+        fetch = pipe.dispatch_async(upload(coal_host, DEVICE), generators, eng.stacked,
+                                    eng.val, eng.test, coal_host=coal_host)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dispatch_s = time.perf_counter() - t0
+    accs, _ = fetch()
+    harvest_s = time.perf_counter() - t0 - dispatch_s
+    return accs, dispatch_s, harvest_s, torch.cuda.max_memory_allocated() - base
+
+
+def ladder_dispatch(sweep: dict, card_mem: int) -> dict:
+    """(d) The sweep phase's dispatch/harvest split (`obs.sweep_report`),
+    then one slot batch (16 coalitions at 3 slots) dispatched under
+    `torch.cuda.set_sync_debug_mode("error")`: no synchronizing call
+    between dispatch and harvest, its values bit-equal to the sweep's.
+    (f) rides on it: that batch's peak memory and a batch of 8's give the
+    measured bytes a coalition (their slope) and a batch's fixed bytes
+    (the intercept), printed beside the footprint model and the cap."""
+    eng = sweep["scenario"]._charac_engine
+    w = report.sweep_report(sweep["records"])["wallclock"]
+    print(f"[ladder] (d) the sweep phase's run: {sweep['seconds']:.2f} s; evaluate "
+          f"{w['evaluate_s']:.2f} s = prep {w['prep_s']:.3f} + dispatch "
+          f"{w['dispatch_s']:.2f} + harvest {w['harvest_s']:.2f}")
+    multis = [s for s in powerset_order(SWEEP_PARTNERS) if len(s) > 1]
+    group = [s for s in multis if eng._slot_width(len(s)) == 3][:16]
+    accs, dispatch_s, harvest_s, peak16 = slot_batch(eng, group, sync_errors=True)
+    want = np.array([eng.charac_fct_values[s] for s in group])
+    print(f"[ladder] (d) one slot batch (16 coalitions, 3 slots) under sync debug mode "
+          f"'error': dispatch {dispatch_s:.3f} s with no synchronizing call, then harvest "
+          f"waited {harvest_s:.3f} s; {int((accs == want).sum())} of 16 values bit-equal "
+          f"to the sweep's")
+    check(bool(np.array_equal(accs, want)), "the batch dispatched under sync errors differs")
+    accs8, _, _, peak8 = slot_batch(eng, group[:8])
+    check(bool(np.array_equal(accs8, want[:8])), "the batch of 8 differs from the sweep")
+    # (f) footprint and cap
+    slope = (peak16 - peak8) / 8
+    fixed = peak16 - 16 * slope
+    per, fix = eng._per_coalition_bytes(3), eng._batch_fixed_bytes(3)
+    ratios = {b: (fix + b * per) / peak for b, peak in ((8, peak8), (16, peak16))}
+    caps = {k: eng._autotuned_cap(k) for k in (3, 5)}
+    print(f"[ladder] (f) 3 slots: modeled {per} bytes a coalition and {fix} fixed; measured "
+          f"peaks {peak8} (8 coalitions) and {peak16} (16) above the batch's start: "
+          f"{slope:.0f} a coalition and {fixed:.0f} fixed; modeled / measured peak "
+          f"{json.dumps({b: round(r, 4) for b, r in ratios.items()})}; device memory "
+          f"planned with {eng._device_hbm_bytes()} bytes of {card_mem}; autotuned cap by "
+          f"slot width {json.dumps(caps)}")
+    check(all(0.5 <= r <= 2.0 for r in ratios.values()),
+          f"the footprint model is off the measured peaks by more than 2x: {ratios}")
+    check(all(1 <= c <= constants.MAX_COALITIONS_PER_DEVICE_BATCH for c in caps.values()),
+          f"autotuned caps {caps}")
+    return {"split": w, "peaks": (peak8, peak16), "modeled": (per, fix), "caps": caps}
+
+
+def allocated_peak(recon, subsets) -> tuple[int, np.ndarray]:
+    """(the peak bytes allocated, values) of `recon` valuing `subsets` from
+    an emptied cache."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    values = recon.evaluate(subsets)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), values
+
+
+def real_oom_child() -> dict:
+    """(e)'s work, in a process of its own (`--real-oom`), whose allocator
+    holds nothing but this part's tensors and runs with expandable segments
+    (PYTORCH_CUDA_ALLOC_CONF), so that under a cap it needs the bytes a run
+    allocates and no free block as large as its next tensor. The slice's
+    configuration is recorded afresh; its evaluator's peak allocated memory
+    is measured at B = 64 (after a first run that warms the libraries'
+    workspaces) and at B = 32; the allocator is capped halfway between
+    (`set_per_process_memory_fraction`); a fresh evaluator at full width
+    then values the same coalitions."""
+    subsets = powerset_order(PARTNERS)[:LADDER_OOM_COALITIONS]
+    total = torch.cuda.get_device_properties(0).total_memory
+    with ladder_knobs(None):
+        c = Contributivity(prepared(mnist_scenario([])))
+        eng, rec = c.engine, c._reconstructor().recorded
+        allocated_peak(ReconstructionEvaluator(eng, rec), subsets)
+        full, ref = allocated_peak(ReconstructionEvaluator(eng, rec), subsets)
+        eng._cap_halvings = 1
+        half, _ = allocated_peak(ReconstructionEvaluator(eng, rec), subsets)
+        eng._cap_halvings = 0
+        limit = (full + half) / 2
+        metrics.reset()
+        recon_kernel.launch_widths = {}
+        recon = ReconstructionEvaluator(eng, rec)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(limit / total)
+        try:
+            with trace.collect() as records:
+                values = recon.evaluate(subsets)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            torch.cuda.empty_cache()
+    return {"full": full, "half": half, "limit": limit, "total": total,
+            "counters": ladder_counters(), "halvings": eng._cap_halvings,
+            "degrades": [r["attrs"] for r in records if r["name"] == "engine.degrade"],
+            "widths": dict(sorted(recon_kernel.launch_widths.items())),
+            "values": values.tolist(), "ref": ref.tolist(),
+            "n_test": len(eng.scenario.dataset.x_test)}
+
+
+def ladder_real_oom() -> dict:
+    """(e) A real OOM (`real_oom_child`, in a process this one starts and
+    waits for): the evaluator at full width must meet the card's own
+    `torch.cuda.OutOfMemoryError` in its first batch, take one rung, finish
+    at B = 32 and give the values of the run at B = 64. The cap is the
+    child's alone and ends with it."""
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--real-oom"],
+                         capture_output=True, text=True, env=env, timeout=600)
+    check(out.returncode == 0, f"(e)'s process failed ({out.returncode}): "
+                               f"{out.stderr[-2000:]}")
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    got, widths = r["counters"], {int(k): v for k, v in r["widths"].items()}
+    print(f"[ladder] (e) real OOM, in its own process ({time.perf_counter() - t0:.2f} s): "
+          f"peak allocated {r['full']} bytes at B = 64, {r['half']} at B = 32; limit "
+          f"{r['limit']:.0f} bytes ({r['limit'] / r['total']:.6f} of {r['total']}); counters "
+          f"{json.dumps(got)}; K1 by batch width {json.dumps(widths)}; degrade "
+          f"{json.dumps(r['degrades'])}")
+    check(r["full"] - r["half"] >= 32 * 2 ** 20,
+          f"the evaluator's peaks at B = 64 ({r['full']}) and 32 ({r['half']}) do not separate")
+    check(got["faults_injected"] == 0 and got["cap_halvings"] == 1
+          and got["cpu_degraded_batches"] == 0 and r["halvings"] == 1,
+          f"the real OOM was not recovered by one rung: {got}")
+    check(len(r["degrades"]) == 1 and "CUDA out of memory" in r["degrades"][0]["error"],
+          "the rung was not taken on the card's own OutOfMemoryError")
+    # the OOM may meet the evaluation after K1's full-width launch
+    check(widths.get(32) == 2 and set(widths) <= {32, 64} and widths.get(64, 0) <= 1,
+          f"the recovered batches ran at {widths}, not twice at B = 32")
+    parted = value_gap("ladder", np.array(r["values"]), np.array(r["ref"]), r["n_test"],
+                       "(e) v(S) after the real OOM against B = 64")
+    return {**{k: r[k] for k in ("full", "half", "limit")}, "parted": parted}
+
+
+def phase_ladder(sl, sweep: dict) -> dict:
+    """The fault ladder and the engine's batch control on the card: (a)
+    the main path under a plan, (b) the ladder's end, (c) the sweep under a
+    plan, (d) a dispatch with no sync, (e) a real OOM, (f) footprint and
+    cap (printed with (d))."""
+    t0 = time.perf_counter()
+    card_mem = torch.cuda.get_device_properties(0).total_memory
+    path = rung_free("ladder (a)", ladder_main_path, sl)
+    rung_free("ladder (b)", ladder_end, sl)
+    rung_free("ladder (c)", ladder_sweep, sweep)
+    rung_free("ladder (d)", ladder_dispatch, sweep, card_mem)
+    rung_free("ladder (e)", ladder_real_oom)
+    print(f"[ladder] all parts passed in {time.perf_counter() - t0:.2f} s")
+    return path
+
+
+def rung_free(tag: str, fn, *args):
+    """`fn(*args)`, gated on the CPU-degraded batch counter not moving: a
+    CUDA engine has no CPU rung."""
+    before = metrics.counter("engine.cpu_degraded_batches").value
+    out = fn(*args)
+    after = metrics.counter("engine.cpu_degraded_batches").value
+    check(after == before, f"[{tag}] took the CPU rung ({before} -> {after} batches)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    if "--real-oom" in sys.argv[1:]:
+        # [ladder] (e)'s own process: one JSON line
+        cuda_build.build(recon_kernel.KERNELS)
+        print(json.dumps(real_oom_child()))
+        return 0
     start = time.perf_counter()
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
@@ -2438,11 +2826,11 @@ def main() -> int:
     print(f"[build] {', '.join(recon_kernel.KERNELS)} built in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    sl = phase_slice()
-    phase_reference()
-    phase_stages(sl["recon"])
+    sl = rung_free("slice", phase_slice)
+    rung_free("reference", phase_reference)
+    rung_free("stages", phase_stages, sl["recon"])
     kernels = phase_kernels(sl, card)
-    svarm = phase_svarm(sl)
+    svarm = rung_free("svarm", phase_svarm, sl)
     for e in kernels:
         # each K1 entry's launches by path: the main path's and SVARM's,
         # each counted from 0 (the 64-wide entry all, a narrower one those
@@ -2452,17 +2840,21 @@ def main() -> int:
             svarm["launches"] if B == 64 else
             sum(n for w, n in svarm["widths"].items() if w <= B))}
         e["launch_widths_svarm"] = svarm["widths"]
-    kernels += phase_precision(sl["values"], card)
-    sweep = phase_sweep()
-    phase_sweep_reference()
-    phase_slots()
-    phase_deterministic_reduce()
-    phase_cache(sweep)
-    phase_estimators(sweep)
-    phase_variants()
-    paths = {"faults": phase_faults(card, sweep, smi), "cifar10": phase_cifar10(card, smi),
-             "imdb": phase_imdb(card, smi), "esc50": phase_esc50(card, smi),
-             "cli": phase_cli(card, smi), "obs": phase_obs(sl, sweep, kernels)}
+    kernels += rung_free("precision", phase_precision, sl["values"], card)
+    sweep = rung_free("sweep", phase_sweep)
+    for tag, phase in (("sweep reference", phase_sweep_reference), ("slots", phase_slots),
+                       ("deterministic reduce", phase_deterministic_reduce)):
+        rung_free(tag, phase)
+    rung_free("cache", phase_cache, sweep)
+    rung_free("estimators", phase_estimators, sweep)
+    rung_free("variants", phase_variants)
+    paths = {"faults": rung_free("faults", phase_faults, card, sweep, smi),
+             "cifar10": rung_free("cifar10", phase_cifar10, card, smi),
+             "imdb": rung_free("imdb", phase_imdb, card, smi),
+             "esc50": rung_free("esc50", phase_esc50, card, smi),
+             "cli": rung_free("cli", phase_cli, card, smi),
+             "obs": rung_free("obs", phase_obs, sl, sweep, kernels),
+             "ladder": phase_ladder(sl, sweep)}
     for e in kernels:
         B = e["shape"]["B"]
         if not e["name"].startswith(recon_kernel.KERNEL_BF16):

@@ -68,8 +68,9 @@ IMDB = "imdb"
 SUPPORTED_DATASETS_NAMES = [MNIST, CIFAR10, TITANIC, ESC50, IMDB]
 
 
-def _env_float(name: str, default: float) -> float:
-    """A non-negative float knob; a malformed value warns and falls back."""
+def _env_nonneg_float(name: str, default: float) -> float:
+    """A non-negative float knob (0 is meaningful, e.g. a retry backoff of
+    0 s); a malformed or NaN value warns and falls back."""
     raw = os.environ.get(name)
     if raw is None:
         return default
@@ -123,7 +124,7 @@ SYNTH_SCALE_ENV = "MPLC_TORCH_SYNTH_SCALE"
 
 
 def synth_scale() -> float:
-    return _env_float(SYNTH_SCALE_ENV, 1.0)
+    return _env_nonneg_float(SYNTH_SCALE_ENV, 1.0)
 
 
 # Noise of the synthetic image datasets (MNIST, CIFAR10), the JAX package's
@@ -133,11 +134,13 @@ SYNTH_NOISE_ENV = "MPLC_TORCH_SYNTH_NOISE"
 
 
 def synth_noise(default: float) -> float:
-    return _env_float(SYNTH_NOISE_ENV, default)
+    return _env_nonneg_float(SYNTH_NOISE_ENV, default)
 
 
-# Samples per evaluation chunk (the JAX package's default).
-EVAL_CHUNK_SIZE = 2048
+# Samples per evaluation chunk (MPLC_TORCH_EVAL_CHUNK, default 2048 as in
+# the JAX package). Read once at import: eval sets are chunked when they
+# are staged. A malformed value warns and gives 2048.
+EVAL_CHUNK_SIZE = _env_positive_int("MPLC_TORCH_EVAL_CHUNK", 2048)
 
 # Models x rows evaluated in one forward call when a batch of models scores
 # one eval set: bounds the activation memory of a reconstruction batch
@@ -158,8 +161,42 @@ def eval_rows_in_flight(row_bytes: int) -> int:
     return max(1, min(EVAL_ROWS_IN_FLIGHT, EVAL_BYTES_IN_FLIGHT // row_bytes))
 
 # Coalitions trained per batch by the retraining sweep
-# (contrib/engine.py): the JAX package's default ceiling per device.
+# (contrib/engine.py): the JAX package's default ceiling per device. The
+# engine's cap is the smaller of this ceiling and what half the device's
+# memory holds (`CharacteristicEngine._device_batch_cap`), halved again by
+# every OOM rung. Read when a cap is computed:
+#   MPLC_TORCH_COALITIONS_PER_DEVICE  a fixed cap in place of the autotune
+#                                     (still halved by the OOM ladder);
+#   MPLC_TORCH_BATCH_CAP_CEILING      the ceiling in place of 16.
 MAX_COALITIONS_PER_DEVICE_BATCH = 16
+# A training step's activations a row, in units of the model's largest
+# activation (`Model.eval_row_bytes`): every layer's output kept for the
+# backward pass and one layer's gradients in and out. Sizes a gradient
+# call in the cap's footprint model (`CharacteristicEngine._batch_fixed_bytes`)
+TRAIN_ACTIVATIONS_PER_ROW = 6
+# ... and an evaluation's: a layer's input, its output and a convolution's
+# workspace (cuDNN's FFT algorithms take about an activation's size)
+EVAL_ACTIVATIONS_PER_ROW = 3
+COALITIONS_PER_DEVICE_ENV = "MPLC_TORCH_COALITIONS_PER_DEVICE"
+BATCH_CAP_CEILING_ENV = "MPLC_TORCH_BATCH_CAP_CEILING"
+
+# The fault ladder (contrib/engine.py, faults.py), read when a
+# CharacteristicEngine is built; a malformed value warns and falls back:
+#   MPLC_TORCH_FAULT_PLAN         the deterministic batch-fault plan
+#                                 (grammar in faults.py);
+#   MPLC_TORCH_MAX_RETRIES        retries of a transient failure a batch (3);
+#   MPLC_TORCH_RETRY_BACKOFF_SEC  the first retry's backoff (0.5 s),
+#                                 doubling each attempt up to
+#                                 RETRY_BACKOFF_CAP_SEC;
+#   MPLC_TORCH_MAX_CAP_HALVINGS   OOM cap halvings before the ladder ends:
+#                                 a CUDA engine raises LadderExhaustedError,
+#                                 a CPU engine runs the rest on its CPU
+#                                 rung (3).
+FAULT_PLAN_ENV = "MPLC_TORCH_FAULT_PLAN"
+MAX_RETRIES_ENV = "MPLC_TORCH_MAX_RETRIES"
+RETRY_BACKOFF_ENV = "MPLC_TORCH_RETRY_BACKOFF_SEC"
+MAX_CAP_HALVINGS_ENV = "MPLC_TORCH_MAX_CAP_HALVINGS"
+RETRY_BACKOFF_CAP_SEC = 30.0  # the bound on one backoff sleep
 
 # Coalitions reconstructed and evaluated per batch by the retrain-free
 # evaluator (contrib/reconstruct.py).
@@ -171,7 +208,7 @@ GTG_TRUNCATION_ENV = "MPLC_TORCH_GTG_TRUNCATION"
 
 
 def gtg_truncation() -> float:
-    return _env_float(GTG_TRUNCATION_ENV, 0.05)
+    return _env_nonneg_float(GTG_TRUNCATION_ENV, 0.05)
 
 
 # SVARM's sampled-coalition budget after the exact anchors and the stratum

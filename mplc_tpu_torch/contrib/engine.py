@@ -1,15 +1,18 @@
 """The characteristic-function engine (port of `mplc_tpu/contrib/engine.py`:
 staging, the coalition helpers, the retraining sweep on slots or masked,
-and the checksummed coalition cache).
+the batch control and the fault ladder, and the checksummed coalition
+cache).
 
 It stages the scenario's data once on the scenario's device (stacked
 partners, val and test sets), derives the coalition-training configs, and
 gives each coalition its mask or slot ids and its own random stream.
 `evaluate` is the batched, memoized v(S) = the test accuracy of a model
 trained on S alone: single-partner coalitions train through the single
-trainer, the others through the scenario's approach, up to
-MAX_COALITIONS_PER_DEVICE_BATCH coalitions a batch. FedAvg and seq-family
-coalitions train on slots by default, grouped by slot width
+trainer, the others through the scenario's approach, up to the cap
+(`_device_batch_cap`: on a card the smaller of
+MAX_COALITIONS_PER_DEVICE_BATCH and what half its memory holds beside a
+batch's fixed bytes, on the CPU that ceiling) coalitions a batch. FedAvg
+and seq-family coalitions train on slots by default, grouped by slot width
 (`_slot_buckets`), or masked over all P partners (MPLC_TORCH_NO_SLOTS=1,
 lflip, and fedavg under MPLC_TORCH_DETERMINISTIC_REDUCE, as the JAX
 package routes them). The memo is saved to a checksummed JSON cache
@@ -30,25 +33,44 @@ v(S), every replica lands in `charac_fct_samples`.
 
 Observability (the JAX engine's names, `obs/trace.py`): `evaluate` is an
 `engine.evaluate` span holding, for each bucket, an `engine.prep` span and
-for each batch an `engine.dispatch` span (everything up to the batch's
-first host read: the trainer's own reads, early stopping's flag and the
-seq family's visit count, fall inside it) and an `engine.harvest` span
-(that read, the batch's one sync), then an `engine.batch` event with the
-batch's accounting, and one `engine.hbm` event a call that did device
-work. The memo, coalition, epoch, sample and partner-pass counters go to
+for each batch an `engine.dispatch` span (the batch queued on its device;
+only early stopping's flag, where it can fire, reads the device inside it)
+and an `engine.harvest` span (the host read of the results, the batch's
+one sync), then an `engine.batch` event with the batch's accounting, and
+one `engine.hbm` event a call that did device work; the ladder adds
+`engine.retry`, `engine.degrade` and `engine.fault` events. The memo,
+coalition, epoch, sample, partner-pass and ladder counters go to
 `obs/metrics.py`. None of it adds a sync.
 
-The fault ladder, the program bank and batch pipelining are not ported
-yet (ROADMAP.md).
+The fault ladder (faults.py; the JAX engine's, knobs `MPLC_TORCH_*`):
+every batch runs under a batch-fault plan's injector; a transient failure
+at dispatch or harvest retries it with bounded exponential backoff, an
+OOM halves the cap and re-buckets what is left. Past the last halving a
+CUDA engine stops with the classified, permanent `LadderExhaustedError`
+(`_ladder_exhausted`, with a flight dump): the port never moves a card's
+work to the CPU. Only an engine whose device is the CPU has a last CPU
+rung (`_run_groups_cpu`), loudly. Recovery never changes v(S): every
+retry draws each coalition's streams afresh, and a batch re-run at a
+narrower width pads its gradient calls to the call's first width
+(`TrainConfig.grad_runs`; cuDNN picks its backward algorithms by a call's
+model count), so it trains the same bits on the card too. A dispatch
+reads nothing from the device (early stopping that can fire aside), so
+the host has queued a whole batch when its harvest starts; batches run
+one after another. The program bank, device fences and the value ledger
+are ROADMAP.md queue 1 item 7; the 2-D mode's singles path and its ladder
+exhaustion item 10.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
+import logging
 import os
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -57,10 +79,11 @@ import torch
 from .. import constants, faults
 from ..data.partition import StackedPartners
 from ..mpl.approaches import stage_eval_set
-from ..mpl.engine import SLOT_APPROACHES, MplTrainer, TrainConfig
+from ..mpl.engine import SLOT_APPROACHES, MplTrainer, TrainConfig, upload
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 
+logger = logging.getLogger("mplc_tpu_torch")
 
 # one deprecation warning a process for legacy no-checksum caches
 _legacy_cache_warned = False
@@ -106,35 +129,77 @@ def _memo_counters(hits: int, misses: int) -> "str | None":
 
 class BatchedTrainerPipeline:
     """init -> epoch chunk -> finalize over a batch of coalitions, one
-    trainer (the JAX package's vmapped pipeline, synchronous)."""
+    trainer (the JAX package's vmapped pipeline)."""
 
     def __init__(self, trainer: MplTrainer, partners_count: int):
         self.trainer = trainer
         self.partners_count = partners_count
+        self._padded: dict[int, MplTrainer] = {}
 
-    def dispatch(self, coal: torch.Tensor, generators, stacked, val, test,
-                 init_params: dict | None = None,
-                 streams_all=None) -> tuple[torch.Tensor, torch.Tensor]:
-        """(test accuracies [B], epochs trained [B]) of the coalitions
-        `coal` (masks [B, P], or slot ids [B, K] on a slot trainer), on
-        their device and not yet read, each trained from its generator's
-        stream, or from injected initial params ([B, ...] leaves) and
-        streams (`MplTrainer.epoch_chunk`'s `streams_all`)."""
-        tr = self.trainer
+    def _trainer(self, grad_runs: int | None) -> MplTrainer:
+        """The trainer, or its copy whose gradient calls hold `grad_runs`
+        runs (made once a count)."""
+        if grad_runs is None:
+            return self.trainer
+        if grad_runs not in self._padded:
+            self._padded[grad_runs] = MplTrainer(self.trainer.model, dataclasses.replace(
+                self.trainer.cfg, grad_runs=grad_runs))
+        return self._padded[grad_runs]
+
+    def dispatch_async(self, coal: torch.Tensor, generators, stacked, val, test,
+                       init_params: dict | None = None, streams_all=None,
+                       coal_host=None, grad_runs: int | None = None):
+        """Train the coalitions `coal` (masks [B, P], or slot ids [B, K] on
+        a slot trainer; its CPU copy `coal_host`, or None), each from its
+        generator's stream, or from injected initial params ([B, ...]
+        leaves) and streams (`MplTrainer.epoch_chunk`'s `streams_all`), and
+        return a zero-argument harvest thunk that reads their test
+        accuracies [B] and epochs trained [B] to the host as numpy arrays.
+        `grad_runs` (None: every run of a step in one call) sets the runs
+        a gradient call holds (`TrainConfig.grad_runs`).
+        The thunk holds those two tensors only, so the batch's state goes
+        back to the caching allocator when this returns. On a CUDA device,
+        unless early stopping can fire (`TrainConfig.stops_early`, whose
+        flag is read every epoch), the batch is still running when this
+        returns, and the thunk's read is its one sync."""
+        tr = self._trainer(grad_runs)
         state = tr.init_state(generators, self.partners_count, coal.device,
                               init_params)
         tr.epoch_chunk(state, stacked, val, coal, generators,
-                       tr.cfg.epoch_count, streams_all)
+                       tr.cfg.epoch_count, streams_all, coal_host)
         _, accs = tr.finalize(state, test)
-        return accs, state.nb_epochs_done
+        epochs = state.nb_epochs_done
+        return lambda: (accs.cpu().numpy(), epochs.cpu().numpy())
 
     def scores(self, coal: torch.Tensor, generators, stacked, val, test,
                init_params: dict | None = None,
                streams_all=None) -> tuple[np.ndarray, np.ndarray]:
-        """`dispatch`, its results read to the host."""
-        accs, epochs = self.dispatch(coal, generators, stacked, val, test,
-                                     init_params, streams_all)
-        return accs.cpu().numpy(), epochs.cpu().numpy()
+        """`dispatch_async`, its results read to the host."""
+        return self.dispatch_async(coal, generators, stacked, val, test,
+                                   init_params, streams_all)()
+
+
+def device_memory_bytes(device) -> int:
+    """Bytes of device memory the engine may plan with: on a CUDA device
+    what is free plus what this process's caching allocator already holds
+    (`torch.cuda.mem_get_info`, `memory_reserved`), elsewhere 8 GiB (the
+    JAX engine's fallback)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 8 << 30
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(free + torch.cuda.memory_reserved(device))
+
+
+def _release(err: BaseException) -> None:
+    """Drop the locals of the frames a caught error's tracebacks hold (its
+    own and those of the errors it chains): a failed batch's tensors, which
+    would otherwise stay allocated while the ladder retries."""
+    seen = set()
+    while err is not None and id(err) not in seen:
+        seen.add(id(err))
+        traceback.clear_frames(err.__traceback__)
+        err = err.__cause__ or err.__context__
 
 
 class CharacteristicEngine:
@@ -150,6 +215,8 @@ class CharacteristicEngine:
     # batches dispatched so far (the recording included), 1-based; such a
     # subclass dispatches none
     _batch_ordinal = 0
+    _cap_halvings = 0
+    _cpu_degraded = False
 
     def __init__(self, scenario, seed_ensemble: int | None = None):
         self.scenario = scenario
@@ -260,8 +327,25 @@ class CharacteristicEngine:
         self._epoch_samples_multi = sizes // mbc * mbc
         self._epoch_samples_single = sizes
         self._param_bytes: int | None = None
-        # the cache is saved here after every trained batch (Scenario.run)
+        # the cache is saved here after every trained batch (Scenario.run),
+        # so a crash loses at most the batch it interrupts
         self.autosave_path = None
+
+        # The fault ladder (faults.py), its knobs read here, once an engine.
+        # Recovery never changes v(S): a retried or re-bucketed batch (or,
+        # on a CPU engine, a CPU-rung batch) trains each coalition from the
+        # same stream (equality-tested in tests/test_torch_ladder.py)
+        self._max_retries = constants._env_positive_int(constants.MAX_RETRIES_ENV, 3)
+        self._retry_backoff = constants._env_nonneg_float(constants.RETRY_BACKOFF_ENV, 0.5)
+        self._max_cap_halvings = constants._env_positive_int(
+            constants.MAX_CAP_HALVINGS_ENV, 3)
+        # rungs taken down the OOM ladder: every later cap is halved that
+        # many times, so the remaining subsets re-bucket through the
+        # ordinary width rule
+        self._cap_halvings = 0
+        self._cpu_degraded = False   # the CPU rung taken (a CPU engine only)
+        self._hbm_bytes: int | None = None   # device memory, queried lazily
+        self._faults = faults.FaultInjector.from_env()
         # a legacy (no-checksum) cache loaded from this path is rewritten
         # with a checksum by the next save to it
         self._cache_needs_upgrade = False
@@ -389,84 +473,24 @@ class CharacteristicEngine:
             by_width.setdefault(self._slot_width(len(s)), []).append(s)
         return [(w, by_width[w]) for w in sorted(by_width)]
 
-    def _run_batch(self, subsets: list[tuple], pipe: BatchedTrainerPipeline,
-                   slot_count: int | None = None) -> None:
-        """Train and value `subsets` on `pipe` (a slot pipeline when
-        `slot_count` is given), in batches of one width for the whole call.
-        A batch's rows are jobs: job j is replica j % K of subset j // K
-        (K = `seed_ensemble`), so the replicas fill the rows a single-seed
-        sweep pads. The tail is padded with copies of its batch's first
-        job, whose results are dropped. Each job draws the stream of its
-        effective subset; the single trainer also takes its effective mask
-        (its lone survivor), the others the full membership, whose dropped
-        partners they mask in-trainer. Saves the cache after every batch
-        when `autosave_path` is set."""
-        cap = constants.MAX_COALITIONS_PER_DEVICE_BATCH
-        K = self.seed_ensemble
-        single = pipe is self.single_pipe
-        per_partner = self._epoch_samples_single if single else self._epoch_samples_multi
-        # partner passes a coalition-minibatch runs on this pipe, padded
-        # slots included (what the device ran)
-        passes_per_mb = 1 if single else slot_count or self.partners_count
-        n_jobs = len(subsets) * K
-        b = _bucket_size(min(n_jobs, cap), 1, cap)
-        with obs_trace.span("engine.prep", coalitions=n_jobs, width=b,
-                            slot_count=slot_count):
-            eff = [self._effective_subset(s) for s in subsets]
-            coal_all = self._coalition_arrays(eff if single else subsets, slot_count)
-        for i in range(0, n_jobs, b):
-            n = min(b, n_jobs - i)
-            sel = np.full(b, i, np.intp)
-            sel[:n] = np.arange(i, i + n)
-            self._batch_ordinal += 1
-            attrs = {"width": b, "slot_count": slot_count, "coalitions": n,
-                     "padding": b - n}
-            t0 = time.perf_counter()
-            with obs_trace.span("engine.dispatch", **attrs):
-                keys = [eff[j] for j in sel // K]
-                generators, init_params, streams = self._batch_start(
-                    keys, single, [int(j) for j in sel % K])
-                coal = torch.from_numpy(coal_all[sel // K]).to(self.device)
-                accs, epochs = pipe.dispatch(coal, generators, self.stacked, self.val,
-                                             self.test, init_params, streams)
-            with obs_trace.span("engine.harvest", width=b, slot_count=slot_count,
-                                coalitions=n):
-                accs, epochs = accs.cpu().numpy(), epochs.cpu().numpy()
-            seconds = time.perf_counter() - t0
-            self.batch_log.append({"kind": "single" if single else "multi", "width": b,
-                                   "slot_count": slot_count, "coalitions": n,
-                                   "seconds": seconds})
-            for j, acc in zip(sel[:n], accs[:n]):
-                s, rep = subsets[j // K], int(j % K)
-                if K > 1:
-                    self._store_sample(s, rep, float(acc))
-                # replica 0 is v(S); a subset re-trained for a missing
-                # replica keeps the value and the call count it has
-                if rep == 0 and s not in self.charac_fct_values:
-                    self._store(s, float(acc))
-            batch_epochs = int(epochs[:n].sum())
-            batch_samples = int(sum(int(ep) * int(per_partner[list(eff[j // K])].sum())
-                                    for j, ep in zip(sel[:n], epochs[:n])))
-            batch_passes = batch_epochs * pipe.trainer.cfg.minibatch_count * passes_per_mb
-            self._account_batch(seconds, attrs, batch_epochs, batch_samples, batch_passes)
-            obs_metrics.histogram("engine.pad_waste_fraction").observe((b - n) / b)
-            obs_metrics.sample_device_memory(device=self.device)
-            if self.autosave_path is not None:
-                self.save_cache(self.autosave_path)
+    # ------------------------------------------------------------------
+    # batch control: the device-memory cap and the bucket width
+    # ------------------------------------------------------------------
 
-    def _account_batch(self, seconds: float, attrs: dict, epochs: int, samples: int,
-                       passes: int, **extra) -> None:
-        """A training batch's counters and its `engine.batch` event
-        (`seconds`: dispatch start to harvest end); the recording's too."""
-        self.epochs_trained += epochs
-        self.samples_trained += samples
-        obs_metrics.counter("engine.batches").inc()
-        obs_trace.event("engine.batch", dur=seconds, ordinal=self._batch_ordinal,
-                        **attrs, epochs=epochs, samples=samples,
-                        partner_passes=passes, **extra)
-        obs_metrics.counter("engine.epochs_trained").inc(epochs)
-        obs_metrics.counter("engine.samples_trained").inc(samples)
-        obs_metrics.counter("engine.partner_passes").inc(passes)
+    def _device_batch_cap(self, slot_count: int | None = None) -> int:
+        """Coalitions a batch, per device (the port runs on one).
+
+        The cap is the smaller of the ceiling (MAX_COALITIONS_PER_DEVICE_BATCH,
+        16; MPLC_TORCH_BATCH_CAP_CEILING lifts it) and the coalitions that
+        fit in half the device's memory beside a batch's fixed bytes
+        (`_autotuned_cap`). MPLC_TORCH_COALITIONS_PER_DEVICE overrides the
+        autotune (a malformed value warns and falls back to it). Every OOM
+        rung (`_degrade_cap`) halves the result, the override included: the
+        ladder exists because a measured cap stopped holding."""
+        env_cap = constants._env_positive_int(constants.COALITIONS_PER_DEVICE_ENV, 0)
+        if env_cap:
+            return max(1, env_cap >> self._cap_halvings)
+        return self._autotuned_cap(slot_count)
 
     def _model_param_bytes(self) -> int:
         """Bytes of one model's parameters (from one CPU init, once)."""
@@ -476,15 +500,418 @@ class CharacteristicEngine:
                                     for d in params.values() for t in d.values())
         return self._param_bytes
 
-    def _hbm_event(self, slot_count: int | None) -> None:
-        """One device-memory snapshot for a call that did device work: the
-        JAX engine's `engine.hbm` event with the fields the port can fill
-        (the footprint model and donation have no counterpart yet)."""
+    def _per_coalition_bytes(self, k: int) -> int:
+        """The modeled device bytes one coalition adds to a batch training
+        at k partner slots (k = P masked), from what this trainer holds at
+        the peak of a partner pass (`MplTrainer._fedavg_epoch`, `_steps`):
+        the global params and the aggregate being built (2 parameter
+        copies), and per slot its params, its gradients, the step's new
+        params, its update temporary and twice the optimizer's moments (old
+        and new coexist inside a step), so (4 + 2m) copies a slot for m
+        moments (Adam 2, RMSprop 1)."""
+        moments = sum(1 for v in self.model.optimizer.init({}).values()
+                      if isinstance(v, dict))
+        return self._model_param_bytes() * (2 + k * (4 + 2 * moments))
+
+    def _batch_fixed_bytes(self, k: int) -> int:
+        """The modeled device bytes a batch holds whatever its width, from
+        the model's largest float32 activation a row (`eval_row_bytes`; the
+        input row where the model does not say): an evaluation call holds
+        at most `constants.eval_rows_in_flight` models x rows, and a
+        layer's input, its output and a convolution's workspace coexist
+        (EVAL_ACTIVATIONS_PER_ROW such activations a row); a gradient call
+        holds up to the ceiling's coalitions' k models (a call's first
+        width, to which a re-run pads) on a step's rows, each row keeping
+        its layers' activations for the backward pass and one layer's
+        gradients in and out (TRAIN_ACTIVATIONS_PER_ROW). The two calls
+        do not overlap; the larger counts."""
+        cfg = self._multi_cfg
+        row = self.model.eval_row_bytes or self.stacked.x[0, 0].numel() * 4
+        evaluation = (constants.EVAL_ACTIVATIONS_PER_ROW * constants.eval_rows_in_flight(row)
+                      * row)
+        window = max(self.stacked.x.shape[1] // cfg.minibatch_count, 1)
+        step_rows = -(-window // cfg.gradient_updates_per_pass) * cfg.step_width_mult
+        ceiling = constants._env_positive_int(constants.BATCH_CAP_CEILING_ENV,
+                                              constants.MAX_COALITIONS_PER_DEVICE_BATCH)
+        grads = constants.TRAIN_ACTIVATIONS_PER_ROW * ceiling * k * step_rows * row
+        return max(evaluation, grads)
+
+    def _device_hbm_bytes(self) -> int:
+        """The device's memory (`device_memory_bytes`), queried once an
+        engine and again after every degrade (`_degrade_cap` drops it): after
+        an OOM the autotune reasons from the memory left, not the
+        snapshot taken before the fault."""
+        if self._hbm_bytes is None:
+            self._hbm_bytes = device_memory_bytes(self.device)
+        return self._hbm_bytes
+
+    def _autotuned_cap(self, slot_count: int | None) -> int:
+        """min(ceiling, the coalitions whose bytes (`_per_coalition_bytes`)
+        fit in half the card's memory beside the batch's fixed bytes
+        (`_batch_fixed_bytes`)), halved once a rung; the other half holds
+        the staged data and the allocator's slack. At least 1. The
+        autotune plans a CUDA card's memory; on another device (the CPU,
+        whose memory is the host's) the cap is the ceiling, halved once a
+        rung."""
+        ceiling = constants._env_positive_int(constants.BATCH_CAP_CEILING_ENV,
+                                              constants.MAX_COALITIONS_PER_DEVICE_BATCH)
+        if torch.device(self.device).type != "cuda":
+            return max(1, ceiling >> self._cap_halvings)
+        k = slot_count if slot_count is not None else self.partners_count
+        room = 0.5 * self._device_hbm_bytes() - self._batch_fixed_bytes(k)
+        fit = max(1, int(room // self._per_coalition_bytes(k)))
+        return max(1, min(ceiling, fit) >> self._cap_halvings)
+
+    def _hbm_attrs(self, slot_count: int | None = None) -> dict:
+        """The `engine.hbm` event's payload, the JAX engine's keys and the
+        port's `fixed_bytes` (`_batch_fixed_bytes`): the modeled footprint
+        a coalition, the caps and the device's memory and measured peak.
+        The port donates no buffers: there is no executable boundary to
+        donate across, and the trainer replaces its state's tensors as it
+        goes, each old one returned to the caching allocator at once. So
+        `donation` is False, the donated saving 0, and the caps before and
+        after donation are the one autotuned cap."""
+        k = slot_count if slot_count is not None else self.partners_count
+        cap = self._autotuned_cap(slot_count)
+        return {
+            "param_bytes": self._model_param_bytes(),
+            "slot_count": k,
+            "donation": False,
+            "per_coalition_bytes": self._per_coalition_bytes(k),
+            "fixed_bytes": self._batch_fixed_bytes(k),
+            "donated_bytes_per_coalition": 0,
+            "cap_before_donation": cap,
+            "cap_after_donation": cap,
+            "cap_effective": self._device_batch_cap(slot_count),
+            "hbm_bytes_limit": self._device_hbm_bytes(),
+            "peak_in_use_bytes": obs_metrics.gauge("engine.device_mem_high_water_bytes").value,
+        }
+
+    def _planned_width(self, n_jobs: int, slot_count: int | None) -> int:
+        """The bucket width of a call of `n_jobs` jobs: one width for the
+        whole call (the tail pads up to it), recomputed only when the OOM
+        ladder moves. The JAX engine's fleet width pinning waits for the
+        port's fleet (ROADMAP.md queue 1 item 10)."""
+        cap = self._device_batch_cap(slot_count)
+        return _bucket_size(min(n_jobs, cap), 1, cap)
+
+    # ------------------------------------------------------------------
+    # the fault ladder
+    # ------------------------------------------------------------------
+
+    def _retry_transient(self, op, site: str, ordinal: int | None = None):
+        """`op()`, retried with bounded exponential backoff on transient
+        failures (`faults.is_transient`), up to MPLC_TORCH_MAX_RETRIES
+        retries. A re-dispatched batch draws every coalition's stream
+        afresh, so a retry never changes v(S). OOM and other errors
+        propagate. `ordinal` rides the `engine.retry` event."""
+        attempt = 0
+        while True:
+            try:
+                return op()
+            except Exception as e:
+                if not faults.is_transient(e) or attempt >= self._max_retries:
+                    raise
+                attempt += 1
+                self._backoff(site, attempt, e, ordinal)
+
+    def _fetch_with_retry(self, fetch, meta):
+        """Harvest with transient recovery: a failed fetch re-dispatches
+        the same batch (`meta["redispatch"]`, the same streams) and fetches
+        again, up to the retry budget. The fault plan's harvest boundary
+        sits here. The re-dispatch runs inside the try: a re-dispatch that
+        fails transiently consumes a retry instead of escaping."""
+        attempt = 0
+        while True:
+            try:
+                if fetch is None:
+                    fetch = meta["redispatch"]()
+                self._faults.check("harvest", meta.get("ordinal", 0))
+                return fetch()
+            except Exception as e:
+                if (not faults.is_transient(e) or meta.get("redispatch") is None
+                        or attempt >= self._max_retries):
+                    raise
+                attempt += 1
+                self._backoff("harvest", attempt, e, meta.get("ordinal"))
+                fetch = None
+
+    def _backoff(self, site: str, attempt: int, err: BaseException,
+                 ordinal: int | None = None) -> None:
+        delay = min(self._retry_backoff * (2 ** (attempt - 1)),
+                    constants.RETRY_BACKOFF_CAP_SEC)
+        obs_metrics.counter("engine.retries").inc()
+        obs_metrics.counter("engine.backoff_sec").inc(delay)
+        obs_trace.event("engine.retry", site=site, attempt=attempt, ordinal=ordinal,
+                        backoff_sec=delay, error=str(err)[:200])
+        logger.warning("transient %s failure (attempt %d/%d, backing off %.2f s): %s",
+                       site, attempt, self._max_retries, delay, err)
+        if delay:
+            time.sleep(delay)
+
+    def _degrade_cap(self, err: BaseException) -> None:
+        """One rung down the OOM ladder: halve the cap (every later
+        `_device_batch_cap` sees it). Past MPLC_TORCH_MAX_CAP_HALVINGS
+        rungs the ladder ends: a CUDA engine raises `_ladder_exhausted`'s
+        error (the port moves no work off the card), a CPU engine routes
+        everything still missing through its CPU rung. Values already
+        harvested stay in the memo. The caller has released the failed
+        batch's tensors (`_release`); what a reference cycle still holds is
+        collected, the caching allocator releases its free blocks
+        (`torch.cuda.empty_cache`), and the device's memory is queried
+        afresh by the next cap."""
+        self._cap_halvings += 1
+        self._hbm_bytes = None
+        on_cpu = torch.device(self.device).type == "cpu"
+        if not on_cpu:
+            gc.collect()   # tensors a reference cycle still holds
+            torch.cuda.empty_cache()
+        obs_metrics.counter("engine.cap_halvings").inc()
+        if self._cap_halvings <= self._max_cap_halvings:
+            obs_trace.event("engine.degrade", action="halve_cap",
+                            halvings=self._cap_halvings, error=str(err)[:200])
+            logger.warning("device OOM: halving the coalition cap (halving %d of %d) and "
+                           "re-bucketing the remaining subsets (%s)",
+                           self._cap_halvings, self._max_cap_halvings, err)
+        elif not on_cpu:
+            raise self._ladder_exhausted(err, "1d") from err
+        else:
+            self._cpu_degraded = True
+            obs_trace.event("engine.degrade", action="cpu_fallback",
+                            halvings=self._cap_halvings, error=str(err)[:200])
+            logger.warning("OOM after %d cap halvings: the remaining coalition batches "
+                           "run on the CPU rung (%s)", self._max_cap_halvings, err)
+
+    def _ladder_exhausted(self, err: BaseException,
+                          mode: str = "2d") -> faults.LadderExhaustedError:
+        """The classified terminal error of a sweep whose cap halvings ran
+        out on the card (`_degrade_cap`, mode "1d"; the JAX package's 2-D
+        partner-sharded mode, "2d", comes with that mode, ROADMAP.md queue
+        1 item 10): counts `engine.ladder_exhausted`, emits an
+        `engine.degrade` event (action `ladder_exhausted`), writes a
+        flight-recorder dump and returns the error, permanent for the
+        classifier. Raise it `from err`."""
+        obs_metrics.counter("engine.ladder_exhausted").inc()
+        obs_trace.event("engine.degrade", action="ladder_exhausted",
+                        halvings=self._cap_halvings, error=str(err)[:200])
+        from ..obs import flight as obs_flight
+        postmortem = obs_flight.dump("ladder_exhausted", extra={
+            "halvings": self._cap_halvings, "error": str(err)[:500]})
+        return faults.LadderExhaustedError(
+            f"device OOM persisted through {self._max_cap_halvings} cap halvings and the "
+            "card's work never moves to the CPU: the sweep cannot make progress at any "
+            f"cap. Remedies: lower {constants.COALITIONS_PER_DEVICE_ENV} or "
+            f"MPLC_TORCH_EVAL_CHUNK. Last device error: {str(err)[:200]}"
+            + (f" Postmortem flight record: {postmortem}" if postmortem else ""),
+            halvings=self._cap_halvings, mode=mode, postmortem_path=postmortem)
+
+    # ------------------------------------------------------------------
+    # the batch loop
+    # ------------------------------------------------------------------
+
+    def _record_or_recover(self, prev, per_partner, slot_count, pipe) -> None:
+        """`_record_group` with the harvest-side OOM rung: when reading a
+        batch's results exhausts memory, its coalitions run again through
+        `_run_batch` at the degraded cap (or, on a CPU engine, the CPU
+        rung). Transient fetch failures were retried inside
+        `_record_group`; anything else propagates."""
+        try:
+            self._record_group(*prev, per_partner, slot_count)
+        except Exception as e:
+            if not faults.is_oom(e):
+                raise
+            _release(e)
+            self._degrade_cap(e)
+            subs = (list(dict.fromkeys(s for s, _ in prev[0])) if prev[2]["ensemble"]
+                    else prev[0])
+            redo = [s for s in subs if self._incomplete(s)]
+            if redo:
+                self._run_batch(redo, pipe, slot_count, prev[2]["call_width"])
+
+    def _run_batch(self, subsets: list[tuple], pipe: BatchedTrainerPipeline,
+                   slot_count: int | None = None, call_width: int | None = None) -> None:
+        """Train and value `subsets` on `pipe` (a slot pipeline when
+        `slot_count` is given), in batches of one width for the call
+        (`_planned_width`), each harvested before the next is dispatched.
+        A batch's rows are jobs: job j is replica j % K of subset j // K
+        (K = `seed_ensemble`), so the replicas fill the rows a single-seed
+        sweep pads. The tail is padded with copies of its batch's first
+        job, whose results are dropped. Each job draws the stream of its
+        effective subset; the single trainer also takes its effective mask
+        (its lone survivor), the others the full membership, whose dropped
+        partners they mask in-trainer.
+
+        The ladder (the JAX engine's loop; ReconstructionEvaluator._run_batch
+        keeps the same skeleton, so a change lands in both): a transient
+        failure at dispatch or harvest retries the batch; an OOM at dispatch
+        steps the cap down and retries the same group at the degraded
+        width; an OOM at harvest re-runs the batch's coalitions
+        (`_record_or_recover`); past the last rung a CUDA engine raises
+        `LadderExhaustedError` and a CPU engine runs the rest on its CPU
+        rung (`_run_groups_cpu`). `call_width` is the width the call's
+        first batch had (None: this call's, a harvest's re-run passes its
+        call's): a batch narrower than it pads its gradient calls to that
+        many runs, so a coalition re-run at a halved width computes its
+        gradients in calls of the model count it first had."""
+        K = self.seed_ensemble
+        single = pipe is self.single_pipe
+        per_partner = self._epoch_samples_single if single else self._epoch_samples_multi
+        # partner passes a coalition-minibatch runs on this pipe, padded
+        # slots included (what the device ran)
+        passes_per_mb = 1 if single else slot_count or self.partners_count
+        n_jobs = len(subsets) * K
+        b = self._planned_width(n_jobs, slot_count)
+        call_width = call_width or b
+        halvings_seen = self._cap_halvings
+        with obs_trace.span("engine.prep", coalitions=n_jobs, width=b,
+                            slot_count=slot_count):
+            eff = [self._effective_subset(s) for s in subsets]
+            coal_all = self._coalition_arrays(eff if single else subsets, slot_count)
+            jobs = [(s, r) for s in subsets for r in range(K)] if K > 1 else subsets
+        ctx = {"eff": eff, "coal_all": coal_all, "jobs": jobs, "single": single,
+               "per_partner": per_partner, "passes_per_mb": passes_per_mb,
+               "call_width": call_width}
+        i = 0
+        while i < n_jobs:
+            if self._cpu_degraded:
+                self._run_groups_cpu(pipe, slot_count, i, ctx)
+                return
+            if self._cap_halvings != halvings_seen:
+                # the ladder moved (here or in a harvest's recovery): the
+                # remaining jobs re-bucket at the degraded cap
+                halvings_seen = self._cap_halvings
+                b = self._planned_width(n_jobs, slot_count)
+            group, meta, dispatch = self._batch_job(pipe, slot_count, i, b, ctx)
+            try:
+                fetch = self._retry_transient(dispatch, "dispatch", meta["ordinal"])
+            except Exception as e:
+                if not faults.is_oom(e):
+                    raise
+                # an OOM at dispatch: free the failed batch's tensors, step
+                # down and retry this group (i unchanged) at the degraded width
+                _release(e)
+                self._degrade_cap(e)
+                continue
+            i += len(group)
+            self._record_or_recover((group, fetch, meta), per_partner, slot_count, pipe)
+
+    def _batch_job(self, pipe, slot_count, i: int, b: int, ctx: dict,
+                   degraded: str | None = None):
+        """(group, meta, dispatch) of the batch of width `b` starting at job
+        `i`, its ordinal taken. `dispatch` is a closure that draws every
+        input afresh on each call (the coalitions' generators are stateful,
+        so a retry that reused them would train other streams) and returns
+        the batch's harvest thunk. A batch narrower than its call's first
+        width (`ctx["call_width"]`) pads its gradient calls to that width."""
+        K = self.seed_ensemble
+        jobs = ctx["jobs"]
+        group = jobs[i:i + b]
+        sel = np.full(b, i, np.intp)
+        sel[:len(group)] = np.arange(i, i + len(group))
+        self._batch_ordinal += 1
+        attrs = {"width": b, "slot_count": slot_count, "coalitions": len(group),
+                 "padding": b - len(group)}
+        if degraded:
+            attrs["degraded"] = degraded
+        meta = {**attrs, "t0": time.perf_counter(), "ordinal": self._batch_ordinal,
+                "kind": "single" if ctx["single"] else "multi", "ensemble": K > 1,
+                "passes_per_mb": ctx["passes_per_mb"],
+                "mb_count": pipe.trainer.cfg.minibatch_count,
+                "call_width": ctx["call_width"]}
+        grad_runs = ctx["call_width"] if b < ctx["call_width"] else None
+
+        def dispatch(ordinal=self._batch_ordinal):
+            with obs_trace.span("engine.dispatch", **attrs):
+                self._faults.check("dispatch", ordinal)
+                keys = [ctx["eff"][j] for j in sel // K]
+                generators, init_params, streams = self._batch_start(
+                    keys, ctx["single"], [int(j) for j in sel % K])
+                coal_host = torch.from_numpy(ctx["coal_all"][sel // K])
+                return pipe.dispatch_async(upload(coal_host, self.device), generators,
+                                           self.stacked, self.val, self.test, init_params,
+                                           streams, coal_host, grad_runs)
+
+        meta["redispatch"] = dispatch
+        return group, meta, dispatch
+
+    def _run_groups_cpu(self, pipe, slot_count, start: int, ctx: dict) -> None:
+        """The last rung of a CPU engine's OOM ladder (a CUDA engine has
+        none: `_degrade_cap`): the jobs from `start` on, a batch at a time
+        at the last halved cap, instead of abandoning the run. Everything
+        harvested before is kept, and each coalition trains from its own
+        streams, so the values are the clean run's. Loud: an
+        `engine.degrade` event and a warning were emitted by
+        `_degrade_cap`, each batch carries `degraded="cpu"` and counts
+        `engine.cpu_degraded_batches` and `_coalitions`; an OOM here
+        propagates."""
+        n_jobs = len(ctx["jobs"])
+        cap = self._device_batch_cap(slot_count)
+        b = _bucket_size(min(n_jobs - start, cap), 1, cap)
+        i = start
+        while i < n_jobs:
+            group, meta, dispatch = self._batch_job(pipe, slot_count, i, b, ctx,
+                                                    degraded="cpu")
+            i += len(group)
+            fetch = self._retry_transient(dispatch, "dispatch", meta["ordinal"])
+            self._record_group(group, fetch, meta, ctx["per_partner"], slot_count)
+
+    def _record_group(self, group, fetch, meta, per_partner, slot_count) -> None:
+        """A batch's harvest and bookkeeping: fetch its results (with the
+        retry ladder), store its values, account its epochs, samples and
+        partner passes, emit its `engine.batch` event, autosave. The JAX
+        engine's device fence, numerics audit and value ledger hook in here
+        (ROADMAP.md queue 1 item 7)."""
+        n = meta["coalitions"]
+        with obs_trace.span("engine.harvest", width=meta["width"], slot_count=slot_count,
+                            coalitions=n):
+            accs, epochs = self._fetch_with_retry(fetch, meta)
+        batch_samples = 0
+        for item, acc, ep in zip(group, accs[:n], epochs[:n]):
+            if meta["ensemble"]:
+                s, rep = item
+                self._store_sample(s, rep, float(acc))
+            else:
+                s, rep = item, 0
+            # replica 0 is v(S); a subset re-trained for a missing replica
+            # (or re-run by the harvest-side OOM rung) keeps the value and
+            # the call count it has
+            if rep == 0 and s not in self.charac_fct_values:
+                self._store(s, float(acc))
+            batch_samples += int(ep) * int(per_partner[list(self._effective_subset(s))].sum())
+        batch_epochs = int(epochs[:n].sum())
+        batch_passes = batch_epochs * meta["mb_count"] * meta["passes_per_mb"]
+        seconds = time.perf_counter() - meta["t0"]
+        attrs = {k: meta[k] for k in ("width", "slot_count", "coalitions", "padding")}
+        entry = {"kind": meta["kind"], **attrs, "seconds": seconds}
+        extra = {}
+        if meta.get("degraded"):
+            entry["degraded"] = extra["degraded"] = meta["degraded"]
+            obs_metrics.counter("engine.cpu_degraded_batches").inc()
+            obs_metrics.counter("engine.cpu_degraded_coalitions").inc(n)
+        self.batch_log.append(entry)
+        self._account_batch(seconds, attrs, batch_epochs, batch_samples, batch_passes,
+                            ordinal=meta["ordinal"], **extra)
+        obs_metrics.histogram("engine.pad_waste_fraction").observe(
+            meta["padding"] / meta["width"])
         obs_metrics.sample_device_memory(device=self.device)
-        obs_trace.event(
-            "engine.hbm", param_bytes=self._model_param_bytes(),
-            slot_count=slot_count if slot_count is not None else self.partners_count,
-            peak_in_use_bytes=obs_metrics.gauge("engine.device_mem_high_water_bytes").value)
+        if self.autosave_path is not None:
+            self.save_cache(self.autosave_path)
+
+    def _account_batch(self, seconds: float, attrs: dict, epochs: int, samples: int,
+                       passes: int, ordinal: int | None = None, **extra) -> None:
+        """A training batch's counters and its `engine.batch` event
+        (`seconds`: dispatch start to harvest end); the recording's too. `ordinal` is the
+        batch's (None: the last dispatched)."""
+        self.epochs_trained += epochs
+        self.samples_trained += samples
+        obs_metrics.counter("engine.batches").inc()
+        obs_trace.event("engine.batch", dur=seconds,
+                        ordinal=self._batch_ordinal if ordinal is None else ordinal,
+                        **attrs, epochs=epochs, samples=samples,
+                        partner_passes=passes, **extra)
+        obs_metrics.counter("engine.epochs_trained").inc(epochs)
+        obs_metrics.counter("engine.samples_trained").inc(samples)
+        obs_metrics.counter("engine.partner_passes").inc(passes)
 
     def evaluate(self, subsets) -> np.ndarray:
         """Batched memoized v(S) for a list of subsets (any iterables of
@@ -523,8 +950,12 @@ class CharacteristicEngine:
             elif multis:
                 self._run_batch(multis, self.multi_pipe)
             if self._batch_ordinal != ordinal:
-                self._hbm_event(max((self._slot_width(lens[k]) for k in multis), default=None)
-                                if multis and self._use_slots else None)
+                # one device-memory snapshot a call that did device work,
+                # after its batches, so the high water includes them
+                obs_metrics.sample_device_memory(device=self.device)
+                obs_trace.event("engine.hbm", **self._hbm_attrs(
+                    max((self._slot_width(lens[k]) for k in multis), default=None)
+                    if multis and self._use_slots else None))
         if self._cache_needs_upgrade and self.autosave_path is not None:
             # a legacy cache is rewritten with a checksum even when every
             # value was memoized and no batch's autosave ran

@@ -95,12 +95,12 @@ def _estimated_evals(partners: int) -> dict:
 
 
 def default_accuracy_target() -> float:
-    t = constants._env_float(constants.PLANNER_ACCURACY_ENV, 0.0)
+    t = constants._env_nonneg_float(constants.PLANNER_ACCURACY_ENV, 0.0)
     return t if t > 0 else 0.02
 
 
 def default_deadline_sec() -> "float | None":
-    d = constants._env_float(constants.PLANNER_DEADLINE_ENV, 0.0)
+    d = constants._env_nonneg_float(constants.PLANNER_DEADLINE_ENV, 0.0)
     return d if d > 0 else None
 
 

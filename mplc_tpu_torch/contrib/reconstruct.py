@@ -20,6 +20,21 @@ an `engine.evaluate` span (mode=reconstruct) holding, for each batch, an
 `engine.harvest` (the host read of the accuracies, the batch's one sync),
 then an eval-only `engine.batch` event.
 
+The fault ladder (the engine's, contrib/engine.py): the recording is batch
+ordinal 1 of its engine and retries transient failures (an OOM there
+propagates: one grand-coalition run has no narrower width). Each
+evaluator batch is a batch of the plan too: a transient failure at
+dispatch or harvest retries it, an OOM at dispatch or harvest steps the
+engine's cap down and runs the batch again at the halved width. Past
+MPLC_TORCH_MAX_CAP_HALVINGS rungs a CUDA engine raises the classified
+`LadderExhaustedError` (K1's work never moves to the CPU); a CPU engine
+runs the remaining batches as its CPU rung, where an OOM propagates. The
+width is the port's: chunks of RECON_BATCH
+(64) coalitions, each padded to a power of two, the chunk halved by every
+rung (`RECON_BATCH >> cap_halvings`). The JAX evaluator takes the
+retraining engine's cap (16) instead; 64 keeps K1's widest coalition tile
+(MT = 4) on the main path. A value does not depend on the width.
+
 Precision: the evaluator answers for the engine's frozen mode. Under fp32
 and mixed it reconstructs in fp32 (K1); under bf16 it keeps the flattened
 stream in bf16 only and reconstructs through K1-bf16 (fp32 accumulation),
@@ -35,12 +50,12 @@ import time
 import numpy as np
 import torch
 
-from .. import constants
+from .. import constants, faults
 from ..mpl.engine import MplTrainer
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..ops import recon_kernel
-from .engine import _bucket_size, _memo_counters
+from .engine import _bucket_size, _memo_counters, _release
 
 
 @dataclasses.dataclass
@@ -68,7 +83,9 @@ def record_updates(engine) -> RecordedRun:
     the engine's coalition-training config (its partner faults included:
     a dropped partner records exact-zero deltas and weights) and the grand
     coalition's own random stream (that of its effective membership), and
-    return the recorded stream."""
+    return the recorded stream. The recording is a batch of the fault
+    plan: a transient failure retries it from a fresh generator (the same
+    stream); an OOM propagates."""
     cfg = dataclasses.replace(engine._multi_cfg, record_updates=True)
     trainer = MplTrainer(engine.model, cfg)
     P = engine.partners_count
@@ -77,20 +94,27 @@ def record_updates(engine) -> RecordedRun:
     if not eff:
         raise ValueError("every partner is dropped from epoch 1: there is no "
                          "grand-coalition run to record")
-    generators = [engine.coalition_generator(eff)]
     mask = torch.from_numpy(engine._coalition_arrays([full])).to(engine.device)
     engine._batch_ordinal += 1
+    ordinal = engine._batch_ordinal
     rounds = cfg.epoch_count * cfg.minibatch_count
     span = obs_trace.start_span("recon.record", partners=P, rounds=rounds)
     t0 = time.perf_counter()
-    try:
+
+    def dispatch():
         with obs_trace.span("engine.dispatch", width=1, slot_count=None,
                             coalitions=1, padding=0, recording=True):
+            engine._faults.check("dispatch", ordinal)
+            generators = [engine.coalition_generator(eff)]
             state = trainer.init_state(generators, P, engine.device)
             init_params = {g: {k: t[0].clone() for k, t in d.items()}
                            for g, d in state.params.items()}
             trainer.epoch_chunk(state, engine.stacked, engine.val, mask, generators,
                                 cfg.epoch_count)
+            return init_params, state
+
+    try:
+        init_params, state = engine._retry_transient(dispatch, "dispatch", ordinal)
     except BaseException:
         # dropped without emitting, so the caller's nesting stays intact
         span.cancel()
@@ -121,10 +145,12 @@ class ReconstructionEvaluator:
 
     The recorded stream is flattened once to K1's layout (init [Dp],
     deltas [K = R*P, Dp], rows zero-padded to a multiple of 8 values, in
-    the precision's stream dtype); each batch of up
-    to RECON_BATCH coalitions is one kernel launch followed by a vmapped
-    evaluation of the batch's models on the test set. Values are
-    row-independent, so the batch width never changes them."""
+    the precision's stream dtype); each batch of up to RECON_BATCH
+    coalitions (halved by every rung of the engine's OOM ladder) is one
+    kernel launch followed by a vmapped evaluation of the batch's models on
+    the test set. Values are row-independent, so the batch width never
+    changes them (on the card, up to the rounding of the evaluation's
+    convolutions at another batch shape)."""
 
     def __init__(self, engine, recorded: RecordedRun | None = None):
         self.engine = engine
@@ -152,6 +178,10 @@ class ReconstructionEvaluator:
         with torch.no_grad():
             return self.engine.trainer.evaluate_models(params, self.engine.test)[1]
 
+    def _chunk(self) -> int:
+        """Coalitions a batch: RECON_BATCH, halved by every OOM rung."""
+        return max(1, constants.RECON_BATCH >> self.engine._cap_halvings)
+
     def evaluate(self, subsets) -> np.ndarray:
         """Batched memoized reconstructed v(S); values in input order. A
         coalition whose every member is dropped from epoch 1 is worth 0,
@@ -172,34 +202,89 @@ class ReconstructionEvaluator:
         with obs_trace.span("engine.evaluate", requested=len(unique),
                             missing=len(missing), mode="reconstruct",
                             method=method):
-            for i in range(0, len(missing), constants.RECON_BATCH):
-                self._run_batch(missing[i:i + constants.RECON_BATCH])
+            i = 0
+            while i < len(missing):
+                chunk = self._chunk()
+                self._run_batch(missing[i:i + chunk])
+                i += chunk
         return np.array([self.values[k] for k in keys])
 
-    def _run_batch(self, group: list[tuple]) -> None:
-        """One batch, padded to a power-of-two width with copies of its
-        first coalition (so kernel shapes repeat across batches)."""
+    def _run_batch(self, subsets: list[tuple]) -> None:
+        """A chunk of coalitions, each batch padded to a power-of-two width
+        with copies of its first coalition (so kernel shapes repeat), under
+        the engine's ladder (the skeleton of `CharacteristicEngine._run_batch`):
+        a transient failure retries the batch, an OOM at dispatch or at
+        harvest steps the cap down and runs the batch again at the halved
+        width (nothing of it was stored); past the last rung a CUDA engine
+        raises `LadderExhaustedError` (`_degrade_cap`), and a CPU engine's
+        batches run on as its CPU rung, whose own OOM propagates (the rung
+        is the last)."""
         eng = self.engine
-        n = len(group)
-        b = _bucket_size(n, 1, constants.RECON_BATCH)
+        n = len(subsets)
+
+        def bucket_width() -> int:
+            cap = self._chunk()
+            return _bucket_size(min(n, cap), 1, cap)
+
+        b = bucket_width()
+        halvings_seen = eng._cap_halvings
         with obs_trace.span("engine.prep", coalitions=n, width=b, slot_count=None):
-            masks = eng._coalition_arrays(group)
-            sel = np.zeros(b, np.intp)
-            sel[:n] = np.arange(n)
-        eng._batch_ordinal += 1
-        attrs = {"width": b, "slot_count": None, "coalitions": n, "padding": b - n}
-        t0 = time.perf_counter()
-        with obs_trace.span("engine.dispatch", **attrs, eval_only=True):
-            accs = self._apply(torch.from_numpy(masks[sel]).to(eng.device))
-        with obs_trace.span("engine.harvest", width=b, slot_count=None, coalitions=n):
-            accs = accs[:n].tolist()
-        for s, acc in zip(group, accs):
-            self.values[s] = float(acc)
-        self.reconstructions += n
-        obs_metrics.counter("engine.batches").inc()
-        obs_metrics.counter("engine.reconstructions").inc(n)
-        obs_metrics.histogram("engine.pad_waste_fraction").observe((b - n) / b)
-        # eval-only: no epochs, samples or partner passes
-        obs_trace.event("engine.batch", dur=time.perf_counter() - t0,
-                        ordinal=eng._batch_ordinal, **attrs, epochs=0, samples=0,
-                        partner_passes=0, eval_only=True)
+            masks_all = eng._coalition_arrays(subsets)
+        i = 0
+        while i < n:
+            if eng._cap_halvings != halvings_seen:
+                halvings_seen = eng._cap_halvings
+                b = bucket_width()
+            group = subsets[i:i + b]
+            sel = np.full(b, i, np.intp)
+            sel[:len(group)] = np.arange(i, i + len(group))
+            eng._batch_ordinal += 1
+            on_cpu = eng._cpu_degraded
+            attrs = {"width": b, "slot_count": None, "coalitions": len(group),
+                     "padding": b - len(group)}
+            if on_cpu:
+                attrs["degraded"] = "cpu"
+            meta = {"t0": time.perf_counter(), "ordinal": eng._batch_ordinal}
+
+            def dispatch(sel=sel, attrs=attrs, ordinal=eng._batch_ordinal):
+                with obs_trace.span("engine.dispatch", **attrs, eval_only=True):
+                    eng._faults.check("dispatch", ordinal)
+                    accs = self._apply(torch.from_numpy(masks_all[sel]).to(eng.device))
+                    return lambda: accs.cpu().numpy()
+
+            meta["redispatch"] = dispatch
+            try:
+                fetch = eng._retry_transient(dispatch, "dispatch", meta["ordinal"])
+            except Exception as e:
+                if not faults.is_oom(e) or on_cpu:
+                    raise
+                _release(e)
+                eng._degrade_cap(e)
+                continue
+            i += len(group)
+            try:
+                with obs_trace.span("engine.harvest", width=b, slot_count=None,
+                                    coalitions=len(group)):
+                    accs = eng._fetch_with_retry(fetch, meta)
+            except Exception as e:
+                if not faults.is_oom(e) or on_cpu:
+                    raise
+                # nothing of this group was stored: rewind and run it again
+                # at the degraded width
+                _release(e)
+                eng._degrade_cap(e)
+                i -= len(group)
+                continue
+            for s, acc in zip(group, accs[:len(group)].tolist()):
+                self.values[s] = float(acc)
+            self.reconstructions += len(group)
+            obs_metrics.counter("engine.batches").inc()
+            obs_metrics.counter("engine.reconstructions").inc(len(group))
+            obs_metrics.histogram("engine.pad_waste_fraction").observe(attrs["padding"] / b)
+            if on_cpu:
+                obs_metrics.counter("engine.cpu_degraded_batches").inc()
+                obs_metrics.counter("engine.cpu_degraded_coalitions").inc(len(group))
+            # eval-only: no epochs, samples or partner passes
+            obs_trace.event("engine.batch", dur=time.perf_counter() - meta["t0"],
+                            ordinal=meta["ordinal"], **attrs, epochs=0, samples=0,
+                            partner_passes=0, eval_only=True)

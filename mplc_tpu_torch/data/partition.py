@@ -188,12 +188,17 @@ class StackedPartners(NamedTuple):
     y:     [P, Nmax, L]     float32 (one-hot, or [.,1] binary)
     mask:  [P, Nmax]        float32 validity
     sizes: [P]              int64 true sample counts
+    mask_host: [P, Nmax]    the validity mask's copy on the CPU, from which
+                            the trainer draws each epoch's permutations
+                            without reading the device (None: `mask` is
+                            read when needed)
     """
 
     x: torch.Tensor
     y: torch.Tensor
     mask: torch.Tensor
     sizes: torch.Tensor
+    mask_host: torch.Tensor | None = None
 
     @property
     def partners_count(self) -> int:
@@ -228,7 +233,8 @@ class StackedPartners(NamedTuple):
             mask[i, :n] = 1.0
             sizes[i] = n
         return StackedPartners(*(torch.from_numpy(a).to(device)
-                                 for a in (x, y, mask, sizes)))
+                                 for a in (x, y, mask, sizes)),
+                               mask_host=torch.from_numpy(mask))
 
 
 def stack_eval_set(x: np.ndarray, y: np.ndarray, label_dim: int,

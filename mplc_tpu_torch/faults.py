@@ -1,9 +1,61 @@
-"""The partner fault plan (a copy of the partner-plan half of
-`mplc_tpu/faults.py`, pure Python).
+"""Deterministic fault injection and the error classifier (a copy of
+`mplc_tpu/faults.py`'s batch-fault and partner-fault halves, on torch's
+errors).
 
-Where an infrastructure fault changes the schedule, a partner fault changes
-the GAME: v(S) itself. `MPLC_TORCH_PARTNER_FAULT_PLAN` holds comma-separated
-entries
+The batch-fault plan (`MPLC_TORCH_FAULT_PLAN`) turns the three families of
+failure a long sweep dies to into injectable, deterministic events, so
+every recovery path of the engine's fault ladder (contrib/engine.py:
+retry with backoff, OOM cap halving, the ladder's end (a CUDA engine's
+`LadderExhaustedError`, a CPU engine's CPU rung), resume from the
+autosave) runs on the CPU in the tests. Comma-separated entries
+
+    <kind>@<site><ordinal>
+
+      kind  ::= transient | oom | crash
+      site  ::= batch   (the dispatch boundary of the Nth batch)
+              | harvest (the result-fetch boundary of the Nth batch)
+
+    e.g.  MPLC_TORCH_FAULT_PLAN=transient@batch3,oom@batch5,crash@batch7
+
+Batches are numbered from 1 in the engine's dispatch order, the
+reconstruction evaluator's batches and the recording included. A retry of
+batch N keeps ordinal N, so `transient@batch3` fails batch 3's first
+attempt and lets the retry through. A repeated entry queues faults at one
+boundary (`transient@batch1,transient@batch1` fails the first attempt and
+the first retry). Each entry fires once. A malformed entry warns and is
+skipped: a typo in a plan must never crash a run.
+
+The injected classes are those of the real failures, so the classifier's
+code paths are the ones the tests run:
+
+  - `InjectedTransient` is a RuntimeError whose message leads with the
+    `UNAVAILABLE` status, which `is_transient` retries;
+  - `InjectedOom` subclasses `torch.cuda.OutOfMemoryError`, the class the
+    CUDA caching allocator raises: it drives the cap-halving ladder;
+  - `InjectedCrash` subclasses `BaseException`, so no recovery path that
+    catches `Exception` can swallow it: it stands for a kill, and a run
+    resumes from the autosave in a new engine.
+
+The classifier (`is_oom`, `is_transient`) keeps the JAX package's table:
+  - OOM: `torch.cuda.OutOfMemoryError`, and any exception whose message
+    holds "out of memory", `CUBLAS_STATUS_ALLOC_FAILED`,
+    `CUDNN_STATUS_ALLOC_FAILED` or one of the JAX package's markers
+    (`RESOURCE_EXHAUSTED`, "Out of memory", "OOM when allocating");
+  - transient: the injected class, and any exception whose message leads
+    with a `DEADLINE_EXCEEDED` or `UNAVAILABLE` status token. torch has no
+    class of retryable runtime errors (the JAX package's XlaRuntimeError
+    with a non-permanent status), so nothing else is transient;
+  - permanent, never transient nor OOM: the sticky CUDA errors ("illegal
+    memory access", "device-side assert", "unspecified launch failure",
+    "misaligned address", "illegal instruction"), after which every call
+    in the process fails again; a kernel's own launch failure
+    (ops/recon_kernel.py, "launch failed: cudaError N") and a failed
+    kernel build (ops/cuda_build.py): a kernel that does not build or
+    launch raises, and never rides the ladder; and `LadderExhaustedError`.
+
+The partner fault plan (`MPLC_TORCH_PARTNER_FAULT_PLAN`). Where the batch
+plan changes the schedule, a partner fault changes the GAME: v(S) itself.
+Comma-separated entries
 
     <kind>@p<ID>:<param><value>
 
@@ -18,8 +70,8 @@ entries
       noisy@p1:sigma0.1     seeded Gaussian noise (sigma 0.1) on partner 1's
                             training features, applied by
                             `Scenario.data_corruption`.
-      glabel@p3:frac0.5     half of partner 3's labels flipped to one seeded
-                            target class, applied likewise.
+      glabel@p3:frac0.5     half of partner 3's labels flipped to one
+                            seeded target class, applied likewise.
 
 dropout and straggler are the trainer's (`TrainConfig.partner_drop_epochs`,
 `partner_straggler_delays`, fedavg and the single trainer only); noisy and
@@ -28,9 +80,8 @@ entries warn and are skipped; a repeated (kind, partner) pair warns and
 keeps the first entry; entries for partner ids outside the scenario warn
 and are dropped (`clip_partner_plan`).
 
-The JAX module's batch-fault injector and error classifier wait for the
-port's runtime plane, and its service and router plans for the service
-(ROADMAP.md queue 1, items 8 and 10).
+The JAX module's service and router plans wait for the port's service
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -39,7 +90,170 @@ import os
 import re
 import warnings
 
-from .constants import PARTNER_FAULT_PLAN_ENV
+import torch
+
+from .constants import FAULT_PLAN_ENV, PARTNER_FAULT_PLAN_ENV
+
+
+class InjectedTransient(RuntimeError):
+    """A retryable runtime failure: its message leads with `UNAVAILABLE`."""
+
+
+class InjectedOom(torch.cuda.OutOfMemoryError):
+    """An injected device OOM, of the class the CUDA caching allocator
+    raises: it drives the cap-halving ladder."""
+
+
+class InjectedCrash(BaseException):
+    """A simulated kill. A BaseException, so that no recovery path catching
+    `Exception` can swallow it."""
+
+
+class LadderExhaustedError(RuntimeError):
+    """The OOM ladder ran out of rungs with work still missing, where no
+    CPU rung exists: on a CUDA engine (mode "1d"; the port never moves a
+    card's work to the CPU) and in the JAX package's 2-D partner-sharded
+    mode ("2d"). Permanent: a re-dispatch at the same exhausted cap would
+    fail alike, so neither `is_transient` nor `is_oom` holds for it.
+    `halvings` is the rung count, `mode` the mode that ran,
+    `postmortem_path` the flight-recorder dump (obs/flight.py) written
+    when the ladder died, or None."""
+
+    def __init__(self, msg: str, *, halvings: int = 0, mode: str = "2d",
+                 postmortem_path: "str | None" = None):
+        super().__init__(msg)
+        self.halvings = halvings
+        self.mode = mode
+        self.postmortem_path = postmortem_path
+
+
+# Statuses that are transient whatever the exception's class (the JAX
+# package's service-layer timeout family); the token must lead the message.
+_TRANSIENT_STATUS = ("DEADLINE_EXCEEDED", "UNAVAILABLE")
+_OOM_MARKERS = ("out of memory", "CUBLAS_STATUS_ALLOC_FAILED",
+                "CUDNN_STATUS_ALLOC_FAILED",
+                # the JAX package's, so its messages classify alike
+                "RESOURCE_EXHAUSTED", "Out of memory", "OOM when allocating")
+# A sticky CUDA error poisons the context: every later call fails again.
+# A kernel that fails to build or launch is a fault of the program.
+_PERMANENT_MARKERS = ("illegal memory access", "device-side assert",
+                      "unspecified launch failure", "misaligned address",
+                      "illegal instruction", "launch failed: cudaError",
+                      "nvcc failed", "nvcc was not found")
+
+
+def _permanent(err: BaseException) -> bool:
+    if isinstance(err, LadderExhaustedError):
+        return True
+    msg = str(err)
+    return any(m in msg for m in _PERMANENT_MARKERS)
+
+
+def is_oom(err: BaseException) -> bool:
+    """True for device or host memory exhaustion: the cap-halving family,
+    never retried as it stands (the same batch would exhaust alike)."""
+    if isinstance(err, InjectedOom):
+        return True
+    if not isinstance(err, Exception) or _permanent(err):
+        return False
+    if isinstance(err, torch.cuda.OutOfMemoryError):
+        return True
+    msg = str(err)
+    return any(m in msg for m in _OOM_MARKERS)
+
+
+def is_transient(err: BaseException) -> bool:
+    """True for a failure worth retrying as it stands: the injected
+    transient, and any exception whose message leads with a
+    `DEADLINE_EXCEEDED` or `UNAVAILABLE` status token. OOM and the
+    permanent errors are not; other exceptions (bugs) never are."""
+    if isinstance(err, InjectedTransient):
+        return True
+    if not isinstance(err, Exception) or is_oom(err) or _permanent(err):
+        return False
+    msg = str(err).lstrip()
+
+    def leads_with(code: str) -> bool:
+        # a status token is followed by ':' or whitespace, or ends the
+        # message: "UNAVAILABLE_RESOURCE: ..." is no status
+        if not msg.startswith(code):
+            return False
+        rest = msg[len(code):]
+        return not rest or not (rest[0].isalnum() or rest[0] == "_")
+
+    return any(leads_with(code) for code in _TRANSIENT_STATUS)
+
+
+_ENTRY_RE = re.compile(r"^(transient|oom|crash)@(batch|harvest)([0-9]+)$")
+
+
+def parse_fault_plan(spec: str | None) -> dict:
+    """`{(site, ordinal): [kind, ...]}` from the plan grammar, the batch
+    site named "dispatch". Malformed entries warn and are dropped; an
+    empty or unset spec is the empty plan."""
+    plan: dict = {}
+    if not spec:
+        return plan
+    for raw in spec.split(","):
+        entry = raw.strip()
+        if not entry:
+            continue
+        m = _ENTRY_RE.match(entry)
+        if m is None or int(m.group(3)) < 1:
+            warnings.warn(
+                f"{FAULT_PLAN_ENV}: ignoring malformed entry {entry!r} "
+                f"(expected <transient|oom|crash>@<batch|harvest><N>, N >= 1)",
+                stacklevel=2)
+            continue
+        kind, site, ordinal = m.group(1), m.group(2), int(m.group(3))
+        site = "dispatch" if site == "batch" else site
+        plan.setdefault((site, ordinal), []).append(kind)
+    return plan
+
+
+class FaultInjector:
+    """Consulted by the engine at every dispatch and harvest boundary.
+
+    `check(site, ordinal)` raises the next planned fault of that boundary,
+    each plan entry once; with an empty plan it returns at once. The engine
+    numbers its batches and passes the ordinal in, so a retry re-checks
+    the same ordinal and finds its entry consumed. Each fault counts
+    `engine.faults_injected` and emits an `engine.fault` event."""
+
+    __slots__ = ("plan", "injected")
+
+    def __init__(self, plan: dict | None = None):
+        self.plan = plan or {}
+        self.injected = 0
+
+    @classmethod
+    def from_env(cls) -> "FaultInjector":
+        return cls(parse_fault_plan(os.environ.get(FAULT_PLAN_ENV)))
+
+    @property
+    def armed(self) -> bool:
+        return bool(self.plan)
+
+    def check(self, site: str, ordinal: int) -> None:
+        if not self.plan:
+            return
+        kinds = self.plan.get((site, ordinal))
+        if not kinds:
+            return
+        kind = kinds.pop(0)
+        if not kinds:
+            del self.plan[(site, ordinal)]
+        self.injected += 1
+        from .obs import metrics as obs_metrics
+        from .obs import trace as obs_trace
+        obs_metrics.counter("engine.faults_injected").inc()
+        obs_trace.event("engine.fault", kind=kind, site=site, ordinal=ordinal)
+        where = f"({site} boundary, batch {ordinal})"
+        if kind == "transient":
+            raise InjectedTransient(f"UNAVAILABLE: injected transient fault {where}")
+        if kind == "oom":
+            raise InjectedOom(f"CUDA out of memory: injected device OOM {where}")
+        raise InjectedCrash(f"injected crash {where}")
 
 # kind -> (expected param name, value parser, validator). dropout's epoch
 # and straggler's delay are 1-based ordinals; noisy's sigma is a noise

@@ -63,6 +63,11 @@ def stream_seeds(keys: torch.Tensor, *coords) -> torch.Tensor:
     shape (leading B)."""
     h = _mix(_fmix(keys[:, 0]), keys[:, 1])
     for c in coords:
+        if isinstance(c, int):
+            # mixed as a Python int: the same low 32 bits as an int64
+            # tensor's, and nothing to copy to the device
+            h = _mix(h, c)
+            continue
         c = torch.as_tensor(c, dtype=torch.int64, device=keys.device)
         if h.ndim < c.ndim:
             h = h.reshape(h.shape + (1,) * (c.ndim - h.ndim))

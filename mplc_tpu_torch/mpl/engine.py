@@ -67,6 +67,17 @@ trainer. They are computed on the run's device, or injected
 (`EpochStreams.dropout_masks`). A model without dropout draws no key, so
 its runs are those of a port without dropout. Evaluation never drops.
 
+Host reads: the trainer never reads the device inside an epoch. Each
+epoch's CPU draws come from the host's copy of the validity mask
+(`StackedPartners.mask_host`) and of the coalitions (`coal_host`), and go
+to the device through pinned memory without blocking (`upload`); a
+history or partner-row write is a `torch.where` or a gather, never a
+boolean index. So on a CUDA device a whole run of B coalitions is queued
+without waiting on the card, and the batch's one sync is the engine's
+harvest of its results. The one read
+left is early stopping's: with `is_early_stopping` on and patience short
+of epoch_count, each epoch reads whether every run has stopped.
+
 Precision (`TrainConfig.precision`): the model computes in `cfg.dtype`
 (bf16 under `mixed` and `bf16`, or under `fp32` with `compute_dtype`
 "bfloat16"); parameters, optimizer state, aggregation
@@ -161,6 +172,13 @@ class TrainConfig:
     # fedavg (masked or on slots) and the single trainer only.
     partner_drop_epochs: tuple | None = None
     partner_straggler_delays: tuple | None = None
+    # runs whose models share a gradient call (None: all of a step's runs
+    # at once; `MplTrainer._model_grads`). The coalition engine sets it
+    # for a batch re-run at a width narrower than its call's first: padded
+    # to that width, each call holds the model count it first had, so the
+    # coalitions train the same bits (on the card cuDNN's backward
+    # algorithms follow a call's model count)
+    grad_runs: int | None = None
 
     def __post_init__(self):
         if self.deterministic_reduce is None:
@@ -217,6 +235,14 @@ class TrainConfig:
         return -(-self.gradient_updates_per_pass // self.step_width_mult)
 
     @property
+    def stops_early(self) -> bool:
+        """True when early stopping can end a run before epoch_count (on,
+        with patience short of epoch_count): then each epoch reads from
+        the device whether every run has stopped, the trainer's one host
+        read inside a run."""
+        return self.is_early_stopping and self.patience < self.epoch_count
+
+    @property
     def faulted(self) -> bool:
         return (self.partner_drop_epochs is not None
                 or self.partner_straggler_delays is not None)
@@ -256,6 +282,28 @@ class TrainState:
             best_val_loss=self.best_val_loss[i], es_wait=self.es_wait[i],
             epoch=self.epoch, opt_state=None, upd_h=take(self.upd_h),
             w_h=pick(self.w_h), theta=pick(self.theta), theta_h=pick(self.theta_h))
+
+
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A CPU tensor on `device`, a new tensor. On a CUDA device it goes
+    through pinned memory and the copy is queued without blocking the host
+    (the pinned buffer is held by torch's caching host allocator until the
+    copy has run), so no dispatch waits on the card; elsewhere `t.to`."""
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _host_mask(stacked) -> torch.Tensor:
+    """The stacked validity mask [P, Nmax] on the CPU."""
+    return stacked.mask.cpu() if stacked.mask_host is None else stacked.mask_host
+
+
+def host_coalitions(coal: torch.Tensor, coal_host) -> torch.Tensor:
+    """The host copy of a batch's coalitions: `coal_host` when given, else
+    `coal` read to the CPU (a read of the device when `coal` lies there)."""
+    return coal.cpu() if coal_host is None else torch.as_tensor(coal_host)
 
 
 class EpochStreams(NamedTuple):
@@ -329,8 +377,11 @@ def _column(t: torch.Tensor, W: int, w: int) -> torch.Tensor:
 
 
 def _write(view: torch.Tensor, value, frozen: torch.Tensor) -> None:
-    """Write value into a history view, except in the rows of frozen runs."""
-    view.copy_(_keep_frozen(frozen, view, torch.as_tensor(value).to(view)))
+    """Write value (a tensor or a Python number) into a history view,
+    except in the rows of frozen runs."""
+    if not isinstance(value, torch.Tensor):
+        value = torch.full_like(view, value)
+    view.copy_(_keep_frozen(frozen, view, value.to(view)))
 
 
 class MplTrainer:
@@ -359,8 +410,12 @@ class MplTrainer:
         if init_params is None:
             drawn = [self.model.init(g) for g in generators]
             init_params = _tree_map(lambda *ts: torch.stack(ts), *drawn)
-        params = _tree_map(lambda t: t.detach().to(device, torch.float32).clone(),
-                           init_params)
+        device = torch.device(device)
+
+        def fresh(t):
+            out = upload(t.detach().float(), device)
+            return out.clone() if t.device == device else out
+        params = _tree_map(fresh, init_params)
         B = next(iter(next(iter(params.values())).values())).shape[0]
         E, MB = cfg.epoch_count, cfg.minibatch_count
         nan = lambda *shape: torch.full(shape, float("nan"), device=device)  # noqa: E731
@@ -380,7 +435,7 @@ class MplTrainer:
                 eps = cfg.lflip_epsilon
                 init_theta = (eye * (1 - eps) + (1 - eye) * (eps / (k - 1))).expand(
                     B, partners_count, k, k)
-            state.theta = init_theta.to(device, torch.float32).clone()
+            state.theta = fresh(init_theta)
             state.theta_h = nan(B, E, partners_count, k, k)
         if cfg.approach == "fedavg" and cfg.partner_straggler_delays \
                 and any(cfg.partner_straggler_delays):
@@ -444,13 +499,17 @@ class MplTrainer:
         keys = torch.rand(mask.shape, generator=generator) + (1.0 - mask) * 1e9
         return torch.argsort(keys, dim=-1, stable=True)
 
-    def _draws(self, generators, mask: torch.Tensor, streams) -> EpochStreams:
-        """This epoch's draws of every run: injected (`streams`, an
-        `EpochStreams` or a permutation tensor), or drawn from each run's
-        generator: the permutations over its rows of `mask` ([B, ...]),
-        then the approach's visit-order keys or label-draw uniforms."""
+    def _draws(self, generators, mask: torch.Tensor, streams, dev=None) -> EpochStreams:
+        """This epoch's draws of every run on device `dev` (None: `mask`'s):
+        injected (`streams`, an `EpochStreams` or a permutation tensor), or
+        drawn from each run's generator: the permutations over its rows of
+        the validity mask `mask` ([B, ...], read on the CPU: the trainer
+        passes the host copy), then the approach's visit-order keys or
+        label-draw uniforms, then the dropout key. Either way they go to
+        `dev` through `upload`."""
         cfg = self.cfg
-        dev = mask.device
+        dev = mask.device if dev is None else dev
+        mask = mask.cpu()
         extra = None
         if cfg.approach in SEQ_APPROACHES:
             extra = "order_keys", (cfg.minibatch_count, mask.shape[1])
@@ -460,7 +519,7 @@ class MplTrainer:
         dropout = bool(self.model.dropout)
         if streams is None:
             perms, drawn, keys = [], [], []
-            for g, m in zip(generators, mask.cpu()):
+            for g, m in zip(generators, mask):
                 perms.append(self.epoch_perms(g, m))
                 if extra is not None:
                     drawn.append(torch.rand(extra[1], generator=g))
@@ -480,7 +539,7 @@ class MplTrainer:
             raise ValueError(f"injected streams of a run of {self.model.name}, which "
                              "has dropout, need dropout_key or dropout_masks")
         dtypes = (torch.int64, torch.float32, torch.float32, torch.int64, torch.bool)
-        return EpochStreams(*(_stream_map(lambda t, d=d: t.to(dev, d), f)
+        return EpochStreams(*(_stream_map(lambda t, d=d: upload(t.to(d), dev), f)
                               for f, d in zip(streams, dtypes)))
 
     def _step_masks(self, draws: EpochStreams, rows: int, coords: tuple, pick):
@@ -551,12 +610,41 @@ class MplTrainer:
         (on the card cuDNN chooses its algorithms by the number of models
         a call, so one call of B*W models parts from one of B*K)."""
         N = x.shape[0]
-        outs = [self._grads(_tree_map(lambda t: _column(t, W, w), params),
-                            *(_column(t, W, w) for t in (x, y, m)),
-                            tuple(_column(d, W, w) for d in drop)) for w in range(W)]
+        outs = [self._model_grads(_tree_map(lambda t: _column(t, W, w), params),
+                                  *(_column(t, W, w) for t in (x, y, m)),
+                                  tuple(_column(d, W, w) for d in drop)) for w in range(W)]
 
         def join(*ts):
             return torch.stack(ts, 1).reshape((N,) + ts[0].shape[1:])
+        grads = _tree_map(join, *(o[0] for o in outs))
+        loss, acc, cnt = (join(*ts) for ts in zip(*((o[1][0],) + o[1][1] for o in outs)))
+        return grads, (loss, (acc, cnt))
+
+    def _model_grads(self, params, x, y, m, drop, per_run: int = 1):
+        """`_grads` of N models (run-major, `per_run` models a run), in
+        calls of exactly `cfg.grad_runs` runs' models when it is set: the
+        last call is padded with copies of its first model, whose results
+        are dropped. On the card cuDNN picks a convolution's backward
+        algorithm by the number of models in a call, so with one call of
+        all N models a model's gradient would depend on how many models its
+        batch holds."""
+        N = x.shape[0]
+        if self.cfg.grad_runs is None:
+            return self._grads(params, x, y, m, drop)
+        M = self.cfg.grad_runs * per_run
+
+        def take(t, s):
+            n = min(M, N - s)
+            part = t[s:s + n]
+            return part if n == M else torch.cat(
+                [part, part[:1].expand((M - n,) + part.shape[1:])])
+        outs = [self._grads(_tree_map(lambda t: take(t, s), params),
+                            *(take(t, s) for t in (x, y, m)),
+                            tuple(take(d, s) for d in drop))
+                for s in range(0, N, M)]
+
+        def join(*ts):
+            return torch.cat(ts)[:N]
         grads = _tree_map(join, *(o[0] for o in outs))
         loss, acc, cnt = (join(*ts) for ts in zip(*((o[1][0],) + o[1][1] for o in outs)))
         return grads, (loss, (acc, cnt))
@@ -567,7 +655,9 @@ class MplTrainer:
         [N, sb, ...] a layer) of `batches`. Returns (params, opt_state,
         mean loss [N], mean accuracy [N]) over the steps. Under the
         deterministic reduce, `columns` W computes the gradients a column
-        of the run-major [B, W] models at a time (`_column_grads`)."""
+        of the run-major [B, W] models at a time (`_column_grads`); the
+        calls hold `cfg.grad_runs` runs' models each where it is set
+        (`_model_grads`)."""
         opt = self.model.optimizer
         loss_sum = acc_sum = cnt_sum = 0.0
         by_column = columns is not None and self.cfg.deterministic_reduce
@@ -575,7 +665,8 @@ class MplTrainer:
             if by_column:
                 grads, (loss, (acc, cnt)) = self._column_grads(params, x, y, m, drop, columns)
             else:
-                grads, (loss, (acc, cnt)) = self._grads(params, x, y, m, drop)
+                grads, (loss, (acc, cnt)) = self._model_grads(params, x, y, m, drop,
+                                                              columns or 1)
             params, opt_state = opt.step(params, grads, opt_state)
             loss_sum = loss_sum + loss * cnt
             acc_sum = acc_sum + acc * cnt
@@ -635,7 +726,8 @@ class MplTrainer:
     # ------------------------------------------------------------------
 
     def _fedavg_epoch(self, state: TrainState, stacked, val: EvalSet,
-                      coal: torch.Tensor, generators, streams, frozen) -> dict:
+                      coal: torch.Tensor, generators, streams, frozen,
+                      coal_host=None) -> dict:
         """One FedAvg epoch of every run; returns the new params. Every
         partner pass of every run is one vmapped step over B*W models.
 
@@ -673,9 +765,10 @@ class MplTrainer:
         runs = torch.arange(B, device=dev)[:, None]
         stale = state.stale
         if stale is not None:
-            delays = torch.tensor(cfg.partner_straggler_delays, device=dev)[pids]
+            delays = upload(torch.tensor(cfg.partner_straggler_delays), dev)[pids]
             late, stale_row = delays > 0, torch.clamp(delays - 1, min=0)   # [B, W]
-        draws = self._draws(generators, stacked.mask.expand(B, -1, -1), streams)
+        draws = self._draws(generators, _host_mask(stacked).expand(B, -1, -1), streams,
+                            dev)
         perms = draws.perms[runs, pids]                            # [B, W, Nmax]
         sizes = stacked.sizes[pids]                                # [B, W]
         mb_cap = max(stacked.x.shape[1] // cfg.minibatch_count, 1)
@@ -732,13 +825,15 @@ class MplTrainer:
                 pvl, pva = (t.reshape(B, W) for t in self.evaluate_models(new_flat, val))
             else:
                 pvl = pva = torch.full((B, W), float("nan"), device=dev)
-            # each used slot's metrics into its partner's history row
+            # each used slot's metrics into its partner's history row: a
+            # gather from the slot holding partner p (a partner sits in one
+            # slot at most), kept where no used slot holds it
             view = state.partner_h[:, :, :, e, mb_i]
-            cells = view.clone()
-            b, s = torch.nonzero(used, as_tuple=True)
-            cells[b, :, pids[b, s]] = torch.stack(
-                [losses.reshape(B, W), accs.reshape(B, W), pvl, pva], 1)[b, :, s]
-            _write(view, cells, frozen)
+            vals = torch.stack([losses.reshape(B, W), accs.reshape(B, W), pvl, pva], 1)
+            hit = (pids[:, :, None] == torch.arange(P, device=dev)) & used[:, :, None]
+            src = torch.gather(vals, 2, hit.to(torch.uint8).argmax(1)[:, None, :]
+                               .expand(B, 4, P))
+            _write(view, torch.where(hit.any(1)[:, None, :], src, view), frozen)
             new_params = _tree_map(lambda t: t.reshape((B, W) + t.shape[1:]), new_flat)
             w = aggregation_weights(cfg.aggregator, act, sizes, torch.nan_to_num(pva),
                                     deterministic=cfg.deterministic_reduce)
@@ -763,7 +858,8 @@ class MplTrainer:
         return params
 
     def _seq_epoch(self, state: TrainState, stacked, val: EvalSet,
-                   coal: torch.Tensor, generators, streams, frozen) -> dict:
+                   coal: torch.Tensor, generators, streams, frozen,
+                   coal_host=None) -> dict:
         """One epoch of the seq family for every run; returns the new
         params. Per minibatch each run visits its W partner slots (masked:
         W = P, slots: W = K, as in `_fedavg_epoch`) in the order of its
@@ -787,13 +883,17 @@ class MplTrainer:
         else:
             pids, act, _ = self._slot_binding(coal)
         runs = torch.arange(B, device=dev)
-        draws = self._draws(generators, stacked.mask.expand(B, -1, -1), streams)
+        draws = self._draws(generators, _host_mask(stacked).expand(B, -1, -1), streams,
+                            dev)
         perms = draws.perms[runs[:, None], pids]                   # [B, W, Nmax]
         sizes = stacked.sizes[pids]                                # [B, W]
         mb_cap = max(stacked.x.shape[1] // cfg.minibatch_count, 1)
         sb_cap = (mb_cap + gup - 1) // gup
         need_pval = cfg.record_partner_val or cfg.aggregator == "local-score"
-        visits = int(act.sum(1).max())
+        # the largest coalition, from the host's copy of the batch
+        members = host_coalitions(coal, coal_host)
+        members = members >= 0 if cfg.slot_count is not None else members > 0
+        visits = int(members.sum(1).max())
         opt = self.model.optimizer
         params = state.params
         # each slot's params after its last visit, from the epoch start on
@@ -834,19 +934,21 @@ class MplTrainer:
                     params, {**opt_state, "count": pos * cfg.pass_steps}, batches())
                 params = _keep_frozen(~on, params, new_p)
                 opt_state = _keep_frozen_opt(~on, opt_state, new_opt)
-                b = torch.nonzero(on, as_tuple=True)[0]
+                # the visited slot's row of each run, kept where the visit
+                # was no member's
                 for g, d in stack.items():
                     for k, t in d.items():
-                        t[b, s[b]] = params[g][k][b]
+                        t[runs, s] = _keep_frozen(~on, t[runs, s], params[g][k])
                 if need_pval:
                     pvl, pva = self.evaluate_models(params, val)
                 else:
                     pvl = pva = nan[:, 0]
                 view = state.partner_h[:, :, :, e, mb_i]
                 cells = view.clone()
-                cells[b, :, pid[b]] = torch.stack([loss, acc, pvl, pva], 1)[b]
+                cells[runs, :, pid] = _keep_frozen(~on, cells[runs, :, pid],
+                                                   torch.stack([loss, acc, pvl, pva], 1))
                 _write(view, cells, frozen)
-                pva_slot[b, s[b]] = pva[b]
+                pva_slot[runs, s] = torch.where(on, pva, pva_slot[runs, s])
             if cfg.approach == "seqavg":
                 params = aggregate_stack(pva_slot)
         if cfg.approach == "seq-with-final-agg":
@@ -856,7 +958,8 @@ class MplTrainer:
         return params
 
     def _single_epoch(self, state: TrainState, stacked, val: EvalSet,
-                      masks: torch.Tensor, generators, streams, frozen) -> dict:
+                      masks: torch.Tensor, generators, streams, frozen,
+                      coal_host=None) -> dict:
         """One epoch of single-partner training of every run:
         minibatch_count x gradient_updates_per_pass steps of its persistent
         optimizer over its lone active partner's shuffled rows, then a val
@@ -870,7 +973,8 @@ class MplTrainer:
         x_p, y_p = stacked.x[p], stacked.y[p]          # [B, Nmax, ...]
         size_p = stacked.sizes[p]
         n_max = x_p.shape[1]
-        draws = self._draws(generators, stacked.mask[p], streams)
+        p_host = torch.argmax(host_coalitions(masks, coal_host), dim=1)
+        draws = self._draws(generators, _host_mask(stacked)[p_host], streams, masks.device)
         perm = draws.perms                             # [B, Nmax]
         steps = cfg.minibatch_count * cfg.gradient_updates_per_pass
         sb_cap = max((n_max + steps - 1) // steps, 1)
@@ -918,8 +1022,8 @@ class MplTrainer:
         """[P] activity under the dropout plan in (0-based) epoch e: 1.0
         while partner p has no drop epoch (0) or e + 1 is before it, else
         0.0. Exact factors, so a mask they multiply keeps its bits."""
-        drop = torch.tensor(self.cfg.partner_drop_epochs, device=device)
-        return ((drop == 0) | (e + 1 < drop)).float()
+        return upload(torch.tensor([float(d == 0 or e + 1 < d)
+                                    for d in self.cfg.partner_drop_epochs]), device)
 
     def _early_stop_flag(self, state: TrainState) -> torch.Tensor:
         """[B]: the runs whose epoch `state.epoch` triggers early stopping."""
@@ -935,21 +1039,24 @@ class MplTrainer:
         return state.val_loss_h[:, e, col] > state.val_loss_h[:, e - cfg.patience, col]
 
     def run_epoch(self, state: TrainState, stacked, val: EvalSet, coal,
-                  generators, streams=None) -> TrainState:
+                  generators, streams=None, coal_host=None) -> TrainState:
         """One epoch of every run still training (`coal`: masks [B, P], or
         slot ids [B, slot_count] under `cfg.slot_count`); a run that has
         stopped is left unchanged. `streams` (an `EpochStreams`, or a
         permutation tensor [B, P, Nmax], or [B, Nmax] for 'single')
-        replaces the generators' draws."""
+        replaces the generators' draws. `coal_host` is `coal`'s copy on the
+        CPU (None: `coal` is read where the seq family and the single
+        trainer need it)."""
         cfg = self.cfg
         if state.epoch >= cfg.epoch_count or (
-                cfg.is_early_stopping and bool(state.done.all())):
+                cfg.stops_early and bool(state.done.all())):
             return state
         frozen = state.done.clone()
         epoch_fn = (self._single_epoch if cfg.approach == "single" else
                     self._seq_epoch if cfg.approach in SEQ_APPROACHES else
                     self._fedavg_epoch)
-        params = epoch_fn(state, stacked, val, coal, generators, streams, frozen)
+        params = epoch_fn(state, stacked, val, coal, generators, streams, frozen,
+                          coal_host)
         state.params = _keep_frozen(frozen, state.params, params)
         if cfg.approach == "lflip":
             _write(state.theta_h[:, state.epoch], state.theta, frozen)
@@ -961,14 +1068,18 @@ class MplTrainer:
         return state
 
     def epoch_chunk(self, state: TrainState, stacked, val: EvalSet, coal,
-                    generators, n_epochs: int, streams_all=None) -> TrainState:
+                    generators, n_epochs: int, streams_all=None,
+                    coal_host=None) -> TrainState:
         """Up to `n_epochs` epochs, ending once every run is done (early
         stopping, or epoch_count reached); `streams_all` (the streams of
         `run_epoch` with an epoch axis after B) replaces the generators'
-        draws."""
+        draws, `coal_host` is `run_epoch`'s."""
+        if coal_host is None and (self.cfg.approach == "single"
+                                  or self.cfg.approach in SEQ_APPROACHES):
+            coal_host = host_coalitions(coal, None)   # one read for the chunk
         for i in range(n_epochs):
             self.run_epoch(state, stacked, val, coal, generators,
-                           epoch_streams(streams_all, i))
+                           epoch_streams(streams_all, i), coal_host)
         return state
 
     def finalize(self, state: TrainState, test: EvalSet) -> tuple[torch.Tensor, torch.Tensor]:

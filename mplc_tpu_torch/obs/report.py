@@ -4,12 +4,15 @@ whole).
 
 The schema, the key names and the formatting are the JAX package's, so one
 reader takes either package's report, and `sweep_report` gives equal dicts
-on equal records (tests/test_torch_report.py). The rows whose events the
-port does not emit yet (program bank, device fences, resilience events,
-service, live, router, numerics; ROADMAP.md queue 1 items 6-10) are
-derived here all the same and stay absent or zero on the port's streams,
-as they do on a JAX stream without those events. Paths below name the JAX
-package's modules.
+on equal records (tests/test_torch_report.py). The resilience row reads the
+port's fault-ladder events (`engine.retry`, `engine.degrade`,
+`engine.fault`, the `degraded="cpu"` batches) as it reads the JAX
+engine's (tests/test_torch_ladder.py holds the two rows equal on one game
+and plan). The rows whose events the port does not emit yet (program
+bank, device fences, service, live, router, numerics; ROADMAP.md queue 1
+items 7-10) are derived here all the same and stay absent or zero on the
+port's streams, as they do on a JAX stream without those events. Paths
+below name the JAX package's modules.
 
 `sweep_report(records)` consumes the span/event records collected during a
 run (`obs.trace.collect()`, or a parsed JSONL trace file) and derives the

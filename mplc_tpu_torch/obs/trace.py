@@ -82,7 +82,14 @@ SPAN_REGISTRY = {
                     "harvest end; attrs: ordinal/width/slot_count/"
                     "coalitions/padding/epochs/samples/partner_passes)",
     "engine.hbm": "per-evaluate device-memory snapshot (attrs: "
-                  "param_bytes/slot_count/peak_in_use_bytes)",
+                  "param_bytes/slot_count/per_coalition_bytes/"
+                  "fixed_bytes/caps/hbm_bytes_limit/peak_in_use_bytes)",
+    "engine.retry": "transient failure retried (attrs: site/attempt/"
+                    "ordinal/backoff_sec/error)",
+    "engine.degrade": "OOM ladder rung taken (action=halve_cap/"
+                      "cpu_fallback/ladder_exhausted, halvings)",
+    "engine.fault": "injected fault fired (MPLC_TORCH_FAULT_PLAN; attrs: "
+                    "kind/site/ordinal)",
     "trainer.compile": "nvcc build of one CUDA source (fn: the source's "
                        "name; dur: the compiler's seconds)",
     "recon.record": "grand-coalition recording run (retrain-free)",

@@ -188,6 +188,27 @@ def test_titanic_sweep_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(card, cpu, rtol=0, atol=1.0 / n_test + 1e-6)
 
 
+def test_titanic_sweep_under_a_fault_plan_on_the_card(cuda, monkeypatch):
+    """The Titanic sweep on the card under a batch-fault plan (cap 1: 7
+    batches): two transients retried, an OOM halving nothing further (cap 1
+    stays 1), one at harvest re-run. Every value equals the card's
+    fault-free sweep at the same cap: the widths never move, so the bits
+    must not either."""
+    monkeypatch.setenv("MPLC_TORCH_COALITIONS_PER_DEVICE", "1")
+    monkeypatch.setenv("MPLC_TORCH_RETRY_BACKOFF_SEC", "0")
+    monkeypatch.delenv("MPLC_TORCH_FAULT_PLAN", raising=False)
+    clean, _ = _titanic_sweep("cuda")
+    monkeypatch.setenv("MPLC_TORCH_FAULT_PLAN",
+                       "transient@batch2,transient@harvest3,oom@batch4,oom@harvest5")
+    from mplc_tpu_torch.obs import metrics
+    metrics.reset()
+    faulted, _ = _titanic_sweep("cuda")
+    snap = metrics.snapshot()["counters"]
+    assert snap["engine.faults_injected"] == 4 and snap["engine.retries"] == 2
+    assert snap["engine.cap_halvings"] == 2 and not snap.get("engine.cpu_degraded_batches")
+    np.testing.assert_array_equal(faulted, clean)
+
+
 def test_two_fp32_recordings_on_the_card_are_bit_equal(cuda):
     """The MNIST CNN (cuDNN convolutions, cuBLAS products) recorded twice
     from one seed: every delta, weight and final parameter bit-equal."""

@@ -15,8 +15,9 @@ instrumented engines against the JAX package, on the CPU:
 Deliberate differences, named here and in CHANGES.md:
   - names the port does not emit: the JAX package's jit compiles
     (`trainer.compile`: the port's only compiles are its nvcc builds, on
-    the card), the program bank (`bank.*`), device fences, the fault ladder
-    (`engine.retry/degrade/fault`), numerics, live, service, router, fleet;
+    the card), the program bank (`bank.*`), device fences, numerics, live,
+    service, router, fleet (the fault ladder's `engine.retry/degrade/fault`
+    both packages emit only under a fault plan: tests/test_torch_ladder.py);
   - widths and padding: the JAX tests' CPU mesh has 8 devices, so a JAX
     batch is a multiple of 8 rows; the port's one device pads to the next
     power of two, so it pads less;
@@ -47,9 +48,8 @@ torch.set_num_threads(1)
 AMOUNTS = [0.2, 0.3, 0.5]
 GAME = dict(epoch_count=2, minibatch_count=2, gradient_updates_per_pass_count=2)
 # the JAX-only layers (module docstring)
-JAX_ONLY = ("trainer.compile", "bank.", "engine.device_fence", "engine.retry",
-            "engine.degrade", "engine.fault", "numerics.", "live.", "service.",
-            "router.", "fleet.")
+JAX_ONLY = ("trainer.compile", "bank.", "engine.device_fence", "numerics.", "live.",
+            "service.", "router.", "fleet.")
 # GTG: one round of 16 permutations (at sv_accuracy 1.0 the stopping rule
 # never asks for more), truncation 0: every prefix is evaluated, so the
 # evaluate calls follow the permutation stream and not the values
