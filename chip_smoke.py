@@ -58,7 +58,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
    the slice's exact reconstructed values, with its trust row. Then
    `compute_contributivity("auto")` on the slice's evaluator: with no
    deadline it must plan `exact` and return the slice's exact values bit
-   for bit; with a 20 s deadline it must plan SVARM at budget 300;
+   for bit; with a 20 s deadline it plans on the engine's metered
+   seconds a reconstructed coalition (the "meter" basis; the plan
+   printed), and on the default constant, with no evaluation metered, it
+   must plan SVARM at budget 300;
 12. estimators: the retraining estimators through the user entry point,
    `Scenario(methods=["TMCS", "ITMCS", "IS_lin_S", "IS_reg_S",
    "AIS_Kriging_S", "SMCS", "WR_SMC", "Shapley values"]).run()` on the
@@ -66,13 +69,15 @@ Phases, each of which fails the script (non-zero exit, no result line):
    within 0.05 of the exact Shapley values of the same run, no coalition
    trained twice (31 at most), and each method's call count the same when
    the estimators are run again over the run's v(S) table (the CPU tests
-   hold that replay's counts equal to the JAX package's);
+   hold that replay's counts equal to the JAX package's); every v(S)
+   bit-equal to [sweep]'s, whatever the width of the request that trained
+   it (the gradient-call width rule);
 13. variants: the seq family and lflip through the user entry points at
    the MNIST CNN's full width: the 10-partner fedavg `Scenario` with
    Federated SBS x3 (equal to a numpy recomputation from its history),
    PVRL (values in (0, 1)) and LFlip (theta rows summing to 1, or 0 where
    the EM step zeroed them); the
-   5-partner seqavg retraining sweep on merged slot buckets (v(S) in
+   5-partner seqavg retraining sweep (1 epoch) on merged slot buckets (v(S) in
    [0, 1], Shapley values summing to v(N)), its first multi-partner batch
    again masked (printed), and that batch on slots and masked under the
    deterministic reduce (bit-equal); the seq-pure and
@@ -219,6 +224,39 @@ Phases, each of which fails the script (non-zero exit, no result line):
    of a batch of 8, within 2x of each, and the autotuned cap. No phase
    takes a CPU rung: every phase is gated on the CPU-degraded batch
    counter not moving.
+21. width: the gradient-call width rule (models/zoo.py `grad_call_width`).
+   On the MNIST CNN ([sweep]'s game) and the CIFAR10 CNN ([cifar10]'s
+   training at 5 partners, cut to 1 epoch, whose 31 coalitions are swept
+   here first), 8
+   coalitions of the 5-partner sweep, every bucket's, requested on fresh
+   engines 1, 2 and 3 at a time (batch widths 1, 2 and 4), then every
+   coalition after a resume from a cache of the first 20 (the remaining
+   11 train at their own widths): every v(S) bit-equal to the full
+   sweep's;
+22. devcost: device cost, fences, the value ledger and the audit. (a) The
+   main path with MPLC_TORCH_NUMERICS_LEDGER set and fences at 1/16, K1's
+   counts reset just before: the ledger holds the 1023 reconstructed
+   values, bit-equal to [slice]'s, K1's launches and widths are [slice]'s,
+   the device meter saw 1023 eval-only coalitions. (b) The 5-partner
+   sweep's 31 coalitions on fresh engines at fence rate 1 and rate 0:
+   v(S) bit-equal to each other and to [sweep]'s, every batch fenced (CUDA
+   events) and FLOP-counted at rate 1, none fenced at 0, the meter billing
+   on the "fenced" basis; each batch's fenced seconds beside its host
+   span, `estimate_device_seconds`, and the sweep report's device_time,
+   compute (mfu_xla on the counted FLOPs over the card's fp32 peak) and
+   roofline rows printed. (c) The two sweeps' ledgers diffed: no drift,
+   Kendall tau-b 1.0; the main path's fp32 ledger against [slice bf16]'s
+   (written there): |dv(N)| and the median |dv| within BF16_VALUE_BOUND,
+   as [precision]'s value pair, tau-b, the max |dv|, the coalitions past
+   the bound and the worst eight printed (the JAX package's own bf16
+   reconstruction parts from its fp32 past the bound too:
+   tests/bf16_recon_witness.py). (d)
+   Under MPLC_TORCH_NUMERICS_AUDIT=1 at fence rate 1, the grand coalition
+   requested (a batch of one on 5 slots): its v(S) bit-equal to the
+   audit-off request, one audit, replayed at that batch's [1, 5] shape,
+   whose `torch.sum` parts from the left-to-right fold (first divergence
+   and max ulp printed); under MPLC_TORCH_DETERMINISTIC_REDUCE=1 the
+   audit finds no divergence (`ordered_fold`).
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -252,14 +290,15 @@ import torch  # noqa: E402
 
 from mplc_tpu_torch.contrib.contributivity import Contributivity  # noqa: E402
 from mplc_tpu_torch.contrib.engine import CharacteristicEngine  # noqa: E402
+from mplc_tpu_torch.contrib.planner import estimate_eval_seconds, plan_query  # noqa: E402
 from mplc_tpu_torch.contrib.reconstruct import (ReconstructionEvaluator,  # noqa: E402
                                                 record_updates)
 from mplc_tpu_torch.contrib.shapley import powerset_order  # noqa: E402
 from mplc_tpu_torch import constants, faults  # noqa: E402
 from mplc_tpu_torch.data.datasets import (Dataset, load_cifar10, load_mnist,  # noqa: E402
                                           load_titanic, with_held_out_test)
-from mplc_tpu_torch.obs import (analyze_trace, chrome_trace, flight, metrics,  # noqa: E402
-                                numerics, report, trace)
+from mplc_tpu_torch.obs import (analyze_trace, chrome_trace, devcost, flight,  # noqa: E402
+                                metrics, numerics, report, trace)
 from mplc_tpu_torch.mpl import dropout  # noqa: E402
 from mplc_tpu_torch.mpl import approaches  # noqa: E402
 from mplc_tpu_torch.mpl.engine import MplTrainer, upload  # noqa: E402
@@ -358,16 +397,17 @@ def precision_env(mode: str):
 def mnist_scenario(methods, partners: int = PARTNERS, approach: str = "fedavg",
                    **kw) -> Scenario:
     """bench.py config 1's settings (its approach fedavg unless `approach`
-    says otherwise), partner i holding (i+1)/sum of the data (10 partners:
-    (i+1)/55); a dry run, which writes no files."""
+    says otherwise; 2 epochs unless `kw` says otherwise), partner i holding
+    (i+1)/sum of the data (10 partners: (i+1)/55); a dry run, which writes
+    no files."""
     total = sum(range(1, partners + 1))
+    game = dict(aggregation_weighting="data-volume", epoch_count=2, minibatch_count=10,
+                gradient_updates_per_pass_count=8, is_early_stopping=False, seed=0)
+    game.update(kw)
     return Scenario(partners, [(i + 1) / total for i in range(partners)], is_dry_run=True,
                     dataset=load_mnist(scale=SCALE, noise=NOISE),
-                    multi_partner_learning_approach=approach,
-                    aggregation_weighting="data-volume", epoch_count=2,
-                    minibatch_count=10, gradient_updates_per_pass_count=8,
-                    is_early_stopping=False, methods=methods, seed=0,
-                    device=DEVICE, **kw)
+                    multi_partner_learning_approach=approach, methods=methods,
+                    device=DEVICE, **game)
 
 
 def main_path(precision: str = "fp32") -> tuple:
@@ -782,11 +822,13 @@ def phase_kernels(sl, card) -> list:
     return entries
 
 
-def phase_precision(fp32_values: np.ndarray, card) -> list:
-    """The bf16 main path, its value pair against fp32, Titanic under
-    mixed and the MNIST CNN's bf16 forward pass on the card against the
-    CPU, the bf16 stages and K1-bf16's entry."""
-    sl = phase_slice("bf16")
+def phase_precision(fp32_values: np.ndarray, card, ledger: str) -> list:
+    """The bf16 main path (its engine writing the value ledger `ledger`,
+    which [devcost] (c) diffs against the fp32 one), its value pair against
+    fp32, Titanic under mixed and the MNIST CNN's bf16 forward pass on the
+    card against the CPU, the bf16 stages and K1-bf16's entry."""
+    with knob(constants.NUMERICS_LEDGER_ENV, ledger):
+        sl = phase_slice("bf16")
     phase_value_pair(fp32_values, sl["values"])
     phase_reference_mixed()
     phase_model_bf16(sl["recon"])
@@ -1087,8 +1129,27 @@ def phase_svarm(sl) -> dict:
           f"slice's exact values")
     check(loose.plan.method == "exact", f"auto planned {loose.plan.method}, not exact")
     check(all(same), "auto's exact values differ from the slice's")
-    tight = Contributivity(sc)
-    tight.compute_contributivity("auto", deadline_sec=20)
+    # the planner's "meter" basis: the slice's evaluations metered on its
+    # engine (eval-only seconds a coalition); "auto" under a 20 s deadline
+    # plans on it
+    eng = sc._charac_engine
+    eval_sec, basis = estimate_eval_seconds(eng)
+    metered = Contributivity(sc)
+    metered.compute_contributivity("auto", deadline_sec=20)
+    print(f"[svarm] auto, deadline 20 s, on the meter's {eval_sec:.6f} s a coalition "
+          f"[{basis}]: " + json.dumps(metered.plan.describe()))
+    check(basis == "meter" and metered.plan.cost_basis == "meter"
+          and metered.plan.est_eval_sec == eval_sec
+          and metered.plan.describe() == plan_query(PARTNERS, None, 20, eval_sec=eval_sec,
+                                                    cost_basis="meter").describe(),
+          f"auto on the meter planned {metered.plan.describe()}")
+    # with no evaluation metered the planner takes its default constant
+    meter, eng.device_meter = eng.device_meter, devcost.DeviceMeter(eng._fence_interval)
+    try:
+        tight = Contributivity(sc)
+        tight.compute_contributivity("auto", deadline_sec=20)
+    finally:
+        eng.device_meter = meter
     terr = float(np.abs(tight.contributivity_scores - exact).max())
     print("[svarm] auto, deadline 20 s: " + json.dumps(tight.plan.describe()))
     print(f"[svarm] auto, deadline 20 s: values "
@@ -1201,8 +1262,12 @@ def phase_estimators(sweep: dict) -> None:
     pairs = {",".join(map(str, s)): [round(eng.charac_fct_values[s], 4), round(ref[s], 4)]
              for s in subsets}
     dv = max(abs(eng.charac_fct_values[s] - ref[s]) for s in subsets)
-    print("[estimators] v(S) here, [sweep]'s (not gated: other batch widths may choose "
-          f"other cuDNN algorithms): max diff {dv:.4f}; " + json.dumps(pairs))
+    same = sum(numerics.float_bits(eng.charac_fct_values[s]) == numerics.float_bits(ref[s])
+               for s in subsets)
+    print(f"[estimators] v(S) here (the estimators' request widths), [sweep]'s: {same} of "
+          f"{len(subsets)} bit-equal, max diff {dv:.4f}; " + json.dumps(pairs))
+    check(same == len(subsets), "the estimators' v(S) part from [sweep]'s: a value depends "
+                                "on the width of the request that trained it")
 
 
 def titanic_sweep(device: str) -> tuple:
@@ -1336,7 +1401,8 @@ def phase_variants() -> None:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    seq = mnist_scenario(["Shapley values"], P, approach="seqavg")
+    # one epoch, cut from the sweep's two for the script's time
+    seq = mnist_scenario(["Shapley values"], P, approach="seqavg", epoch_count=1)
     seq.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2807,6 +2873,287 @@ def rung_free(tag: str, fn, *args):
     return out
 
 
+# The width phase: the gradient-call width rule (models/zoo.py
+# `grad_call_width`, mpl/engine.py `MplTrainer._model_grads`) on the card. A
+# sample of the 5-partner sweep's coalitions, every bucket's (singles, the
+# 3-slot and the 5-slot buckets), requested in calls of WIDTH_REQUESTS
+# coalitions, then the sweep resumed from a cache of its first
+# WIDTH_RESUMED coalitions (the remainder trains at its own widths)
+WIDTH_SAMPLE = [(0,), (4,), (0, 1), (1, 3), (0, 2, 4), (2, 3, 4), (0, 1, 2, 3),
+                (0, 1, 2, 3, 4)]
+WIDTH_REQUESTS = (1, 2, 3)
+WIDTH_RESUMED = 20
+
+
+def width_requests(tag: str, sc, full: dict) -> dict:
+    """Each sample coalition of the game `sc` (a prepared scenario),
+    requested on a fresh engine in requests of 1, 2 and 3 coalitions of
+    one bucket, and every coalition after a resume from a cache of the
+    first WIDTH_RESUMED: each must be bit-equal to `full` (the full
+    sweep's values). Returns {request: seconds}."""
+    out = {}
+    subsets = powerset_order(SWEEP_PARTNERS)
+    for n in WIDTH_REQUESTS:
+        eng = CharacteristicEngine(sc)
+        buckets: dict = {}
+        for s in WIDTH_SAMPLE:
+            buckets.setdefault(0 if len(s) == 1 else eng._slot_width(len(s)), []).append(s)
+        t0 = time.perf_counter()
+        for group in buckets.values():
+            for i in range(0, len(group), n):
+                eng.evaluate(group[i:i + n])
+        out[f"requests of {n}"] = time.perf_counter() - t0
+        same = [numerics.float_bits(eng.charac_fct_values[s]) == numerics.float_bits(full[s])
+                for s in WIDTH_SAMPLE]
+        widths = [(b["slot_count"] if b["kind"] == "multi" else "single", b["width"],
+                   b["coalitions"]) for b in eng.batch_log]
+        print(f"[width] {tag}: {len(WIDTH_SAMPLE)} coalitions in requests of {n}: "
+              f"{sum(same)} of {len(same)} v(S) bit-equal to the full sweep's; batches "
+              f"(slots, width, coalitions) {widths} in {out[f'requests of {n}']:.2f} s")
+        check(all(same), f"[width] {tag}: a coalition requested {n} at a time parts from "
+                         f"the full sweep: {[s for s, ok in zip(WIDTH_SAMPLE, same) if not ok]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "coalition_cache.json"
+        part = CharacteristicEngine(sc)
+        part.charac_fct_values = {(): 0.0, **{s: full[s] for s in subsets[:WIDTH_RESUMED]}}
+        part.first_charac_fct_calls_count = WIDTH_RESUMED
+        part.save_cache(path)
+        eng = CharacteristicEngine(sc)
+        eng.load_cache(path)
+        t0 = time.perf_counter()
+        eng.evaluate(subsets)
+        out["resumed"] = time.perf_counter() - t0
+    rest = subsets[WIDTH_RESUMED:]
+    same = [numerics.float_bits(eng.charac_fct_values[s]) == numerics.float_bits(full[s])
+            for s in subsets]
+    widths = [(b["slot_count"], b["width"], b["coalitions"]) for b in eng.batch_log]
+    print(f"[width] {tag}: resumed from a cache of {WIDTH_RESUMED}: {len(rest)} trained in "
+          f"batches {widths} ({out['resumed']:.2f} s); {sum(same)} of {len(same)} v(S) "
+          f"bit-equal to the full sweep's")
+    check(sum(b["coalitions"] for b in eng.batch_log) == len(rest),
+          f"[width] {tag}: the resumed sweep trained {eng.batch_log}")
+    check(all(same), f"[width] {tag}: a resumed coalition parts from the full sweep: "
+                     f"{[s for s, ok in zip(subsets, same) if not ok]}")
+    return out
+
+
+def phase_width(sweep: dict) -> None:
+    """The MNIST CNN on [sweep]'s game, against [sweep]'s values, and the
+    CIFAR10 CNN on [cifar10]'s training at 5 partners and 1 epoch, against
+    a full sweep of its 31 coalitions made here."""
+    t0 = time.perf_counter()
+    seconds = {"mnist": width_requests("MNIST CNN", sweep["scenario"],
+                                       sweep["scenario"]._charac_engine.charac_fct_values)}
+    # one epoch, cut from [cifar10]'s two for the script's time (the
+    # calls' shapes follow the step rows, which the epochs leave alone)
+    sc = cifar_scenario(cifar_dataset(), [], epoch_count=1)
+    sc.instantiate_scenario_partners()
+    sc.split_data()
+    full_eng = CharacteristicEngine(sc)
+    t1 = time.perf_counter()
+    full_eng.evaluate(powerset_order(SWEEP_PARTNERS))
+    full_s = time.perf_counter() - t1
+    batch_lines("width cifar10 sweep", full_eng)
+    seconds["cifar10"] = {"full sweep": full_s, **width_requests(
+        "CIFAR10 CNN", sc, full_eng.charac_fct_values)}
+    print(f"[width] passed in {time.perf_counter() - t0:.2f} s; seconds "
+          + json.dumps({k: {q: round(v, 2) for q, v in d.items()} for k, d in seconds.items()}))
+
+
+# The devcost phase: device cost, fences, the value ledger and the audit
+# the grand coalition trains on the 5-slot bucket, whose `torch.sum` over
+# 5 slots the card does not fold left to right ([variants]); a 3-slot
+# coalition's sum of 3 is the left-to-right fold
+AUDIT_COALITION = (0, 1, 2, 3, 4)
+
+
+def devcost_main_path(sl, ledger: Path) -> dict:
+    """(a): the main path with the value ledger on and fences at 1/16, K1's
+    counts reset just before: the ledger holds every reconstructed value,
+    bit-equal to [slice]'s, K1's launches and widths are [slice]'s, the
+    meter saw every coalition as eval-only."""
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    recon_kernel.launch_widths = {}
+    t0 = time.perf_counter()
+    with knob(constants.NUMERICS_LEDGER_ENV, str(ledger)), \
+            knob(constants.DEVICE_FENCE_RATE_ENV, str(1 / 16)):
+        sc, gtg, exact = main_path()
+    wall = time.perf_counter() - t0
+    launches, widths = recon_kernel.launches, dict(sorted(recon_kernel.launch_widths.items()))
+    recon = exact._reconstructor()
+    values = np.array([recon.values[s] for s in powerset_order(PARTNERS)])
+    led = numerics.ValueLedger.load(str(ledger))
+    recon_entries = {k: e for k, e in led.entries.items() if e["source"] == "reconstruction"}
+    ledger_same = sum(numerics.bits_to_float(recon_entries[numerics.ValueLedger.subset_key(s)]
+                                             ["value_bits"]) == v
+                      for s, v in zip(powerset_order(PARTNERS), sl["values"])
+                      if numerics.ValueLedger.subset_key(s) in recon_entries)
+    snap = sc._charac_engine.device_meter.snapshot()
+    print(f"[devcost] (a) main path with the ledger and fences at 1/16: {wall:.2f} s (the "
+          f"slice's {sl['seconds']:.2f} s); ledger {len(led.entries)} entries "
+          f"({len(recon_entries)} reconstruction, {ledger_same} bit-equal to [slice]'s), "
+          f"fingerprint {led.engine_fingerprint}, meta {json.dumps(led.meta)}; K1 launches "
+          f"{launches} by width {json.dumps(widths)}; meter {json.dumps(snap)}; "
+          f"device seconds {sc._charac_engine.device_meter.device_seconds()}")
+    check(np.array_equal(values, sl["values"]), "(a) the values differ from [slice]'s")
+    check(len(recon_entries) == 2 ** PARTNERS - 1 and ledger_same == 2 ** PARTNERS - 1,
+          f"(a) the ledger holds {len(recon_entries)} reconstructed values, {ledger_same} "
+          "of them [slice]'s")
+    check(launches == sl["launches"] and widths == sl["widths"]
+          and recon_kernel.launches_bf16 == 0,
+          f"(a) K1 launched {launches} times by width {widths}, [slice] {sl['launches']} "
+          f"by {sl['widths']}")
+    check(snap["eval_coalitions"] == 2 ** PARTNERS - 1,
+          f"(a) the meter saw {snap['eval_coalitions']} eval-only coalitions")
+    return {"launches": launches, "widths": widths, "ledger": led}
+
+
+def devcost_sweep(rate: float, ledger: Path) -> tuple:
+    """(engine, records, seconds) of the 5-partner MNIST sweep's 31
+    coalitions on a fresh engine of [sweep]'s game, fences at `rate`, the
+    ledger written to `ledger`, collected."""
+    with knob(constants.DEVICE_FENCE_RATE_ENV, str(rate)), \
+            knob(constants.NUMERICS_LEDGER_ENV, str(ledger)):
+        sc = mnist_scenario([], SWEEP_PARTNERS)
+        sc.instantiate_scenario_partners()
+        sc.split_data()
+        eng = CharacteristicEngine(sc)
+    t0 = time.perf_counter()
+    with trace.collect() as records:
+        eng.evaluate(powerset_order(SWEEP_PARTNERS))
+    return eng, records, time.perf_counter() - t0
+
+
+def devcost_fences(sweep: dict, card: str, ledgers: Path) -> dict:
+    """(b) and (c): the sweep at fence rate 1 and at rate 0, each with its
+    ledger: bit-equal values, the meter billing on fences, the report's
+    device_time and compute rows; the two ledgers diffed (no drift, tau-b
+    1.0)."""
+    P = SWEEP_PARTNERS
+    fenced, records, fenced_s = devcost_sweep(1.0, ledgers / "sweep_fenced.json")
+    plain, _, plain_s = devcost_sweep(0.0, ledgers / "sweep_plain.json")
+    subsets = powerset_order(P)
+    a = np.array([fenced.charac_fct_values[s] for s in subsets])
+    b = np.array([plain.charac_fct_values[s] for s in subsets])
+    ref = np.array([sweep["scenario"]._charac_engine.charac_fct_values[s] for s in subsets])
+    snap = fenced.device_meter.snapshot()
+    peak = devcost.peak_flops_per_chip(card, "fp32")
+    dev_s, basis = devcost.estimate_device_seconds(snap, peak)
+    rep = report.sweep_report(records, peak_flops=peak,
+                              hbm_bytes_per_s=devcost.hbm_bytes_per_s_per_chip(card))
+    batches = [(r["attrs"]["slot_count"], r["attrs"]["width"], r["attrs"].get("device_sec"),
+                r["dur"], r["attrs"].get("flops")) for r in records if r["name"] == "engine.batch"]
+    for slots, width, dsec, span, fl in batches:
+        print(f"[devcost] (b) batch (slots {slots}, width {width}): fenced device "
+              f"{dsec:.4f} s against its host span {span:.4f} s; {fl:.4g} FLOPs counted")
+    print(f"[devcost] (b) sweep at fence rate 1: {fenced_s:.2f} s, at rate 0: {plain_s:.2f} s; "
+          f"meter {json.dumps(snap)}; estimate_device_seconds {dev_s:.4f} s [{basis}] "
+          f"(fp32 peak {peak})")
+    print("[devcost] (b) report rows: device_time " + json.dumps(rep.get("device_time"))
+          + "; compute " + json.dumps(rep.get("compute")) + "; roofline "
+          + json.dumps(rep.get("roofline")))
+    print(report.format_report(rep))
+    check(np.array_equal(a, b) and np.array_equal(a, ref),
+          "(b) v(S) with fences at rate 1 differ from rate 0's or [sweep]'s")
+    check(basis == "fenced" and snap["fenced_batches"] == len(fenced.batch_log),
+          f"(b) the meter bills on {basis}, {snap['fenced_batches']} fenced batches")
+    check(all(dsec is not None and dsec > 0 and fl for _, _, dsec, _, fl in batches),
+          "(b) a batch was not fenced or not counted on the card")
+    check(rep.get("device_time", {}).get("basis") == "fenced"
+          and rep["compute"].get("mfu_xla") is not None,
+          "(b) the report has no fenced device_time row or no mfu_xla")
+    check(plain.device_meter.snapshot()["fenced_batches"] == 0, "(b) rate 0 fenced a batch")
+    d = numerics.diff_ledgers(numerics.ValueLedger.load(str(ledgers / "sweep_fenced.json")),
+                              numerics.ValueLedger.load(str(ledgers / "sweep_plain.json")))
+    print(f"[devcost] (c) sweep ledgers, rate 1 against rate 0: comparable {d['comparable']}, "
+          f"common {d['common']}, drift {d['drift']}, ulp {json.dumps(d['ulp'])}, Kendall "
+          f"tau-b {d['kendall_tau']}")
+    check(d["comparable"] and d["common"] == 2 ** P - 1 and not d["drift"]
+          and d["kendall_tau"] == 1.0, "(c) the two sweeps' ledgers drift")
+    return {"fenced_s": fenced_s, "plain_s": plain_s}
+
+
+def devcost_precision_ledgers(fp32: "numerics.ValueLedger", bf16_path: Path) -> None:
+    """(c): the main path's fp32 ledger against [slice bf16]'s, held to
+    [precision]'s value-pair gate (JAX's bf16 bound on v(N) and on the
+    median |dv|). The coalitions past the bound are counted and the worst
+    named: the per-coalition bound is the JAX package's for a retrained
+    game, and its own bf16 reconstruction parts from fp32 past it too
+    (PERF.md, section 6)."""
+    bf16 = numerics.ValueLedger.load(str(bf16_path))
+    d = numerics.diff_ledgers(fp32, bf16)
+    keys = list(fp32.entries)
+    dv = np.array([abs(fp32.entries[k]["value"] - bf16.entries[k]["value"]) for k in keys])
+    grand = numerics.ValueLedger.subset_key(range(PARTNERS))
+    dv_grand = abs(fp32.entries[grand]["value"] - bf16.entries[grand]["value"])
+    worst = [(sorted(i for i in range(PARTNERS) if int(keys[j], 16) >> i & 1),
+              round(fp32.entries[keys[j]]["value"], 4), round(bf16.entries[keys[j]]["value"], 4))
+             for j in np.argsort(-dv)[:8]]
+    print(f"[devcost] (c) main path fp32 against bf16 ledgers: common {d['common']}, same "
+          f"fingerprint {d['same_fingerprint']} (precision is in the fingerprint), ulp "
+          f"{json.dumps(d['ulp'])}, Kendall tau-b {d['kendall_tau']}, |dv(N)| {dv_grand:.4f}, "
+          f"median |dv| {float(np.median(dv)):.4f}, max |dv| {float(dv.max()):.4f}; "
+          f"{int((dv > BF16_VALUE_BOUND).sum())} of {len(dv)} coalitions past "
+          f"{BF16_VALUE_BOUND}, the worst (members, fp32, bf16): {worst}")
+    check(d["common"] == 2 ** PARTNERS - 1 and dv_grand <= BF16_VALUE_BOUND
+          and float(np.median(dv)) <= BF16_VALUE_BOUND,
+          f"(c) bf16 ledger: {d['common']} common values, |dv(N)| {dv_grand}, median |dv| "
+          f"{float(np.median(dv))}")
+
+
+def devcost_audit(sweep: dict) -> None:
+    """(d): the audit of one fenced coalition under the default reduce (a
+    result, bit-equal v(S) with the audit off, torch.sum's first
+    divergence printed and required) and under the deterministic reduce
+    (no divergence)."""
+    with knob(constants.DEVICE_FENCE_RATE_ENV, "1"):
+        sc = sweep["scenario"]
+        off = CharacteristicEngine(sc)
+        v_off = float(off.evaluate([AUDIT_COALITION])[0])
+        with knob(constants.NUMERICS_AUDIT_ENV, "1"):
+            on = CharacteristicEngine(sc)
+            t0 = time.perf_counter()
+            v_on = float(on.evaluate([AUDIT_COALITION])[0])
+            seconds = time.perf_counter() - t0
+            with knob(constants.DETERMINISTIC_REDUCE_ENV, "1"):
+                det_sc = mnist_scenario([], SWEEP_PARTNERS)
+                det_sc.instantiate_scenario_partners()
+                det_sc.split_data()
+                det = CharacteristicEngine(det_sc)
+                det.evaluate([AUDIT_COALITION])
+    for tag, eng in (("default", on), ("deterministic", det)):
+        for a in eng.numerics_audits:
+            print(f"[devcost] (d) audit under the {tag} reduce: subset {a.subset}, executed "
+                  f"{a.executed} at {list(a.executed_shape)}, {a.rounds} rounds, first "
+                  f"divergence {a.first_divergence}, "
+                  f"max ulp {a.max_ulp} over {a.divergent_elements} elements, grouped folds "
+                  f"{json.dumps({str(k): v for k, v in a.ulp_by_shards.items()})}, "
+                  f"{a.seconds:.2f} s")
+    print(f"[devcost] (d) v{AUDIT_COALITION} audit off {v_off!r}, on {v_on!r} "
+          f"({seconds:.2f} s with the audit)")
+    check(numerics.float_bits(v_on) == numerics.float_bits(v_off),
+          "(d) the audit changed a v(S)")
+    check(len(on.numerics_audits) == 1 and on.numerics_audits[0].first_divergence is not None
+          and on.numerics_audits[0].executed == "torch.sum",
+          "(d) the default reduce's audit returned nothing or localized no divergence")
+    check(len(det.numerics_audits) == 1 and det.numerics_audits[0].first_divergence is None
+          and det.numerics_audits[0].executed == "ordered_fold",
+          "(d) the deterministic reduce's audit is missing or diverged")
+
+
+def phase_devcost(sl, sweep: dict, ledgers: Path, card: str) -> dict:
+    """Device cost, fences, the value ledger and the audit: (a) the main
+    path ledgered and fenced, (b) the sweep fenced at rate 1 against rate
+    0, (c) ledger diffs, (d) the audit on both reductions."""
+    t0 = time.perf_counter()
+    path = devcost_main_path(sl, ledgers / "main_fp32.json")
+    devcost_fences(sweep, card, ledgers)
+    devcost_precision_ledgers(path.pop("ledger"), ledgers / "main_bf16.json")
+    devcost_audit(sweep)
+    print(f"[devcost] all parts passed in {time.perf_counter() - t0:.2f} s")
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2840,7 +3187,9 @@ def main() -> int:
             svarm["launches"] if B == 64 else
             sum(n for w, n in svarm["widths"].items() if w <= B))}
         e["launch_widths_svarm"] = svarm["widths"]
-    kernels += rung_free("precision", phase_precision, sl["values"], card)
+    ledger_dir = Path(tempfile.mkdtemp(prefix="mplc_ledgers_"))
+    kernels += rung_free("precision", phase_precision, sl["values"], card,
+                         str(ledger_dir / "main_bf16.json"))
     sweep = rung_free("sweep", phase_sweep)
     for tag, phase in (("sweep reference", phase_sweep_reference), ("slots", phase_slots),
                        ("deterministic reduce", phase_deterministic_reduce)):
@@ -2855,6 +3204,8 @@ def main() -> int:
              "cli": rung_free("cli", phase_cli, card, smi),
              "obs": rung_free("obs", phase_obs, sl, sweep, kernels),
              "ladder": phase_ladder(sl, sweep)}
+    rung_free("width", phase_width, sweep)
+    paths["devcost"] = rung_free("devcost", phase_devcost, sl, sweep, ledger_dir, card)
     for e in kernels:
         B = e["shape"]["B"]
         if not e["name"].startswith(recon_kernel.KERNEL_BF16):

@@ -6,4 +6,7 @@ unless the caller passes `device="cpu"`; on the card the hot loop of the
 retrain-free estimators is the hand-written kernel in `csrc/`.
 """
 
+from . import constants  # noqa: F401
+from . import obs  # noqa: F401  (no torch import at module load)
+
 __version__ = "0.1.0"

@@ -314,3 +314,36 @@ SEED_ENSEMBLE_ENV = "MPLC_TORCH_SEED_ENSEMBLE"
 
 def seed_ensemble() -> int:
     return _env_positive_int(SEED_ENSEMBLE_ENV, 1)
+
+
+# Device cost (obs/devcost.py), read when a CharacteristicEngine is built:
+#   MPLC_TORCH_DEVICE_FENCE_RATE  fraction of the engine's batches that run
+#                                 fenced: CUDA events around the batch's
+#                                 dispatch and harvest time its device
+#                                 seconds. Every round(1/rate)-th batch
+#                                 ordinal, ordinal 1 included, so a run
+#                                 replays its fences. Default 1/16; 0 is
+#                                 off. A fence never changes v(S).
+DEVICE_FENCE_RATE_ENV = "MPLC_TORCH_DEVICE_FENCE_RATE"
+
+# The numerics plane (obs/numerics.py), read when an engine is built:
+#   MPLC_TORCH_NUMERICS_AUDIT   =1 audits the first coalition of up to 4
+#                               fenced batches an engine: a separate
+#                               recording run captures its per-round,
+#                               per-partner aggregation terms, and the host
+#                               replays the partner reduction in the order
+#                               the engine executes (`torch.sum`, or
+#                               `ordered_fold` under the deterministic
+#                               reduce) against the left-to-right fold,
+#                               localizing the first divergence. The
+#                               engine's own batches are untouched, so
+#                               v(S) is bit-equal with the audit on or off.
+#   MPLC_TORCH_NUMERICS_LEDGER  path of the value ledger (JSON, the JAX
+#                               package's schema): every harvested v(S)
+#                               with its exact bits and float path (slot
+#                               width, cap halvings, reduction mode),
+#                               keyed by (subset bitmask, engine
+#                               fingerprint); saved after each evaluate()
+#                               call that did device work.
+NUMERICS_AUDIT_ENV = "MPLC_TORCH_NUMERICS_AUDIT"
+NUMERICS_LEDGER_ENV = "MPLC_TORCH_NUMERICS_LEDGER"

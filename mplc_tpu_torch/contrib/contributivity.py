@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import datetime
 import logging
+from itertools import combinations
 from math import comb, factorial
 
 import numpy as np
@@ -128,6 +129,12 @@ class _LinearFit:
         return np.asarray(X, dtype=np.float64) @ self.coef + self.intercept
 
 
+def power_set(lst):
+    """Every non-empty subset of `lst` as a list, by size then in
+    combination order (the reference's helper, contributivity.py:1205-1206)."""
+    return [list(c) for i in range(len(lst)) for c in combinations(lst, i + 1)]
+
+
 class Contributivity:
     def __init__(self, scenario, name: str = ""):
         self.name = name
@@ -157,14 +164,29 @@ class Contributivity:
         t = str(datetime.timedelta(seconds=self.computation_time_sec))
         out = "\n" + self.name + "\n"
         out += "Computation time: " + t + "\n"
+        out += ("Number of characteristic function computed: "
+                + str(self.first_charac_fct_calls_count) + "\n")
         out += f"Contributivity scores: {np.round(self.contributivity_scores, 3)}\n"
         out += f"Std of the contributivity scores: {np.round(self.scores_std, 3)}\n"
         out += f"Normalized contributivity scores: {np.round(self.normalized_scores, 3)}\n"
         return out
 
+    # -- reference-API passthroughs to the engine's memo
+
+    @property
+    def charac_fct_values(self):
+        return self.engine.charac_fct_values
+
+    @property
+    def increments_values(self):
+        return self.engine.increments_values
+
     @property
     def first_charac_fct_calls_count(self):
         return self.engine.first_charac_fct_calls_count
+
+    def not_twice_characteristic(self, subset):
+        return self.engine.not_twice_characteristic(subset)
 
     def _method_span(self, method: str) -> obs_trace.Span:
         """The method's timer: `_finish` takes `computation_time_sec` from

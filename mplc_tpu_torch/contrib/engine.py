@@ -50,15 +50,33 @@ CUDA engine stops with the classified, permanent `LadderExhaustedError`
 (`_ladder_exhausted`, with a flight dump): the port never moves a card's
 work to the CPU. Only an engine whose device is the CPU has a last CPU
 rung (`_run_groups_cpu`), loudly. Recovery never changes v(S): every
-retry draws each coalition's streams afresh, and a batch re-run at a
-narrower width pads its gradient calls to the call's first width
-(`TrainConfig.grad_runs`; cuDNN picks its backward algorithms by a call's
-model count), so it trains the same bits on the card too. A dispatch
-reads nothing from the device (early stopping that can fire aside), so
-the host has queued a whole batch when its harvest starts; batches run
-one after another. The program bank, device fences and the value ledger
-are ROADMAP.md queue 1 item 7; the 2-D mode's singles path and its ladder
-exhaustion item 10.
+retry draws each coalition's streams afresh. A dispatch reads nothing from
+the device (early stopping that can fire aside), so the host has queued a
+whole batch when its harvest starts; batches run one after another.
+
+Width independence: on the card cuDNN picks a convolution's backward
+algorithm by a gradient call's shape, so a coalition's bits would depend
+on the width of the batch that trains it. The engine's trainers
+(`TrainConfig.fixed_call_width`) split every step into gradient calls of
+exactly `Model.grad_call_width` models, the last padded: every call of a
+coalition has one shape, so it gets the same v(S) alone, in a request of
+two or three, in a full sweep, in a resumed remainder or in a batch the
+ladder re-ran at a halved width, on the CPU and on the card. It rests on
+one property, that a model's gradient does not depend on its position in
+a call or on the other models there (`obs/width_parity.py` checks it).
+The grand-coalition fit and the recording train P models at a fixed width
+and keep one call a step.
+
+Device cost and numerics (obs/devcost.py, obs/numerics.py): every
+`MPLC_TORCH_DEVICE_FENCE_RATE`-th batch is timed between CUDA events
+(`engine.device_fence`), every batch carries its FLOPs (the trainer's
+calls, counted once a shape by `FlopCounterMode` on meta tensors), and
+`device_meter` sums them; `MPLC_TORCH_NUMERICS_LEDGER` records every
+harvested v(S) with its float path and saves the ledger after each
+`evaluate` that did device work; `MPLC_TORCH_NUMERICS_AUDIT=1` audits the
+partner reduction of up to 4 fenced coalitions through separate capture
+runs. None of it changes a v(S). The program bank is ROADMAP.md queue 1
+item 7b; the 2-D mode's singles path and its ladder exhaustion item 10.
 """
 
 from __future__ import annotations
@@ -80,7 +98,10 @@ from .. import constants, faults
 from ..data.partition import StackedPartners
 from ..mpl.approaches import stage_eval_set
 from ..mpl.engine import SLOT_APPROACHES, MplTrainer, TrainConfig, upload
+from ..mpl.engine import call_flops
+from ..obs import devcost
 from ..obs import metrics as obs_metrics
+from ..obs import numerics as obs_numerics
 from ..obs import trace as obs_trace
 
 logger = logging.getLogger("mplc_tpu_torch")
@@ -134,40 +155,33 @@ class BatchedTrainerPipeline:
     def __init__(self, trainer: MplTrainer, partners_count: int):
         self.trainer = trainer
         self.partners_count = partners_count
-        self._padded: dict[int, MplTrainer] = {}
-
-    def _trainer(self, grad_runs: int | None) -> MplTrainer:
-        """The trainer, or its copy whose gradient calls hold `grad_runs`
-        runs (made once a count)."""
-        if grad_runs is None:
-            return self.trainer
-        if grad_runs not in self._padded:
-            self._padded[grad_runs] = MplTrainer(self.trainer.model, dataclasses.replace(
-                self.trainer.cfg, grad_runs=grad_runs))
-        return self._padded[grad_runs]
 
     def dispatch_async(self, coal: torch.Tensor, generators, stacked, val, test,
                        init_params: dict | None = None, streams_all=None,
-                       coal_host=None, grad_runs: int | None = None):
+                       coal_host=None, call_log: list | None = None):
         """Train the coalitions `coal` (masks [B, P], or slot ids [B, K] on
         a slot trainer; its CPU copy `coal_host`, or None), each from its
         generator's stream, or from injected initial params ([B, ...]
         leaves) and streams (`MplTrainer.epoch_chunk`'s `streams_all`), and
         return a zero-argument harvest thunk that reads their test
         accuracies [B] and epochs trained [B] to the host as numpy arrays.
-        `grad_runs` (None: every run of a step in one call) sets the runs
-        a gradient call holds (`TrainConfig.grad_runs`).
-        The thunk holds those two tensors only, so the batch's state goes
-        back to the caching allocator when this returns. On a CUDA device,
+        `call_log` (a list, or None) receives the batch's gradient and
+        forward calls (`MplTrainer.call_log`). The thunk holds those two
+        tensors only, so the batch's state goes back to the caching
+        allocator when this returns. On a CUDA device,
         unless early stopping can fire (`TrainConfig.stops_early`, whose
         flag is read every epoch), the batch is still running when this
         returns, and the thunk's read is its one sync."""
-        tr = self._trainer(grad_runs)
-        state = tr.init_state(generators, self.partners_count, coal.device,
-                              init_params)
-        tr.epoch_chunk(state, stacked, val, coal, generators,
-                       tr.cfg.epoch_count, streams_all, coal_host)
-        _, accs = tr.finalize(state, test)
+        tr = self.trainer
+        tr.call_log = call_log
+        try:
+            state = tr.init_state(generators, self.partners_count, coal.device,
+                                  init_params)
+            tr.epoch_chunk(state, stacked, val, coal, generators,
+                           tr.cfg.epoch_count, streams_all, coal_host)
+            _, accs = tr.finalize(state, test)
+        finally:
+            tr.call_log = None
         epochs = state.nb_epochs_done
         return lambda: (accs.cpu().numpy(), epochs.cpu().numpy())
 
@@ -217,6 +231,12 @@ class CharacteristicEngine:
     _batch_ordinal = 0
     _cap_halvings = 0
     _cpu_degraded = False
+    # nor does it meter, fence, audit or ledger
+    device_meter = None
+    numerics_ledger = None
+    _fence_interval = 0
+    _numerics_audit = False
+    _ledger_ctx: dict = {}
 
     def __init__(self, scenario, seed_ensemble: int | None = None):
         self.scenario = scenario
@@ -276,6 +296,7 @@ class CharacteristicEngine:
             record_val_history=False,
             partner_drop_epochs=drop_epochs,
             partner_straggler_delays=straggler_delays,
+            fixed_call_width=True,
         )
         self.trainer = MplTrainer(self.model, self._multi_cfg)
         self.multi_pipe = BatchedTrainerPipeline(self.trainer, self.partners_count)
@@ -351,6 +372,45 @@ class CharacteristicEngine:
         self._cache_needs_upgrade = False
         self._legacy_cache_path: str | None = None
         self._digest: str | None = None
+
+        # Device cost (obs/devcost.py, MPLC_TORCH_DEVICE_FENCE_RATE): every
+        # `_fence_interval`-th batch ordinal is timed between CUDA events
+        # (`_fence_start`, `_maybe_fence`), each batch carries its counted
+        # FLOPs, and the meter sums them. Deterministic in the ordinal, so
+        # a replayed run fences the same batches; a fence never changes
+        # v(S) (equality-tested in tests/test_torch_devcost.py)
+        self._fence_interval = devcost.fence_interval()
+        self.device_meter = devcost.DeviceMeter(self._fence_interval)
+        # The numerics plane (obs/numerics.py): the value ledger
+        # (MPLC_TORCH_NUMERICS_LEDGER names its file) and the fence-sampled
+        # reduction audit (MPLC_TORCH_NUMERICS_AUDIT=1, a separate capture
+        # run a coalition, so v(S) is bit-equal with it on or off)
+        self._numerics_audit = obs_numerics.audit_enabled()
+        self._audited_subsets: set = set()
+        self.numerics_audits: list = []
+        self._ledger_ctx = {}
+        path = obs_numerics.ledger_path_from_env()
+        self.numerics_ledger = (obs_numerics.ValueLedger(
+            self._fingerprint_digest(), meta=self._ledger_meta(), path=path)
+            if path else None)
+
+    def _fingerprint_digest(self) -> str:
+        """The ledger's engine fingerprint: sha256 of the cache fingerprint
+        (`_fingerprint`, JSON with sorted keys), 16 hex digits, as the JAX
+        engine digests its own."""
+        return hashlib.sha256(json.dumps(self._fingerprint(), sort_keys=True)
+                              .encode()).hexdigest()[:16]
+
+    def _ledger_meta(self) -> dict:
+        """The float path every ledger entry shares (the JAX engine's keys;
+        the port has one topology, 1-D, on one device's partners)."""
+        cuda = torch.device(self.device).type == "cuda"
+        return {"topology": "1d", "part_shards": 1,
+                "n_devices": torch.cuda.device_count() if cuda else 1,
+                "reduction_mode": ("deterministic" if self._multi_cfg.deterministic_reduce
+                                   else "default"),
+                "precision": self._multi_cfg.precision,
+                "slot_bucketing": self.scenario.slot_bucketing}
 
     # ------------------------------------------------------------------
     # coalition helpers
@@ -432,6 +492,15 @@ class CharacteristicEngine:
     def _store(self, subset: tuple, value: float) -> None:
         self.charac_fct_values[subset] = value
         self.first_charac_fct_calls_count += 1
+        if self.numerics_ledger is not None:
+            # the harvested bits and the float path that made them: the
+            # batch's slot width and CPU rung (`_ledger_ctx`, set by
+            # `_record_group` for its stores; a store outside a batch, a
+            # null coalition, has none) and the cap halvings taken
+            ctx = self._ledger_ctx
+            self.numerics_ledger.record(
+                subset, value, source="exact", slot_width=ctx.get("slot_count"),
+                cap_halvings=self._cap_halvings, degraded=bool(ctx.get("degraded")))
         # marginal-increment bookkeeping (reference contributivity.py:116-134)
         sset = set(subset)
         for i in range(self.partners_count):
@@ -520,8 +589,9 @@ class CharacteristicEngine:
         at most `constants.eval_rows_in_flight` models x rows, and a
         layer's input, its output and a convolution's workspace coexist
         (EVAL_ACTIVATIONS_PER_ROW such activations a row); a gradient call
-        holds up to the ceiling's coalitions' k models (a call's first
-        width, to which a re-run pads) on a step's rows, each row keeping
+        is counted at the ceiling's coalitions' k models on a step's rows
+        (the calls themselves hold `Model.grad_call_width` models each,
+        one after another), each row keeping
         its layers' activations for the backward pass and one layer's
         gradients in and out (TRAIN_ACTIVATIONS_PER_ROW). The two calls
         do not overlap; the larger counts."""
@@ -726,10 +796,10 @@ class CharacteristicEngine:
                     else prev[0])
             redo = [s for s in subs if self._incomplete(s)]
             if redo:
-                self._run_batch(redo, pipe, slot_count, prev[2]["call_width"])
+                self._run_batch(redo, pipe, slot_count)
 
     def _run_batch(self, subsets: list[tuple], pipe: BatchedTrainerPipeline,
-                   slot_count: int | None = None, call_width: int | None = None) -> None:
+                   slot_count: int | None = None) -> None:
         """Train and value `subsets` on `pipe` (a slot pipeline when
         `slot_count` is given), in batches of one width for the call
         (`_planned_width`), each harvested before the next is dispatched.
@@ -748,11 +818,7 @@ class CharacteristicEngine:
         width; an OOM at harvest re-runs the batch's coalitions
         (`_record_or_recover`); past the last rung a CUDA engine raises
         `LadderExhaustedError` and a CPU engine runs the rest on its CPU
-        rung (`_run_groups_cpu`). `call_width` is the width the call's
-        first batch had (None: this call's, a harvest's re-run passes its
-        call's): a batch narrower than it pads its gradient calls to that
-        many runs, so a coalition re-run at a halved width computes its
-        gradients in calls of the model count it first had."""
+        rung (`_run_groups_cpu`)."""
         K = self.seed_ensemble
         single = pipe is self.single_pipe
         per_partner = self._epoch_samples_single if single else self._epoch_samples_multi
@@ -761,7 +827,6 @@ class CharacteristicEngine:
         passes_per_mb = 1 if single else slot_count or self.partners_count
         n_jobs = len(subsets) * K
         b = self._planned_width(n_jobs, slot_count)
-        call_width = call_width or b
         halvings_seen = self._cap_halvings
         with obs_trace.span("engine.prep", coalitions=n_jobs, width=b,
                             slot_count=slot_count):
@@ -769,8 +834,7 @@ class CharacteristicEngine:
             coal_all = self._coalition_arrays(eff if single else subsets, slot_count)
             jobs = [(s, r) for s in subsets for r in range(K)] if K > 1 else subsets
         ctx = {"eff": eff, "coal_all": coal_all, "jobs": jobs, "single": single,
-               "per_partner": per_partner, "passes_per_mb": passes_per_mb,
-               "call_width": call_width}
+               "per_partner": per_partner, "passes_per_mb": passes_per_mb}
         i = 0
         while i < n_jobs:
             if self._cpu_degraded:
@@ -801,8 +865,9 @@ class CharacteristicEngine:
         `i`, its ordinal taken. `dispatch` is a closure that draws every
         input afresh on each call (the coalitions' generators are stateful,
         so a retry that reused them would train other streams) and returns
-        the batch's harvest thunk. A batch narrower than its call's first
-        width (`ctx["call_width"]`) pads its gradient calls to that width."""
+        the batch's harvest thunk. A fence ordinal's dispatch is fenced
+        (`_fence_start`); the dispatch logs the trainer's calls, whose
+        FLOPs ride `meta["flops"]` (not on the CPU rung)."""
         K = self.seed_ensemble
         jobs = ctx["jobs"]
         group = jobs[i:i + b]
@@ -816,9 +881,11 @@ class CharacteristicEngine:
         meta = {**attrs, "t0": time.perf_counter(), "ordinal": self._batch_ordinal,
                 "kind": "single" if ctx["single"] else "multi", "ensemble": K > 1,
                 "passes_per_mb": ctx["passes_per_mb"],
-                "mb_count": pipe.trainer.cfg.minibatch_count,
-                "call_width": ctx["call_width"]}
-        grad_runs = ctx["call_width"] if b < ctx["call_width"] else None
+                "mb_count": pipe.trainer.cfg.minibatch_count}
+        # the CPU rung's batches are neither fenced nor counted: they run
+        # at another rate than the device's
+        fence = not degraded and devcost.should_fence(self._batch_ordinal,
+                                                      self._fence_interval)
 
         def dispatch(ordinal=self._batch_ordinal):
             with obs_trace.span("engine.dispatch", **attrs):
@@ -827,9 +894,17 @@ class CharacteristicEngine:
                 generators, init_params, streams = self._batch_start(
                     keys, ctx["single"], [int(j) for j in sel % K])
                 coal_host = torch.from_numpy(ctx["coal_all"][sel // K])
-                return pipe.dispatch_async(upload(coal_host, self.device), generators,
-                                           self.stacked, self.val, self.test, init_params,
-                                           streams, coal_host, grad_runs)
+                calls = None if degraded else []
+                if fence:
+                    self._fence_start(meta)
+                fetch = pipe.dispatch_async(upload(coal_host, self.device), generators,
+                                            self.stacked, self.val, self.test, init_params,
+                                            streams, coal_host, calls)
+                if fence:
+                    self._fence_stop(meta)
+                if calls:
+                    meta["flops"] = call_flops(self.model, calls, self.stacked.x)
+                return fetch
 
         meta["redispatch"] = dispatch
         return group, meta, dispatch
@@ -855,16 +930,70 @@ class CharacteristicEngine:
             fetch = self._retry_transient(dispatch, "dispatch", meta["ordinal"])
             self._record_group(group, fetch, meta, ctx["per_partner"], slot_count)
 
+    # ------------------------------------------------------------------
+    # device fences (obs/devcost.py)
+    # ------------------------------------------------------------------
+
+    def _fence_start(self, meta: dict) -> None:
+        """A fenced batch's start: a CUDA event recorded on the current
+        stream before its first work (on the CPU, which runs the work as it
+        is dispatched, the host clock)."""
+        if torch.device(self.device).type == "cuda":
+            meta["fence"] = [torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True)]
+            meta["fence"][0].record()
+        else:
+            meta["fence"] = [time.perf_counter(), None]
+
+    def _fence_stop(self, meta: dict) -> None:
+        """A fenced batch's end: a CUDA event recorded after its last
+        queued work (the CPU: the host clock after the dispatch ran it)."""
+        if isinstance(meta["fence"][1], torch.cuda.Event):
+            meta["fence"][1].record()
+        else:
+            meta["fence"][1] = time.perf_counter()
+
+    def _maybe_fence(self, meta: dict) -> None:
+        """After a fenced batch's harvest (which synchronized the stream),
+        its device seconds from the two events into `meta["device_sec"]`,
+        the `engine.device_step_sec` histogram and an `engine.device_fence`
+        event. An unfenced batch is left alone."""
+        ev = meta.get("fence")
+        if ev is None:
+            return
+        if isinstance(ev[0], torch.cuda.Event):
+            dur = ev[0].elapsed_time(ev[1]) / 1e3
+        else:
+            dur = ev[1] - ev[0]
+        meta["device_sec"] = dur
+        obs_metrics.histogram("engine.device_step_sec").observe(dur)
+        obs_trace.event("engine.device_fence", dur=dur, ordinal=meta.get("ordinal"),
+                        width=meta["width"], slot_count=meta.get("slot_count"),
+                        coalitions=meta["coalitions"], interval=self._fence_interval)
+
+    def _fence_next(self, pending) -> bool:
+        """True when the next batch ordinal is a fence sample and a batch is
+        still in flight, which the JAX engine drains first so that the fence
+        times its batch alone. The port's batches run one after another, so
+        none is ever pending here and this is False."""
+        return bool(pending is not None and self._fence_interval
+                    and devcost.should_fence(self._batch_ordinal + 1, self._fence_interval))
+
     def _record_group(self, group, fetch, meta, per_partner, slot_count) -> None:
         """A batch's harvest and bookkeeping: fetch its results (with the
-        retry ladder), store its values, account its epochs, samples and
-        partner passes, emit its `engine.batch` event, autosave. The JAX
-        engine's device fence, numerics audit and value ledger hook in here
-        (ROADMAP.md queue 1 item 7)."""
+        retry ladder), take its fence, store its values (each into the
+        value ledger, when it is on), account its epochs, samples and
+        partner passes, emit its `engine.batch` event, note it on the
+        device meter, audit a fenced batch's first coalition
+        (MPLC_TORCH_NUMERICS_AUDIT), autosave."""
         n = meta["coalitions"]
         with obs_trace.span("engine.harvest", width=meta["width"], slot_count=slot_count,
                             coalitions=n):
             accs, epochs = self._fetch_with_retry(fetch, meta)
+        self._maybe_fence(meta)
+        # the float path of this batch's ledger entries (cleared after, so
+        # a store outside a batch inherits none)
+        self._ledger_ctx = {"slot_count": slot_count, "degraded": meta.get("degraded")}
         batch_samples = 0
         for item, acc, ep in zip(group, accs[:n], epochs[:n]):
             if meta["ensemble"]:
@@ -878,8 +1007,22 @@ class CharacteristicEngine:
             if rep == 0 and s not in self.charac_fct_values:
                 self._store(s, float(acc))
             batch_samples += int(ep) * int(per_partner[list(self._effective_subset(s))].sum())
+        self._ledger_ctx = {}
         batch_epochs = int(epochs[:n].sum())
         batch_passes = batch_epochs * meta["mb_count"] * meta["passes_per_mb"]
+        if (self._numerics_audit and meta.get("device_sec") is not None
+                and not meta["ensemble"] and group and len(self.numerics_audits) < 4):
+            # the fenced batch's first coalition, through a separate
+            # capture run (never this batch), its reduction replayed at the
+            # batch's shape, at most 4 an engine: each audit costs one
+            # training
+            s0 = group[0]
+            if s0 not in self._audited_subsets:
+                self._audited_subsets.add(s0)
+                res = obs_numerics.audit_coalition(self, s0, meta["width"],
+                                                   meta["slot_count"])
+                if res is not None:
+                    self.numerics_audits.append(res)
         seconds = time.perf_counter() - meta["t0"]
         attrs = {k: meta[k] for k in ("width", "slot_count", "coalitions", "padding")}
         entry = {"kind": meta["kind"], **attrs, "seconds": seconds}
@@ -888,9 +1031,18 @@ class CharacteristicEngine:
             entry["degraded"] = extra["degraded"] = meta["degraded"]
             obs_metrics.counter("engine.cpu_degraded_batches").inc()
             obs_metrics.counter("engine.cpu_degraded_coalitions").inc(n)
+        if meta.get("device_sec") is not None:
+            # a fenced batch: its device seconds feed the report's
+            # device_time and roofline rows
+            extra["device_sec"] = meta["device_sec"]
+            extra["fenced"] = True
+        if meta.get("flops"):
+            extra["flops"] = meta["flops"]
         self.batch_log.append(entry)
         self._account_batch(seconds, attrs, batch_epochs, batch_samples, batch_passes,
                             ordinal=meta["ordinal"], **extra)
+        self.device_meter.note(n, span_sec=seconds, device_sec=meta.get("device_sec"),
+                               flops=meta.get("flops"), degraded=bool(meta.get("degraded")))
         obs_metrics.histogram("engine.pad_waste_fraction").observe(
             meta["padding"] / meta["width"])
         obs_metrics.sample_device_memory(device=self.device)
@@ -956,6 +1108,9 @@ class CharacteristicEngine:
                 obs_trace.event("engine.hbm", **self._hbm_attrs(
                     max((self._slot_width(lens[k]) for k in multis), default=None)
                     if multis and self._use_slots else None))
+                if self.numerics_ledger is not None:
+                    # the ledger saved once a call that did device work
+                    self.numerics_ledger.save()
         if self._cache_needs_upgrade and self.autosave_path is not None:
             # a legacy cache is rewritten with a checksum even when every
             # value was memoized and no batch's autosave ran

@@ -6,9 +6,12 @@ deterministically, by written-down rules, to a concrete QueryPlan that the
 caller keeps (`Contributivity.plan`), so running the plan's method with its
 kwargs repeats the query without planning again.
 
-Cost model: a fixed per-coalition eval-seconds constant (`DEFAULT_EVAL_SEC`,
-basis "default"). The JAX package's measured ("meter") and modelled
-("bank_cost_model") bases wait for the port's runtime plane (ROADMAP.md).
+Cost model (`estimate_eval_seconds`), best first: "meter", the engine's
+measured host seconds a reconstructed coalition (obs/devcost.py
+`DeviceMeter`, once it has seen at least 8); else "default", a fixed
+per-coalition constant (`DEFAULT_EVAL_SEC`). The JAX package's modelled
+"bank_cost_model" basis waits for the port's program bank (ROADMAP.md queue
+1 item 7b).
 
 Accuracy contract: `accuracy_target` is the trust-row CI half-width on
 normalized scores the caller asks for (MPLC_TORCH_PLANNER_ACCURACY, default
@@ -38,7 +41,7 @@ import dataclasses
 
 from .. import constants
 
-#: per-coalition eval seconds, the only cost basis ported
+#: per-coalition eval seconds without a measurement
 DEFAULT_EVAL_SEC = 0.05
 #: SVARM's minimum useful sampled budget (mirrors its 128-sample floor)
 _SVARM_FLOOR = 128
@@ -77,7 +80,14 @@ def plan_from_dict(doc: dict) -> QueryPlan:
 
 
 def estimate_eval_seconds(engine=None) -> tuple:
-    """(seconds per coalition evaluation, basis): the default constant."""
+    """(seconds per coalition evaluation, basis): the engine's metered
+    eval-only seconds a coalition once it has reconstructed 8 or more
+    ("meter"), else the default constant."""
+    meter = getattr(engine, "device_meter", None) if engine else None
+    if meter is not None:
+        snap = meter.snapshot()
+        if snap.get("eval_coalitions", 0) >= 8 and snap.get("eval_span_sec", 0.0) > 0.0:
+            return (snap["eval_span_sec"] / snap["eval_coalitions"], "meter")
     return (DEFAULT_EVAL_SEC, "default")
 
 

@@ -18,7 +18,10 @@ followed by its `engine.batch` event; `ReconstructionEvaluator.evaluate` is
 an `engine.evaluate` span (mode=reconstruct) holding, for each batch, an
 `engine.prep`, an `engine.dispatch` (where K1 launches) and an
 `engine.harvest` (the host read of the accuracies, the batch's one sync),
-then an eval-only `engine.batch` event.
+then an eval-only `engine.batch` event. With the engine's value ledger on
+(MPLC_TORCH_NUMERICS_LEDGER), each reconstructed v(S) is recorded with
+source "reconstruction" and the ledger saved after each `evaluate` that
+reconstructed; each batch is noted eval-only on the engine's device meter.
 
 The fault ladder (the engine's, contrib/engine.py): the recording is batch
 ordinal 1 of its engine and retries transient failures (an OOM there
@@ -83,10 +86,13 @@ def record_updates(engine) -> RecordedRun:
     the engine's coalition-training config (its partner faults included:
     a dropped partner records exact-zero deltas and weights) and the grand
     coalition's own random stream (that of its effective membership), and
-    return the recorded stream. The recording is a batch of the fault
+    return the recorded stream. Its P models train at one width, so its
+    steps keep one gradient call each (not `fixed_call_width`'s split).
+    The recording is a batch of the fault
     plan: a transient failure retries it from a fresh generator (the same
     stream); an OOM propagates."""
-    cfg = dataclasses.replace(engine._multi_cfg, record_updates=True)
+    cfg = dataclasses.replace(engine._multi_cfg, record_updates=True,
+                              fixed_call_width=False)
     trainer = MplTrainer(engine.model, cfg)
     P = engine.partners_count
     full = tuple(range(P))
@@ -132,9 +138,12 @@ def record_updates(engine) -> RecordedRun:
     # the recording is training work: it owns every training counter of
     # the retrain-free path
     samples = epochs * int(engine._epoch_samples_multi[list(eff)].sum())
-    engine._account_batch(time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    engine._account_batch(seconds,
                           {"width": 1, "slot_count": None, "coalitions": 1, "padding": 0},
                           epochs, samples, rec.training_passes, recording=True)
+    if engine.device_meter is not None:
+        engine.device_meter.note(1, span_sec=seconds)
     span.attrs.update(rec.describe())
     span.end()
     return rec
@@ -207,6 +216,9 @@ class ReconstructionEvaluator:
                 chunk = self._chunk()
                 self._run_batch(missing[i:i + chunk])
                 i += chunk
+        if missing and eng.numerics_ledger is not None:
+            # saved once a call that reconstructed, as the engine saves it
+            eng.numerics_ledger.save()
         return np.array([self.values[k] for k in keys])
 
     def _run_batch(self, subsets: list[tuple]) -> None:
@@ -277,6 +289,12 @@ class ReconstructionEvaluator:
                 continue
             for s, acc in zip(group, accs[:len(group)].tolist()):
                 self.values[s] = float(acc)
+                if eng.numerics_ledger is not None:
+                    # the engine's ledger, tagged by source, so a diff
+                    # never mixes reconstructed values with retrained ones
+                    eng.numerics_ledger.record(
+                        s, float(acc), source="reconstruction", slot_width=None,
+                        cap_halvings=eng._cap_halvings, degraded=on_cpu)
             self.reconstructions += len(group)
             obs_metrics.counter("engine.batches").inc()
             obs_metrics.counter("engine.reconstructions").inc(len(group))
@@ -285,6 +303,11 @@ class ReconstructionEvaluator:
                 obs_metrics.counter("engine.cpu_degraded_batches").inc()
                 obs_metrics.counter("engine.cpu_degraded_coalitions").inc(len(group))
             # eval-only: no epochs, samples or partner passes
-            obs_trace.event("engine.batch", dur=time.perf_counter() - meta["t0"],
+            seconds = time.perf_counter() - meta["t0"]
+            obs_trace.event("engine.batch", dur=seconds,
                             ordinal=meta["ordinal"], **attrs, epochs=0, samples=0,
                             partner_passes=0, eval_only=True)
+            if eng.device_meter is not None:
+                # neither fenced nor counted: eval-only batches bill at their
+                # own host span, outside the fenced training rate
+                eng.device_meter.note(len(group), span_sec=seconds, eval_only=True)

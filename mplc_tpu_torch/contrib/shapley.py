@@ -22,6 +22,18 @@ def subset_to_bitmask(subset) -> int:
     return m
 
 
+def bitmask_to_subset(mask: int) -> tuple:
+    """The sorted partner indices of a membership bitmask."""
+    out = []
+    i = 0
+    while mask:
+        if mask & 1:
+            out.append(i)
+        mask >>= 1
+        i += 1
+    return tuple(out)
+
+
 def powerset_order(n: int) -> list[tuple]:
     """The reference's coalition enumeration order: all subsets sorted by
     size then lexicographically (contributivity.py:149-151) — kept for

@@ -107,6 +107,13 @@ class Model:
             "binary" (sigmoid CE over a single logit).
         num_outputs: logits dimensionality (1 for binary).
         optimizer: the optimizer every partner pass starts afresh.
+        grad_call_width: the models every gradient call of the coalition
+            engine's trainers holds (`MplTrainer._model_grads`): a step's
+            models are split into calls of exactly this many, the last
+            padded. On the card cuDNN picks a convolution's algorithms by
+            a call's shape, so one call width keeps a coalition's bits
+            whatever the width of the batch that trains it. Chosen by
+            cost (`obs/width_parity.py`).
         dropout: (rate, per-sample shape) of each dropout layer, in the
             order `apply` takes their masks; () for a model without.
         eval_row_bytes: float32 bytes of the largest activation one row
@@ -121,6 +128,7 @@ class Model:
     loss_kind: str
     num_outputs: int
     optimizer: Optimizer
+    grad_call_width: int
     dropout: tuple = ()
     eval_row_bytes: int = 0
 

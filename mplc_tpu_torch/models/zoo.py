@@ -161,20 +161,29 @@ def _titanic_apply(params, x, compute_dtype=torch.float32, dropout=None):
 
 # eval_row_bytes: each model's largest float32 activation a row (the
 # MNIST CNN's second conv, the CIFAR10 CNN's first, IMDB's embedded
-# sequence, ESC50's first conv, Titanic's input)
+# sequence, ESC50's first conv, Titanic's input).
+# grad_call_width: the models every gradient call of the coalition
+# engine holds (`Model`). Any width keeps the bits; each model's is the
+# one whose worst step (1-160 models) is least slowed against the step's
+# own one call, by the calls' times on an NVIDIA H100 80GB HBM3 at 700 W
+# (`python3 -m mplc_tpu_torch.obs.width_parity --cost-only`): Titanic's
+# calls cost the same at any width, so it takes the widest.
 MNIST_CNN = Model("mnist_cnn", _mnist_init, _mnist_apply, "categorical", 10,
-                  Adam(1e-3), eval_row_bytes=24 * 24 * 64 * 4)
+                  Adam(1e-3), eval_row_bytes=24 * 24 * 64 * 4, grad_call_width=20)
 # the reference compiles RMSprop(lr=1e-4, decay=1e-6), whose Keras decay is
 # a learning-rate schedule; the JAX package drops it, as does the port
 CIFAR10_CNN = Model("cifar10_cnn", _cifar_init, _cifar_apply, "categorical", 10,
                     RMSprop(1e-4, decay=0.9, eps=1e-7), dropout=CIFAR10_DROPOUT,
-                    eval_row_bytes=32 * 32 * 32 * 4)
+                    eval_row_bytes=32 * 32 * 32 * 4, grad_call_width=20)
 IMDB_CONV1D = Model("imdb_conv1d", _imdb_init, _imdb_apply, "binary", 1, Adam(1e-3),
-                    dropout=IMDB_DROPOUT, eval_row_bytes=IMDB_SEQ_LEN * 32 * 4)
+                    dropout=IMDB_DROPOUT, eval_row_bytes=IMDB_SEQ_LEN * 32 * 4,
+                    grad_call_width=12)
 ESC50_CNN = Model("esc50_cnn", _esc50_init, _esc50_apply, "categorical", 50, Adam(1e-3),
-                  dropout=ESC50_DROPOUT, eval_row_bytes=39 * 430 * 16 * 4)
+                  dropout=ESC50_DROPOUT, eval_row_bytes=39 * 430 * 16 * 4,
+                  grad_call_width=8)
 TITANIC_LOGREG = Model("titanic_logreg", _titanic_init, _titanic_apply,
-                       "binary", 1, Adam(5e-2), eval_row_bytes=TITANIC_NUM_FEATURES * 4)
+                       "binary", 1, Adam(5e-2), eval_row_bytes=TITANIC_NUM_FEATURES * 4,
+                       grad_call_width=160)
 
 MODELS = {"mnist_cnn": MNIST_CNN, "cifar10_cnn": CIFAR10_CNN,
           "imdb_conv1d": IMDB_CONV1D, "esc50_cnn": ESC50_CNN,

@@ -105,25 +105,33 @@ class MultiPartnerLearning:
         self.use_saved_weights = scenario.use_saved_weights
         self.epoch_count = scenario.epoch_count
         self.minibatch_count = scenario.minibatch_count
+        self.gradient_updates_per_pass_count = scenario.gradient_updates_per_pass_count
         self.is_early_stopping = scenario.is_early_stopping
         self.aggregation_method = scenario.aggregation_name
         self.is_save_data = False
         self.save_folder = scenario.save_folder
+        self.compute_dtype = scenario.compute_dtype
+        self.seed = scenario.seed
         self.__dict__.update((k, v) for k, v in kwargs.items() if k in ALLOWED_PARAMETERS)
 
         self.partners_list = sorted(self.partners_list, key=lambda p: p.id)
         self.device = scenario.device
-        self.seed = scenario.seed
+        self.val_data = (self.dataset.x_val, self.dataset.y_val)
+        self.test_data = (self.dataset.x_test, self.dataset.y_test)
         self.dataset_name = self.dataset.name
         self.model = self.dataset.model
+        # the epochs the fit ran (early stopping included) and the
+        # reference's minibatch counter, which no approach advances
+        self.epoch_index = 0
+        self.minibatch_index = 0
         self.cfg = TrainConfig(
             approach=self.approach_key,
             aggregator=self.aggregation_method,
             epoch_count=self.epoch_count,
             minibatch_count=self.minibatch_count,
-            gradient_updates_per_pass=scenario.gradient_updates_per_pass_count,
+            gradient_updates_per_pass=self.gradient_updates_per_pass_count,
             is_early_stopping=self.is_early_stopping,
-            compute_dtype=scenario.compute_dtype,
+            compute_dtype=self.compute_dtype,
         )
         self.trainer = MplTrainer(self.model, self.cfg)
         self.history = History([p.id for p in self.partners_list],
@@ -183,6 +191,7 @@ class MultiPartnerLearning:
         _, test_acc = self.trainer.finalize(state, test)
         run = state.row(0)
         self.model_params = run.params
+        self.epoch_index = state.epoch
         self.history.fill_from_state(
             [p.id for p in self.partners_list], run.val_loss_h,
             run.val_acc_h, run.partner_h, run.nb_epochs_done,

@@ -86,7 +86,10 @@ weights and the recorded deltas stay float32 in every mode.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
+import logging
 from typing import NamedTuple
 
 import torch
@@ -97,6 +100,8 @@ from ..models.core import Model
 from ..ops.aggregation import AGGREGATOR_NAMES, aggregate, aggregation_weights
 from ..ops.metrics import masked_loss_and_metrics
 from . import dropout as drop_masks
+
+logger = logging.getLogger("mplc_tpu_torch")
 
 APPROACH_NAMES = ("fedavg", "seq-pure", "seq-with-final-agg", "seqavg", "lflip", "single")
 SEQ_APPROACHES = ("seq-pure", "seq-with-final-agg", "seqavg")
@@ -172,13 +177,11 @@ class TrainConfig:
     # fedavg (masked or on slots) and the single trainer only.
     partner_drop_epochs: tuple | None = None
     partner_straggler_delays: tuple | None = None
-    # runs whose models share a gradient call (None: all of a step's runs
-    # at once; `MplTrainer._model_grads`). The coalition engine sets it
-    # for a batch re-run at a width narrower than its call's first: padded
-    # to that width, each call holds the model count it first had, so the
-    # coalitions train the same bits (on the card cuDNN's backward
-    # algorithms follow a call's model count)
-    grad_runs: int | None = None
+    # every gradient call holds exactly `model.grad_call_width` models
+    # (`MplTrainer._model_grads`): the coalition engine's trainers, whose
+    # step widths vary with the batch; False (the fit, the recording): a
+    # step's models in one call
+    fixed_call_width: bool = False
 
     def __post_init__(self):
         if self.deterministic_reduce is None:
@@ -393,6 +396,13 @@ class MplTrainer:
         self.cfg = cfg
         self._grads = vmap(grad_and_value(self._loss_fn, has_aux=True))
         self._model_sums = vmap(self._chunk_sums, in_dims=(0, None, None, None))
+        # when a list, every gradient and forward call of the model appends
+        # its (kind, models, rows): a batch's FLOP count (`call_flops`)
+        self.call_log: list | None = None
+
+    def _log_call(self, kind: str, models: int, rows: int) -> None:
+        if self.call_log is not None:
+            self.call_log.append((kind, int(models), int(rows)))
 
     # ------------------------------------------------------------------
     # state init
@@ -473,6 +483,7 @@ class MplTrainer:
         ls = cs = cnt = 0.0
         for cx, cy, cm in zip(ev.x, ev.y, ev.mask):
             for s in range(0, cx.shape[0], rows):
+                self._log_call("eval", B, min(rows, cx.shape[0] - s))
                 l, a, c = self._model_sums(params_b, cx[s:s + rows],
                                            cy[s:s + rows], cm[s:s + rows])
                 ls, cs, cnt = ls + l, cs + a, cnt + c
@@ -620,18 +631,19 @@ class MplTrainer:
         loss, acc, cnt = (join(*ts) for ts in zip(*((o[1][0],) + o[1][1] for o in outs)))
         return grads, (loss, (acc, cnt))
 
-    def _model_grads(self, params, x, y, m, drop, per_run: int = 1):
-        """`_grads` of N models (run-major, `per_run` models a run), in
-        calls of exactly `cfg.grad_runs` runs' models when it is set: the
-        last call is padded with copies of its first model, whose results
-        are dropped. On the card cuDNN picks a convolution's backward
-        algorithm by the number of models in a call, so with one call of
-        all N models a model's gradient would depend on how many models its
-        batch holds."""
+    def _model_grads(self, params, x, y, m, drop):
+        """`_grads` of N models, under `cfg.fixed_call_width` in calls of
+        exactly `model.grad_call_width` models (the last padded with
+        copies of its first model, whose results are dropped), else in
+        one call. On the card cuDNN picks a convolution's backward
+        algorithm by a call's shape, so with calls of one width a model's
+        gradient does not depend on how many models its batch holds."""
         N = x.shape[0]
-        if self.cfg.grad_runs is None:
+        M = self.model.grad_call_width if self.cfg.fixed_call_width else N
+        for _ in range(0, N, M):
+            self._log_call("grad", M, x.shape[1])
+        if M == N:
             return self._grads(params, x, y, m, drop)
-        M = self.cfg.grad_runs * per_run
 
         def take(t, s):
             n = min(M, N - s)
@@ -655,9 +667,8 @@ class MplTrainer:
         [N, sb, ...] a layer) of `batches`. Returns (params, opt_state,
         mean loss [N], mean accuracy [N]) over the steps. Under the
         deterministic reduce, `columns` W computes the gradients a column
-        of the run-major [B, W] models at a time (`_column_grads`); the
-        calls hold `cfg.grad_runs` runs' models each where it is set
-        (`_model_grads`)."""
+        of the run-major [B, W] models at a time (`_column_grads`); either
+        way the calls are `_model_grads`'."""
         opt = self.model.optimizer
         loss_sum = acc_sum = cnt_sum = 0.0
         by_column = columns is not None and self.cfg.deterministic_reduce
@@ -665,8 +676,7 @@ class MplTrainer:
             if by_column:
                 grads, (loss, (acc, cnt)) = self._column_grads(params, x, y, m, drop, columns)
             else:
-                grads, (loss, (acc, cnt)) = self._model_grads(params, x, y, m, drop,
-                                                              columns or 1)
+                grads, (loss, (acc, cnt)) = self._model_grads(params, x, y, m, drop)
             params, opt_state = opt.step(params, grads, opt_state)
             loss_sum = loss_sum + loss * cnt
             acc_sum = acc_sum + acc * cnt
@@ -714,6 +724,7 @@ class MplTrainer:
         y = stacked.y[rows, idx]
         start = _tree_map(lambda t: t[:, None].expand((B, W) + t.shape[1:])
                           .reshape((B * W,) + t.shape[1:]), params)
+        self._log_call("eval", B * W, mb_cap)
         with torch.no_grad():
             logits = vmap(lambda p, xb: self.model.apply(p, xb, self.cfg.dtype))(start, x)
             preds = torch.softmax(logits.float(), dim=-1).reshape(B, W, mb_cap, -1)
@@ -1085,3 +1096,52 @@ class MplTrainer:
     def finalize(self, state: TrainState, test: EvalSet) -> tuple[torch.Tensor, torch.Tensor]:
         """([B] test_loss, [B] test_accuracy) of the final global models."""
         return self.evaluate_models(state.params, test)
+
+
+def call_flops(model: Model, calls: list, x_like: torch.Tensor) -> float | None:
+    """The FLOPs of a batch's logged calls (`MplTrainer.call_log`): each
+    distinct (kind, models, rows) counted once a process (`_count_call`),
+    rows shaped and typed as `x_like` [..., rows, features...]; a "grad"
+    call is `_grads` (forward and backward), an "eval" call the model's
+    forward. None when a call cannot be counted."""
+    feat, dtype = tuple(x_like.shape[2:]), x_like.dtype
+    total = 0.0
+    for (kind, models, rows), n in collections.Counter(calls).items():
+        try:
+            one = _count_call(model, kind, rows, feat, dtype)
+        except Exception as e:  # noqa: BLE001 - a count is optional
+            logger.warning("FLOP count of a %s call of %s failed: %s", kind, model.name, e)
+            return None
+        if one is None:
+            return None
+        total += n * models * one
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def _count_call(model: Model, kind: str, rows: int, feat: tuple,
+                dtype: torch.dtype) -> float | None:
+    """One model's call of `rows` rows, counted by `FlopCounterMode` on meta
+    tensors (obs/devcost.py `count_flops`: no device work). A call of N
+    models is N times it: every model of a call does the same work, and
+    vmap runs the models' convolutions as one grouped convolution, whose
+    backward the counter counts as if it were ungrouped (the weight
+    gradient's count grows with the groups, the MNIST CNN's 2.5-fold at 6
+    models)."""
+    from ..obs import devcost
+    tr = MplTrainer(model, TrainConfig(epoch_count=1, minibatch_count=1,
+                                       gradient_updates_per_pass=1))
+    meta = torch.device("meta")
+    one = _tree_map(lambda t: t.to(meta)[None], model.init(torch.Generator().manual_seed(0)))
+    L = model.label_dim()
+    if kind == "grad":
+        x = torch.empty((1, rows) + feat, dtype=dtype, device=meta)
+        drop = tuple(torch.empty((1, rows) + s, dtype=torch.bool, device=meta)
+                     for _, s in model.dropout)
+        fn = lambda: tr._grads(one, x, torch.empty((1, rows, L), device=meta),  # noqa: E731
+                               torch.empty((1, rows), device=meta), drop)
+    else:
+        x = torch.empty((rows,) + feat, dtype=dtype, device=meta)
+        fn = lambda: tr._model_sums(one, x, torch.empty((rows, L), device=meta),  # noqa: E731
+                                    torch.empty((rows,), device=meta))
+    return devcost.count_flops(fn)[1]

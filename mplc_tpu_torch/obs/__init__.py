@@ -2,7 +2,9 @@
 metrics registry (`metrics`), sweep reports (`report`), Chrome-trace
 conversion (`chrome_trace`), the crash flight recorder (`flight`) and a
 summary of `torch.profiler` device traces (`analyze_trace`); beside them
-the value ledger's drift diff (`numerics`) and the measurement scripts.
+device cost (`devcost`: fences, FLOP counts, the device-seconds meter),
+the numerics plane (`numerics`: the value ledger, drift diffs, the
+reduction audit) and the measurement scripts.
 
 `trace`, `metrics`, `report`, `chrome_trace` and `flight` need nothing
 beyond the stdlib and add no device sync to the paths they instrument.

@@ -9,16 +9,18 @@ the Chrome trace-event format (the JSON object form, `{"traceEvents":
   - every record becomes a complete ("X") slice on a per-thread track
     (`pid` 1, `tid` = the recording thread id, named with "M" metadata
     events); zero-duration events are widened to 1 us so they render and
-    can anchor flows. Sampled device fences (`engine.device_fence`, which
-    the port does not emit yet) go to a "device" process track (pid 2);
+    can anchor flows. Sampled device fences (`engine.device_fence`,
+    obs/devcost.py: the batch's device seconds between CUDA events) go to
+    a "device" process track (pid 2), so measured device time stands
+    apart from the host spans;
   - timestamps are rebased to the trace's first record, in microseconds;
   - FLOW events (ph "s"/"f") link the recovery records to the work they
     recovered: `engine.retry` / `engine.fault` to the next `engine.batch`
     of the same ordinal on the same thread, `engine.degrade` to the next
     batch on the thread, `service.job_fault` to the job's next
-    `service.slice`. The port emits none of these yet (ROADMAP.md, queue 1
-    items 6 and 9); the converter keeps the JAX package's rules so that
-    it reads either package's trace the same way.
+    `service.slice`. The port emits all but the last (the service is
+    ROADMAP.md queue 1 item 9); the converter keeps the JAX package's
+    rules so that it reads either package's trace the same way.
 
 `read_jsonl` tolerates torn lines (a process killed mid-append), counting
 and reporting them.

@@ -39,6 +39,13 @@ Metric names the port's instrumented paths use (the JAX package's names):
     engine.pad_waste_fraction         histogram per-batch padding share
     engine.device_mem_high_water_bytes gauge   peak bytes allocated on the
                                                engine's CUDA device
+    engine.device_step_sec            histogram a fenced batch's device
+                                               seconds (obs/devcost.py)
+    numerics.ledger_records           counter  v(S) written to the value
+                                               ledger
+    numerics.audits                   counter  reduction audits run
+    numerics.drift_events             counter  audits whose executed
+                                               reduction diverged
     obs.memory_sample_errors          counter  sample_device_memory failures
                                                (warned once)
     obs.flight_dumps                  counter  flight-recorder postmortems

@@ -90,6 +90,18 @@ SPAN_REGISTRY = {
                       "cpu_fallback/ladder_exhausted, halvings)",
     "engine.fault": "injected fault fired (MPLC_TORCH_FAULT_PLAN; attrs: "
                     "kind/site/ordinal)",
+    "engine.device_fence": "sampled device fence: a batch's device seconds "
+                           "between CUDA events recorded before its "
+                           "dispatch and after its last queued work (attrs: "
+                           "ordinal/width/slot_count/coalitions/interval)",
+    "numerics.audit": "reduction audit of one coalition (attrs: subset/"
+                      "rounds/executed/max_ulp/first_round/first_leaf/"
+                      "reduction_mode)",
+    "numerics.drift": "the executed partner reduction diverged from the "
+                      "left-to-right fold (attrs: subset/round/leaf/"
+                      "executed/max_ulp); also a flight dump",
+    "numerics.ledger": "value ledger saved (attrs: path/entries/"
+                       "reduction_mode)",
     "trainer.compile": "nvcc build of one CUDA source (fn: the source's "
                        "name; dur: the compiler's seconds)",
     "recon.record": "grand-coalition recording run (retrain-free)",

@@ -174,6 +174,8 @@ class Scenario:
             raise ValueError(
                 f"aggregation approach '{aggregation_weighting}' is not a valid "
                 f"approach. Supported: {AGGREGATOR_NAMES}") from None
+        # the reference stores a class here, the JAX package the name
+        self.aggregation = self.aggregation_name
 
         self.epoch_count = epoch_count
         self.minibatch_count = minibatch_count

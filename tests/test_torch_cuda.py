@@ -3,7 +3,8 @@ retraining sweep, SVARM, seqavg, lflip, the partner fault plan, fused
 wide steps, dropout masks and the CIFAR10 and ESC50 CNNs' training forward
 passes against the CPU, fp32 reproducibility (the IMDB model's embedding
 gradient too), the CLI's Titanic grid against the CPU's, and the
-retrain-free path traced and profiled on the card.
+retrain-free path traced and profiled on the card, and every model's
+gradients at every step width (the gradient-call width rule).
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -519,3 +520,55 @@ def test_titanic_traced_and_profiled_on_the_card_matches_the_cpu(cuda, tmp_path)
     k1 = [k for n, k in analyze_trace.summarize(prof.path)["kernels"].items()
           if "recon_matmul_kernel" in n]
     assert sum(k["count"] for k in k1) == launched
+
+
+# each model's step rows in its `chip_smoke.py` scenario (the multi
+# trainer's, obs/width_parity.py), and another row count
+WIDTH_ROWS = {"mnist_cnn": 45, "cifar10_cnn": 38, "imdb_conv1d": 113, "esc50_cnn": 8,
+              "titanic_logreg": 49}
+OTHER_ROWS = 17
+WIDTH_SHAPES = {"mnist_cnn": (28, 28, 1), "cifar10_cnn": (32, 32, 3), "imdb_conv1d": (500,),
+                "esc50_cnn": (40, 431, 1), "titanic_logreg": (27,)}
+
+
+@pytest.mark.parametrize("other_rows", [False, True])
+@pytest.mark.parametrize("name", sorted(WIDTH_ROWS))
+def test_gradients_do_not_depend_on_the_step_width_on_the_card(cuda, name, other_rows):
+    """The gradient-call width rule on the card: a step of N = 1..20 or 41
+    models (model j from the (j mod 4)-th initial parameter set) gives
+    every model the gradient bits it gets in a step of one, under the
+    card's deterministic mode, at the model's scenario rows and at
+    another row count."""
+    from mplc_tpu_torch.mpl.engine import MplTrainer, TrainConfig
+    from mplc_tpu_torch.utils import resolve_device
+    resolve_device("cuda")
+    model = tzoo.MODELS[name]
+    tr = MplTrainer(model, TrainConfig(epoch_count=1, minibatch_count=1,
+                                       gradient_updates_per_pass=1, fixed_call_width=True))
+    rows, L = (OTHER_ROWS if other_rows else WIDTH_ROWS[name]), model.label_dim()
+    g = torch.Generator().manual_seed(2)
+    inits = [model.init(g) for _ in range(4)]
+    if name == "imdb_conv1d":
+        x = torch.randint(0, tzoo.IMDB_NUM_WORDS, (rows,) + WIDTH_SHAPES[name], generator=g,
+                          dtype=torch.int32)
+    else:
+        x = torch.rand((rows,) + WIDTH_SHAPES[name], generator=g)
+    y = torch.nn.functional.one_hot(torch.randint(0, model.num_outputs, (rows,), generator=g),
+                                    model.num_outputs).float().reshape(rows, -1)[:, :L]
+    x, y, m = x.to(cuda), y.to(cuda), torch.ones(rows, device=cuda)
+
+    def grads(idx):
+        n = len(idx)
+        p = {k: {q: torch.stack([inits[i][k][q] for i in idx]).to(cuda) for q in inits[0][k]}
+             for k in inits[0]}
+        drop = tuple(torch.ones((n, rows) + s, dtype=torch.bool, device=cuda)
+                     for _, s in model.dropout)
+        return tr._model_grads(p, x.expand((n,) + x.shape), y.expand(n, rows, L),
+                               m.expand(n, rows), drop)[0]
+    solo = [grads([i]) for i in range(4)]
+    for n in list(range(1, 21)) + [41]:
+        got = grads([j % 4 for j in range(n)])
+        for j in range(n):
+            for k in got:
+                for q in got[k]:
+                    assert torch.equal(got[k][q][j], solo[j % 4][k][q][0]), (n, j, k, q)

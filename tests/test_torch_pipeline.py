@@ -263,62 +263,65 @@ def test_eval_chunk_knob_is_read_at_import():
 
 
 def test_gradient_calls_hold_a_fixed_model_count():
-    """`TrainConfig.grad_runs`: a step's N models in calls of exactly M
-    (the last padded with copies of its first model, their results
-    dropped) give each model the gradients of an unsplit call (Titanic's
-    dense model, whose per-model arithmetic is the same in any call here),
-    and the engine's trainers take a step's runs in one call."""
+    """`TrainConfig.fixed_call_width`: a step's N models in calls of
+    exactly M = `Model.grad_call_width` (the last padded with copies of
+    its first model, their results dropped) give each model the
+    gradients of an unsplit call (Titanic's dense model at M = 3, whose
+    per-model arithmetic is the same in any call of two or more models
+    here), and the engine's trainers take the rule."""
     import dataclasses
 
     from mplc_tpu_torch.models import zoo
     from mplc_tpu_torch.mpl.engine import MplTrainer, TrainConfig
 
     cfg = TrainConfig(epoch_count=1, minibatch_count=1, gradient_updates_per_pass=1)
-    whole = MplTrainer(zoo.TITANIC_LOGREG, cfg)
-    split = MplTrainer(zoo.TITANIC_LOGREG, dataclasses.replace(cfg, grad_runs=3))
+    model = dataclasses.replace(zoo.TITANIC_LOGREG, grad_call_width=3)
+    whole = MplTrainer(model, cfg)
+    split = MplTrainer(model, dataclasses.replace(cfg, fixed_call_width=True))
     g = torch.Generator().manual_seed(0)
-    trees = [zoo.TITANIC_LOGREG.init(g) for _ in range(7)]
+    trees = [model.init(g) for _ in range(7)]
     params = {k: {n: torch.stack([t[k][n] for t in trees]) for n in trees[0][k]}
               for k in trees[0]}
     x = torch.rand(7, 20, 27, generator=g)
     y = (torch.rand(7, 20, 1, generator=g) > 0.5).float()
     m = torch.ones(7, 20)
+    split.call_log = []
     (ga, (la, (aa, ca))), (gb, (lb, (ab, cb))) = (
         tr._model_grads(params, x, y, m, ()) for tr in (whole, split))
+    assert split.call_log == [("grad", 3, 20)] * 3
     for k in ga:
         for n in ga[k]:
             assert ga[k][n].shape == gb[k][n].shape
             assert torch.equal(ga[k][n], gb[k][n]), (k, n)
     assert all(torch.equal(a, b) for a, b in ((la, lb), (aa, ab), (ca, cb)))
     eng = CharacteristicEngine(scenario())
-    assert eng._multi_cfg.grad_runs is None
-    assert eng._slot_pipe(3).trainer.cfg.grad_runs is None
-    # a pass of 2 slot models a run: 7 runs in calls of 3 runs (6 models)
-    cols = split._model_grads({k: {n: torch.cat([t, t]) for n, t in d.items()}
-                               for k, d in params.items()},
-                              torch.cat([x, x]), torch.cat([y, y]), torch.cat([m, m]), (), 2)
-    assert torch.equal(cols[0]["d1"]["w"][:7], ga["d1"]["w"])
+    assert eng._multi_cfg.fixed_call_width
+    assert eng._slot_pipe(3).trainer.cfg.fixed_call_width
 
 
 def test_a_narrower_rerun_pads_its_gradient_calls_to_the_first_width(monkeypatch):
     """At cap 4: the singles (batch 1) and the width-3 slot bucket's 10
     coalitions (batches 2-4) at width 4, then the width-4 bucket's one.
     Batch 3's harvest OOMs: its 4 coalitions run again at width 2, as does
-    the rest of the call, each batch's gradient calls padded to the call's
-    first width, 4; the next call starts at its own width and pads nothing.
-    Values bit-equal to the clean run."""
+    the rest of the call. Every gradient call of every batch, the re-runs
+    included, holds the model's call width (`Model.grad_call_width`), so
+    the values are bit-equal to the clean run."""
     monkeypatch.setenv(constants.COALITIONS_PER_DEVICE_ENV, "4")
     clean, _ = sweep(monkeypatch)
     monkeypatch.setenv(constants.FAULT_PLAN_ENV, "oom@harvest3")
     eng = CharacteristicEngine(scenario())
-    seen = []
+    seen, calls = [], []
     for pipe in [eng.single_pipe] + [eng._slot_pipe(k) for k in (3, 4)]:
         inner = pipe.dispatch_async
 
         def dispatch_async(coal, *a, inner=inner, **kw):
-            seen.append((coal.shape[0], a[7] if len(a) > 7 else kw.get("grad_runs")))
-            return inner(coal, *a, **kw)
+            seen.append(coal.shape[0])
+            out = inner(coal, *a, **kw)
+            calls.extend(a[7] if len(a) > 7 else kw.get("call_log") or [])
+            return out
         pipe.dispatch_async = dispatch_async
     np.testing.assert_array_equal(eng.evaluate(SUBSETS), clean)
-    assert seen == [(4, None), (4, None), (4, None), (2, 4), (2, 4), (2, 4), (1, None)]
-    assert eng._slot_pipe(3)._padded[4].cfg.grad_runs == 4
+    assert seen == [4, 4, 4, 2, 2, 2, 1]
+    M = eng.model.grad_call_width
+    grads = [c for c in calls if c[0] == "grad"]
+    assert grads and all(models == M for _, models, _ in grads)
