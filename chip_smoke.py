@@ -256,7 +256,44 @@ Phases, each of which fails the script (non-zero exit, no result line):
    audit-off request, one audit, replayed at that batch's [1, 5] shape,
    whose `torch.sum` parts from the left-to-right fold (first divergence
    and max ulp printed); under MPLC_TORCH_DETERMINISTIC_REDUCE=1 the
-   audit finds no divergence (`ordered_fold`).
+   audit finds no divergence (`ordered_fold`);
+23. live: the live contributivity tier (mplc_tpu_torch/live/), with
+   MPLC_TORCH_COMPILE_CACHE_DIR set to a temporary folder for the whole
+   phase. (a) `LiveGame.from_recording` on the slice's scenario (bench
+   config 8's shape, no journal), K1's counts reset after the recording:
+   `query("exact")` launches K1 (K1-bf16 not) and its 1023 v(S) and
+   scores are bit-equal to [slice]'s. (b) On a twin of that game (its own
+   evaluator): GTG-Shapley (sv_accuracy 1.0, min_iter 16, perm_batch 8,
+   truncation 0) fresh, then warm (no K1 launch, no engine batch, one memo
+   hit, the same scores); an all-zero-weight round appended (the stamp
+   and the memo kept); the 20 rounds cycled to 40 (K = 400) and a fresh
+   query that launches K1 and sums to v(N) within 1e-6; rounds, fresh
+   seconds, warm milliseconds, evaluations and K1's launches by width
+   printed for both points; the doubled fresh query's time broken down
+   into the host half of the stream swap, its upload and flatten onto the
+   card, K1, the evaluation and the rest. (c) K1 on that K = 400 stream against its
+   plain version, timed (the kernels line's `recon_matmul[live K=400]`,
+   whose launches are (a)'s and (b)'s, the live main path's).
+   (d) DPVS, each query on a fresh twin: tau 0 reconstructs the powerset
+   and is bit-equal to [slice]'s exact v(S) and scores; a tau from the
+   game's own info scores that prunes its lowest partner: fewer
+   evaluations than 1023 and the pruned partners' scores exactly 0.
+   (e) Bench config 10's shape on Titanic (5 partners, 6 rounds): 32
+   journal-backed games under `residency.configure(8)`, 8 of them evicted,
+   restored and queried exact, each bit-equal to a never-evicted game's
+   answer (scores and every v(S)); a kill -> restart on one WAL and a WAL
+   with a torn tail (quarantined to `.torn`) bit-equal too; restore
+   p50/p99, evictions and restores printed; one WAL reopened on an engine
+   built under MPLC_TORCH_PRECISION=bf16: K1-bf16 launches, K1 not, every
+   coalition evaluated anew, |dv(N)| and the median |dv| within 0.05. (f)
+   A 20-partner Titanic game: after a metered GTG query, `query("auto")`
+   with a deadline of twice the grouped sweep's metered cost plans
+   "hierarchical" on the "meter" basis, its scores summing to v(N) within
+   1e-6. (g) The kernels built into the temporary folder under their
+   digest names (a second build builds nothing); the bank's manifest lists
+   (a)-(b)'s reconstruction programs with FLOPs; a meterless engine
+   plans on "bank_cost_model"; with MPLC_TORCH_PROGRAM_BANK=0 a twin of
+   (a)'s game gives (a)'s values bit for bit and records no program.
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -288,6 +325,7 @@ import numpy as np  # noqa: E402
 import pandas as pd  # noqa: E402
 import torch  # noqa: E402
 
+from mplc_tpu_torch.contrib import bank  # noqa: E402
 from mplc_tpu_torch.contrib.contributivity import Contributivity  # noqa: E402
 from mplc_tpu_torch.contrib.engine import CharacteristicEngine  # noqa: E402
 from mplc_tpu_torch.contrib.planner import estimate_eval_seconds, plan_query  # noqa: E402
@@ -295,6 +333,7 @@ from mplc_tpu_torch.contrib.reconstruct import (ReconstructionEvaluator,  # noqa
                                                 record_updates)
 from mplc_tpu_torch.contrib.shapley import powerset_order  # noqa: E402
 from mplc_tpu_torch import constants, faults  # noqa: E402
+from mplc_tpu_torch.live import LiveGame, hierarchy, residency  # noqa: E402
 from mplc_tpu_torch.data.datasets import (Dataset, load_cifar10, load_mnist,  # noqa: E402
                                           load_titanic, with_held_out_test)
 from mplc_tpu_torch.obs import (analyze_trace, chrome_trace, devcost, flight,  # noqa: E402
@@ -304,6 +343,7 @@ from mplc_tpu_torch.mpl import approaches  # noqa: E402
 from mplc_tpu_torch.mpl.engine import MplTrainer, upload  # noqa: E402
 from mplc_tpu_torch.ops import cuda_build, recon_kernel  # noqa: E402
 from mplc_tpu_torch.scenario import Scenario  # noqa: E402
+from mplc_tpu_torch import utils  # noqa: E402
 from mplc_tpu_torch.utils import profile_trace  # noqa: E402
 from mplc_tpu_torch.main import main as cli_main  # noqa: E402
 
@@ -1579,7 +1619,7 @@ def faults_main_path(card) -> dict:
     check_same_recording(rec, record_updates(eng), "faults")
     subsets = powerset_order(PARTNERS)[:63] + [()]
     masks = torch.from_numpy(eng._coalition_arrays(subsets)).to(DEVICE)
-    wn2 = recon_kernel.normalized_round_weights(masks, recon._weights).reshape(64, -1)
+    wn2 = recon_kernel.normalized_round_weights(masks, recon._weights).reshape(len(subsets), -1)
     entry = kernel_entry(recon_kernel.KERNEL, wn2.contiguous(), recon._d2, recon._init,
                          launches, card, timed=False)
     print(f"[faults] {recon_kernel.KERNEL} on the fault-plan stream {entry['shape']}: max abs "
@@ -3154,6 +3194,468 @@ def phase_devcost(sl, sweep: dict, ledgers: Path, card: str) -> dict:
     return path
 
 
+
+# The live phase: the live contributivity tier (live/) on the card. (a)-(d)
+# on bench config 8's shape (the slice's MNIST CNN game, 10 partners, no
+# journal), (e) on bench config 10's (Titanic, 5 partners, 6 rounds a
+# game, journal-backed games under a residency cap), (f) a 20-partner
+# Titanic game past the exact wall, (g) the program bank and the kernel
+# build folder
+LIVE_GTG = dict(sv_accuracy=1.0, min_iter=16, perm_batch=8, truncation=0.0)
+LIVE_GAMES = 32
+LIVE_RESIDENT = 8
+LIVE_SAMPLE = 8
+LIVE_HIER_PARTNERS = 20
+LIVE_EFFICIENCY = 1e-6
+
+
+def k1_counts() -> tuple:
+    """(K1 launches, K1-bf16 launches, K1's launches by width) since the
+    last `k1_reset`."""
+    return (recon_kernel.launches, recon_kernel.launches_bf16,
+            dict(sorted(recon_kernel.launch_widths.items())))
+
+
+def k1_reset() -> None:
+    recon_kernel.launches = recon_kernel.launches_bf16 = 0
+    recon_kernel.launch_widths = {}
+    recon_kernel.launch_widths_bf16 = {}
+
+
+def add_widths(a: dict, b: dict) -> dict:
+    """Launches by width, summed."""
+    return {w: a.get(w, 0) + b.get(w, 0) for w in sorted({*a, *b})}
+
+
+def live_exact(sl) -> dict:
+    """(a) `LiveGame.from_recording` on the slice's scenario (its engine,
+    no journal), K1's counts reset after the recording and read after
+    `query("exact")`: the 1023 v(S) bit-equal to [slice]'s, K1 launched,
+    K1-bf16 not."""
+    eng = sl["recon"].engine
+    check(eng._cap_halvings == 0, "(a) the slice's engine has a halved cap")
+    game = LiveGame.from_recording(eng.scenario, tenant="mnist")
+    k1_reset()
+    t0 = time.perf_counter()
+    r = game.query("exact")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, bf16, widths = k1_counts()
+    values = np.array([game._recon.values[s] for s in powerset_order(PARTNERS)])
+    equal = values.tobytes() == sl["values"].tobytes()
+    print(f"[live] (a) exact over {game.rounds_resident} resident rounds (K = "
+          f"{game._recon._d2.shape[0]}): {wall:.2f} s, {r.evaluations} evaluations, "
+          f"K1 launches {launches} by width {json.dumps(widths)}; {len(values)} v(S) "
+          f"bit-equal to [slice]: {equal}")
+    check(launches > 0, "(a) the live exact query never launched K1")
+    check(bf16 == 0, "(a) the fp32 live query launched K1-bf16")
+    check(r.evaluations == 2 ** PARTNERS - 1, "(a) not every coalition was evaluated")
+    check(equal, "(a) the live game's v(S) differ from [slice]'s exact_reconstructed")
+    check(r.scores.tobytes() == np.asarray(sl["sv"]).tobytes(),
+          "(a) the live exact scores differ from [slice]'s")
+    return {"game": game, "launches": launches, "widths": widths}
+
+
+def live_point(game, tag: str) -> dict:
+    """One point of (b): a fresh GTG query (K1's counts reset just before),
+    then a warm one, which must make no K1 launch and no engine batch,
+    count one memo hit and return the same scores."""
+    k1_reset()
+    t0 = time.perf_counter()
+    fresh = game.query("GTG-Shapley", **LIVE_GTG)
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t0
+    launches, bf16, widths = k1_counts()
+    k1_reset()
+    batches = metrics.counter("engine.batches").value
+    hits = metrics.counter("live.query_memo_hits").value
+    t0 = time.perf_counter()
+    warm = game.query("GTG-Shapley", **LIVE_GTG)
+    warm_s = time.perf_counter() - t0
+    print(f"[live] (b) {tag}: {game.rounds_resident} rounds (K = "
+          f"{game._recon._d2.shape[0]}), fresh {fresh_s:.3f} s, warm "
+          f"{warm_s * 1e3:.3f} ms, {fresh.evaluations} evaluations, K1 launches "
+          f"{launches} by width {json.dumps(widths)}")
+    check(launches > 0 and bf16 == 0, f"(b) the fresh query at {tag} did not launch K1 alone")
+    check(recon_kernel.launches == 0 and recon_kernel.launches_bf16 == 0,
+          "(b) the warm query launched a kernel")
+    check(metrics.counter("engine.batches").value == batches, "(b) the warm query ran a batch")
+    check(metrics.counter("live.query_memo_hits").value == hits + 1,
+          "(b) the warm query was not a memo hit")
+    check(warm.scores.tobytes() == fresh.scores.tobytes(), "(b) warm scores differ")
+    return {"rounds": game.rounds_resident, "fresh_s": fresh_s, "warm_ms": warm_s * 1e3,
+            "evaluations": fresh.evaluations, "launches": launches, "widths": widths,
+            "result": fresh}
+
+
+def twin_game(game, tenant: str, rounds=None) -> "LiveGame":
+    """A journal-less game on `game`'s engine holding `rounds` (default
+    all) of `game`'s history (the same host arrays) and its own evaluator."""
+    twin = LiveGame(game.scenario, tenant=tenant, engine=game.engine)
+    hist = game.round_history()
+    for d, w in hist if rounds is None else hist[:rounds]:
+        twin.append_round(d, w)
+    return twin
+
+
+def live_growth(game) -> dict:
+    """(b) On a twin of (a)'s game (a fresh evaluator): fresh and warm GTG
+    queries at 20 rounds; one all-zero-weight round appended, which keeps
+    the stamp and the memo; the history doubled by cycling it (40 rounds,
+    K = 400) and a fresh query, K1 launched again, its scores summing to
+    v(N) within LIVE_EFFICIENCY."""
+    twin = twin_game(game, "mnist-grow")
+    base = twin.round_history()
+    first = live_point(twin, "recording")
+    stamp = twin.round_stamp
+    P = PARTNERS
+    zero = ({g: {k: np.zeros_like(a) for k, a in d.items()} for g, d in base[0][0].items()},
+            np.zeros(P, np.float32))
+    hits = metrics.counter("live.query_memo_hits").value
+    check(twin.append_round(*zero) == stamp, "(b) an all-zero round moved the stamp")
+    k1_reset()
+    again = twin.query("GTG-Shapley", **LIVE_GTG)
+    check(again is first["result"] and recon_kernel.launches == 0
+          and metrics.counter("live.query_memo_hits").value == hits + 1,
+          "(b) the all-zero round did not keep the memo")
+    for d, w in base:
+        twin.append_round(d, w)
+    grown = live_point(twin, "doubled")
+    v_all = twin._recon.values[tuple(range(P))]
+    gap = abs(float(grown["result"].scores.sum()) - v_all)
+    print(f"[live] (b) doubled: sum of scores - v(N) = {gap:.3g} (bound {LIVE_EFFICIENCY})")
+    check(twin._recon._d2.shape[0] == 2 * len(base) * P, "(b) the doubled stream is not K = 400")
+    check(gap <= LIVE_EFFICIENCY, "(b) the doubled query breaks efficiency")
+    return {"twin": twin, "points": [first, grown],
+            "launches": first["launches"] + grown["launches"],
+            "widths": add_widths(first["widths"], grown["widths"]),
+            "breakdown": live_breakdown(twin, grown)}
+
+
+def live_breakdown(twin, point: dict) -> dict:
+    """(b) Where the doubled fresh query's time goes, each part timed on
+    its own after the query: the host half of the stream swap
+    (`_build_recorded`), the upload and flatten onto the card
+    (`reset_recorded`, synced), then K1 and the evaluation of the
+    reconstructed models at each width the query launched (CUDA events,
+    `cuda_ms`, times its launches there). The rest of the fresh time is
+    the query's host work between launches and its syncs."""
+    recon = twin._recon
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = twin._build_recorded()
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recon.reset_recorded(rec)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    eng, subsets = recon.engine, powerset_order(PARTNERS)
+    k1_ms = eval_ms = 0.0
+    for w, n in point["widths"].items():
+        masks = torch.from_numpy(eng._coalition_arrays(subsets[:w])).to(DEVICE)
+        flat = recon_kernel.reconstruct_flat(masks, recon._init, recon._d2, recon._weights)
+        params = recon_kernel.unflatten(flat, recon._layout)
+        k1_ms += n * cuda_ms(lambda: recon_kernel.reconstruct_flat(
+            masks, recon._init, recon._d2, recon._weights), runs=3, calls=3)
+        with torch.no_grad():
+            eval_ms += n * cuda_ms(lambda: eng.trainer.evaluate_models(params, eng.test),
+                                   runs=3, calls=3)
+    rest_s = point["fresh_s"] - host_s - load_s - (k1_ms + eval_ms) / 1e3
+    out = {"fresh_s": point["fresh_s"], "build_host_s": host_s, "upload_flatten_s": load_s,
+           "k1_s": k1_ms / 1e3, "evaluate_s": eval_ms / 1e3, "rest_s": rest_s,
+           "stream_bytes": recon._d2.numel() * recon._d2.element_size()}
+    print(f"[live] (b) doubled fresh query {point['fresh_s']:.4f} s: host build "
+          f"{host_s:.4f} s, upload and flatten of {out['stream_bytes'] / 2**30:.3f} GiB "
+          f"{load_s:.4f} s, K1 {out['k1_s']:.4f} s, evaluation {out['evaluate_s']:.4f} s, "
+          f"rest {rest_s:.4f} s")
+    check(recon._d2.shape[0] == rec.rounds * PARTNERS,
+          "(b) the rebuilt stream's K is not its rounds' x P")
+    return out
+
+
+def live_kernel(twin, launches: int, widths: dict, card) -> dict:
+    """(c) K1 on the grown game's own K = 400 stream against its plain
+    version, timed: the 64-wide batch of the powerset's first 63 coalitions
+    and the empty one."""
+    recon = twin._recon
+    subsets = powerset_order(PARTNERS)[:63] + [()]
+    masks = torch.from_numpy(recon.engine._coalition_arrays(subsets)).to(DEVICE)
+    wn2 = recon_kernel.normalized_round_weights(masks, recon._weights).reshape(len(subsets), -1)
+    entry = kernel_entry(recon_kernel.KERNEL, wn2.contiguous(), recon._d2, recon._init,
+                         launches, card)
+    entry["name"] = f"{recon_kernel.KERNEL}[live K={recon._d2.shape[0]}]"
+    entry["launches_by_path"] = {"live": launches}
+    entry["launch_widths_live"] = widths
+    print(f"[kernels] {entry['name']} {entry['shape']}: {entry['ms']:.4f} ms (plain "
+          f"{entry['plain_ms']:.4f}, {entry['library']} {entry['library_ms']:.4f}, bound "
+          f"{entry['bound_ms']:.4f} by {entry['bound_by']}), max abs err "
+          f"{entry['max_abs_err']:.3g}, {launches} launches on the live path")
+    check(entry["shape"]["K"] == 400, "(c) the live stream is not K = 400")
+    return entry
+
+
+def live_prune(sl, game) -> None:
+    """(d) DPVS, each query on a fresh twin of (a)'s game (its own
+    evaluator and memo, so the query runs): tau = 0 launches K1 over the
+    whole powerset and is bit-equal to [slice]'s exact v(S) and scores; a
+    tau from the game's own info scores that prunes its lowest partner:
+    fewer evaluations than (a), the pruned partners' scores exactly 0."""
+    zero = twin_game(game, "mnist-prune0")
+    k1_reset()
+    off = zero.query("exact", prune=0.0)
+    launches, _, _ = k1_counts()
+    values = np.array([zero._recon.values[s] for s in powerset_order(PARTNERS)])
+    print(f"[live] (d) tau 0 on a fresh twin: {off.evaluations} evaluations, K1 launches "
+          f"{launches}, v(S) bit-equal to [slice]: {values.tobytes() == sl['values'].tobytes()}")
+    check(launches > 0 and off.evaluations == 2 ** PARTNERS - 1,
+          "(d) the prune=0 query did not reconstruct the powerset")
+    check(off.scores.tobytes() == np.asarray(sl["sv"]).tobytes() and off.pruned_coalitions == 0
+          and values.tobytes() == sl["values"].tobytes(),
+          "(d) prune=0 differs from the unpruned exact query")
+    zero.close()
+    scores = np.sort(game._info_scores())
+    tau = float((scores[0] + scores[1]) / 2 / scores[-1])
+    twin = twin_game(game, "mnist-prune")
+    k1_reset()
+    pruned = twin.query("exact", prune=tau)
+    launches, _, _ = k1_counts()
+    print(f"[live] (d) info scores {np.round(game._info_scores(), 6).tolist()}; tau "
+          f"{tau:.4f} prunes {list(pruned.low_info)}: {pruned.evaluations} evaluations "
+          f"(unpruned 1023), {pruned.pruned_coalitions} coalitions served from a "
+          f"projection, K1 launches {launches}")
+    check(len(pruned.low_info) >= 1, "(d) the tau pruned no partner")
+    check(0 < pruned.evaluations < 2 ** PARTNERS - 1, "(d) pruning did not cut evaluations")
+    check(all(pruned.scores[p] == 0.0 for p in pruned.low_info),
+          "(d) a pruned partner's score is not exactly 0")
+    twin.close()
+
+
+def live_titanic(device: str = DEVICE, partners: int = 5, **kw) -> Scenario:
+    """A Titanic game of `partners` partners split (i+1)/sum, fedavg,
+    data-volume, 3 epochs of 2 minibatches of 2 steps (6 rounds), prepared
+    for an engine."""
+    total = sum(range(1, partners + 1))
+    return prepared(Scenario(partners, [(i + 1) / total for i in range(partners)],
+                             is_dry_run=True, dataset=load_titanic(), epoch_count=3,
+                             minibatch_count=2, gradient_updates_per_pass_count=2,
+                             is_early_stopping=False, seed=0, device=device, **kw))
+
+
+def pctl(xs, q: float) -> float:
+    """The nearest-rank q-quantile."""
+    s = sorted(xs)
+    return s[min(len(s) - 1, max(0, int(np.ceil(q * len(s))) - 1))]
+
+
+def live_residency(work: Path) -> dict:
+    """(e) Bench config 10's shape: a journal-backed seed game recorded on
+    Titanic (5 partners, 6 rounds), whose exact answer is the reference;
+    LIVE_GAMES games on its engine appending its rounds, under a residency
+    cap of LIVE_RESIDENT; LIVE_SAMPLE of them, spread, evicted, restored
+    and queried, each bit-equal to the reference; a kill -> restart on one
+    WAL; a torn tail quarantined; one WAL reopened under bf16."""
+    residency.reset()
+    sc = live_titanic()
+    seed = LiveGame.from_recording(sc, tenant="seed", journal_path=work / "seed.wal")
+    want = seed.query("exact")
+    want_values = dict(seed._recon.values)
+    base = seed.round_history()
+    engine = seed.engine
+    seed.close()
+    residency.configure(LIVE_RESIDENT)
+    games = []
+    try:
+        for i in range(LIVE_GAMES):
+            g = LiveGame(sc, tenant=f"t{i:02d}", engine=engine, journal_path=work / f"t{i}.wal")
+            for d, w in base:
+                g.append_round(d, w)
+            games.append(g)
+        st = residency.stats()
+        check(st["resident"] <= LIVE_RESIDENT and st["evicted"] >= LIVE_GAMES - LIVE_RESIDENT,
+              f"(e) the residency books {st} do not hold the cap")
+        restores = []
+        for gi in sorted({round(j * (LIVE_GAMES - 1) / (LIVE_SAMPLE - 1))
+                          for j in range(LIVE_SAMPLE)}):
+            g = games[gi]
+            g.evict()
+            r = g.query("exact")
+            restores.append(g.last_restore_s)
+            check(r.scores.tobytes() == want.scores.tobytes() and g._recon.values == want_values,
+                  f"(e) game {gi}: evict -> restore -> query differs from never-evicted")
+        # kill -> restart: the process's game is gone, a new one opens its WAL
+        victim = games[-1]
+        victim.close()
+        games[-1] = LiveGame(sc, tenant=victim.tenant, engine=engine, journal_path=victim._journal.path)
+        check(games[-1].query("exact").scores.tobytes() == want.scores.tobytes(),
+              "(e) kill -> restart differs")
+        # a torn tail: a record cut mid-append
+        torn = work / "torn.wal"
+        torn.write_bytes((work / "t0.wal").read_bytes() + b'{"sha256": "00", "rec": {"ty')
+        tg = LiveGame(sc, tenant="torn", engine=engine, journal_path=torn)
+        check((work / "torn.wal.torn").exists() and tg.rounds_resident == len(base),
+              "(e) the torn tail was not quarantined")
+        check(tg.query("exact").scores.tobytes() == want.scores.tobytes(),
+              "(e) the game restored past a torn tail differs")
+        tg.close()
+        st = residency.stats()
+        print(f"[live] (e) {LIVE_GAMES} journaled Titanic games under a cap of "
+              f"{LIVE_RESIDENT}: {st['evictions']} evictions, {st['restores']} restores; "
+              f"restore p50 {pctl(restores, 0.5) * 1e3:.3f} ms, p99 "
+              f"{pctl(restores, 0.99) * 1e3:.3f} ms over {len(restores)} sampled games; "
+              f"kill -> restart and the torn tail bit-equal")
+        bf16 = live_bf16(work / "t0.wal", want_values)
+    finally:
+        for g in games:
+            g.close()
+        residency.reset()
+    return {"restore_p50_ms": pctl(restores, 0.5) * 1e3,
+            "restore_p99_ms": pctl(restores, 0.99) * 1e3,
+            "evictions": st["evictions"], "restores": st["restores"], **bf16}
+
+
+def live_bf16(wal: Path, fp32: dict) -> dict:
+    """One WAL reopened on an engine built under MPLC_TORCH_PRECISION=bf16:
+    K1-bf16 launches (K1 not), no fp32 result is served, and |dv(N)| and
+    the median |dv| stay within BF16_VALUE_BOUND of fp32."""
+    with precision_env("bf16"):
+        sc = live_titanic()
+        g = LiveGame(sc, tenant="bf16", journal_path=wal)
+    try:
+        k1_reset()
+        r = g.query("exact")
+        launches, bf16, _ = k1_counts()
+        P = g.engine.partners_count
+        dv = np.array([g._recon.values[s] - fp32[s] for s in powerset_order(P)])
+        dv_all = abs(g._recon.values[tuple(range(P))] - fp32[tuple(range(P))])
+        med = float(np.median(np.abs(dv)))
+        print(f"[live] (e) bf16 reopen: K1-bf16 launches {bf16}, K1 {launches}; "
+              f"{r.evaluations} evaluations; |dv(N)| {dv_all:.4g}, median |dv| {med:.4g} "
+              f"(bound {BF16_VALUE_BOUND})")
+        check(g.engine._multi_cfg.precision == "bf16", "(e) the reopened engine is not bf16")
+        check(bf16 > 0 and launches == 0, "(e) the bf16 reopen did not launch K1-bf16 alone")
+        check(r.evaluations == 2 ** P - 1, "(e) the bf16 reopen served a memoized answer")
+        check(dv_all <= BF16_VALUE_BOUND and med <= BF16_VALUE_BOUND,
+              "(e) bf16 values part from fp32 past the bound")
+    finally:
+        g.close()
+    return {"launches_bf16": bf16, "bf16_dv_all": dv_all, "bf16_median_dv": med}
+
+
+def live_hierarchical() -> dict:
+    """(f) A LIVE_HIER_PARTNERS-partner Titanic game (equal shares, no
+    journal): a GTG query meters its evaluations, then `query("auto")` with
+    a deadline the meter prices below GTG's budget and above the grouped
+    sweep's must plan "hierarchical" on the "meter" basis; its scores sum
+    to v(N) within LIVE_EFFICIENCY."""
+    n = LIVE_HIER_PARTNERS
+    sc = prepared(Scenario(n, [1.0 / n] * n, is_dry_run=True, dataset=load_titanic(),
+                           epoch_count=2, minibatch_count=2,
+                           gradient_updates_per_pass_count=2, is_early_stopping=False,
+                           seed=0, device=DEVICE))
+    game = LiveGame.from_recording(sc, tenant="wide")
+    game.query("GTG-Shapley", **LIVE_GTG)
+    eval_sec, basis = estimate_eval_seconds(game.engine)
+    k = hierarchy.resolve_clusters(n)
+    deadline = 2 * hierarchy.estimate_evaluations(n, k) * eval_sec
+    k1_reset()
+    t0 = time.perf_counter()
+    r = game.query("auto", deadline_sec=deadline)
+    wall = time.perf_counter() - t0
+    launches, _, widths = k1_counts()
+    v_all = game._recon.values[tuple(range(n))]
+    gap = abs(float(r.scores.sum()) - v_all)
+    print(f"[live] (f) {n} partners, deadline {deadline:.4f} s on the {basis} basis "
+          f"({eval_sec * 1e3:.4f} ms a coalition): plan {r.plan.method} "
+          f"{json.dumps(r.plan.method_kw)}, {r.evaluations} evaluations in {wall:.3f} s, "
+          f"K1 launches {launches}; sum of scores - v(N) = {gap:.3g}")
+    check(basis == "meter", f"(f) the planner priced on {basis}, not the meter")
+    check(r.plan.method == "hierarchical", f"(f) auto planned {r.plan.method}")
+    check(gap <= LIVE_EFFICIENCY, "(f) the hierarchical scores break efficiency")
+    game.close()
+    return {"launches": launches, "widths": widths}
+
+
+def live_bank(sl, game, programs: dict, cache: Path) -> None:
+    """(g) The program bank and the kernel build folder (all under the
+    phase's temporary MPLC_TORCH_COMPILE_CACHE_DIR): the kernels build
+    there under digest names and a second build builds nothing; the
+    manifest lists (a)-(b)'s reconstruction programs (`programs`, key ->
+    width) with their FLOPs; a
+    meterless engine plans on "bank_cost_model"; with the bank off
+    (MPLC_TORCH_PROGRAM_BANK=0) a twin of (a)'s `game` gives (a)'s values
+    bit for bit and records no program."""
+    libs = [cache / cuda_build.library_name(n) for n in recon_kernel.KERNELS]
+    # a kernel this phase loaded first (K1-bf16 in (e), when no earlier
+    # phase did) was built here already
+    missing = sum(not p.exists() for p in libs)
+    builds = metrics.counter("trainer.compiles_total").value
+    t0 = time.perf_counter()
+    cuda_build.build(recon_kernel.KERNELS)
+    built = time.perf_counter() - t0
+    first = int(metrics.counter("trainer.compiles_total").value - builds)
+    cuda_build.build(recon_kernel.KERNELS)
+    second = int(metrics.counter("trainer.compiles_total").value - builds) - first
+    entries = utils.compile_cache_entries(str(cache))
+    print(f"[live] (g) kernel build folder {cache} ({entries} files): "
+          f"{', '.join(p.name for p in libs)}; {first} nvcc runs for the {missing} "
+          f"missing in {built:.2f} s, then {second}")
+    check(all(p.exists() for p in libs) and first == missing and second == 0,
+          "(g) the kernels did not build once under their digest names")
+    doc = json.loads((cache / bank.MANIFEST_NAME).read_text())
+    missing = [k for k in programs if k not in doc["programs"]
+               or not doc["costs"].get(k, {}).get("flops")]
+    print(f"[live] (g) manifest: {len(doc['programs'])} programs, {len(doc['costs'])} with "
+          f"FLOPs; (a)-(b)'s {len(programs)} reconstruction programs (widths "
+          f"{sorted(set(programs.values()))}) listed: {not missing}")
+    check(not missing, f"(g) the manifest lacks programs {missing}")
+    fresh = CharacteristicEngine(live_titanic())
+    eval_sec, basis = estimate_eval_seconds(fresh)
+    print(f"[live] (g) a meterless engine prices {eval_sec * 1e3:.4f} ms a coalition on "
+          f"the {basis} basis")
+    check(basis == "bank_cost_model", f"(g) the meterless engine planned on {basis}")
+    recorded = bank.bank_stats()["programs"]
+    with knob(constants.PROGRAM_BANK_ENV, "0"):
+        off = twin_game(game, "mnist-nobank")
+        off.query("exact")
+    values = np.array([off._recon.values[s] for s in powerset_order(PARTNERS)])
+    check(values.tobytes() == sl["values"].tobytes(), "(g) the bank off changes v(S)")
+    check(bank.bank_stats()["programs"] == recorded, "(g) the disabled bank recorded a program")
+    off.close()
+
+
+def phase_live(sl, card) -> dict:
+    """The live tier, (a)-(g), under a temporary kernel build folder and
+    bank manifest (MPLC_TORCH_COMPILE_CACHE_DIR)."""
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="mplc_live_"))
+    with knob(constants.COMPILE_CACHE_DIR_ENV, str(work / "kernels")):
+        a = live_exact(sl)
+        b = live_growth(a["game"])
+        # the live main path's launches: (a) and (b), the MNIST CNN game's
+        launches = a["launches"] + b["launches"]
+        widths = add_widths(a["widths"], b["widths"])
+        entry = live_kernel(b["twin"], launches, widths, card)
+        live_prune(sl, a["game"])
+        e = live_residency(work)
+        f = live_hierarchical()
+        # (a)-(b)'s programs: (a)'s and the first point's at K = 200 (one
+        # engine digest, one depth), the doubled point's at K = 400
+        keys = a["game"].engine.program_bank.recon_key
+        first, grown = b["points"]
+        programs = {keys(a["game"]._recon, w): w
+                    for w in add_widths(a["widths"], first["widths"])}
+        programs.update({keys(b["twin"]._recon, w): w for w in grown["widths"]})
+        live_bank(sl, a["game"], programs, work / "kernels")
+    for g in (a["game"], b["twin"]):
+        g.close()
+    print(f"[live] points " + json.dumps([{k: v for k, v in p.items() if k != "result"}
+                                          for p in b["points"]]))
+    print(f"[live] doubled fresh query breakdown " + json.dumps(b["breakdown"]))
+    print(f"[live] all parts passed in {time.perf_counter() - t0:.2f} s")
+    return {"launches": launches, "widths": widths, "launches_bf16": e["launches_bf16"],
+            "entry": entry, "residency": e, "hierarchical": f}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3206,6 +3708,7 @@ def main() -> int:
              "ladder": phase_ladder(sl, sweep)}
     rung_free("width", phase_width, sweep)
     paths["devcost"] = rung_free("devcost", phase_devcost, sl, sweep, ledger_dir, card)
+    paths["live"] = rung_free("live", phase_live, sl, card)
     for e in kernels:
         B = e["shape"]["B"]
         if not e["name"].startswith(recon_kernel.KERNEL_BF16):
@@ -3217,10 +3720,11 @@ def main() -> int:
                     sum(n for w, n in path["widths"].items() if w <= B))
                 e[f"launch_widths_{tag}"] = path["widths"]
         else:
-            # K1-bf16 launches on the bf16 main path only (every fp32 path
-            # gates its K1-bf16 launches at 0)
-            e["launches_by_path"] = {"slice bf16": e["launches"],
-                                     **{tag: 0 for tag in ("svarm", *paths)}}
+            # K1-bf16 launches on the bf16 main path and on [live]'s bf16
+            # reopen (every fp32 path gates its K1-bf16 launches at 0)
+            e["launches_by_path"] = {"slice bf16": e["launches"], "svarm": 0,
+                                     **{tag: path.get("launches_bf16", 0)
+                                        for tag, path in paths.items()}}
     kernels += [path["entry"] for path in paths.values() if "entry" in path]
 
     print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")

@@ -347,3 +347,53 @@ DEVICE_FENCE_RATE_ENV = "MPLC_TORCH_DEVICE_FENCE_RATE"
 #                               call that did device work.
 NUMERICS_AUDIT_ENV = "MPLC_TORCH_NUMERICS_AUDIT"
 NUMERICS_LEDGER_ENV = "MPLC_TORCH_NUMERICS_LEDGER"
+
+
+# The program bank and the kernel build folder (contrib/bank.py,
+# ops/cuda_build.py, utils.enable_compile_cache_from_env):
+#   MPLC_TORCH_PROGRAM_BANK        "0" disables the program bank (read when
+#                                  an engine is built and at each acquire).
+#                                  The port's bank records program keys and
+#                                  their counted FLOPs only: eager torch
+#                                  compiles nothing, so a bank on or off
+#                                  never changes a value. Off, nothing is
+#                                  written to a shared folder's manifest and
+#                                  the planner's meterless estimate falls
+#                                  from "bank_cost_model" to "default". The
+#                                  JAX package's bank knob, so one
+#                                  environment sets both packages alike.
+#   MPLC_TORCH_COMPILE_CACHE_DIR   the kernel build folder, shared between
+#                                  checkouts and processes (libraries are
+#                                  named by a digest of their source and
+#                                  nvcc flags), and the folder of the
+#                                  bank's manifest. Unset: `build/kernels`
+#                                  of a writable checkout, else a user
+#                                  cache folder; no manifest.
+PROGRAM_BANK_ENV = "MPLC_TORCH_PROGRAM_BANK"
+COMPILE_CACHE_DIR_ENV = "MPLC_TORCH_COMPILE_CACHE_DIR"
+
+# The live contributivity tier (live/), the JAX package's knobs and
+# defaults; a malformed value warns and falls back:
+#   MPLC_TORCH_LIVE_PRUNE_TAU    DPVS pruning threshold tau in [0, 1], read
+#                                at query time; 0 (default) is off, and
+#                                an out-of-range value warns and turns
+#                                pruning off for the query.
+#   MPLC_TORCH_LIVE_MAX_ROUNDS   resident rounds a game holds (4096), read
+#                                when a game is built: an append past it
+#                                raises LiveGameFull.
+#   MPLC_TORCH_LIVE_MAX_RESIDENT games holding their rounds in memory at
+#                                once (process-wide, live/residency.py,
+#                                read at every admission); past it the
+#                                least recently used journaled game is
+#                                evicted to its WAL. 0/unset: unbounded.
+#   MPLC_TORCH_LIVE_CLUSTERS     cluster count of hierarchical queries
+#                                (live/hierarchy.py; 0/unset: about
+#                                sqrt(P), clamped to 16).
+#   MPLC_TORCH_LIVE_CLUSTER_TAU  partners scoring below tau x the largest
+#                                DPVS score share one tail cluster (0,
+#                                default: no tail cluster).
+LIVE_PRUNE_TAU_ENV = "MPLC_TORCH_LIVE_PRUNE_TAU"
+LIVE_MAX_ROUNDS_ENV = "MPLC_TORCH_LIVE_MAX_ROUNDS"
+LIVE_MAX_RESIDENT_ENV = "MPLC_TORCH_LIVE_MAX_RESIDENT"
+LIVE_CLUSTERS_ENV = "MPLC_TORCH_LIVE_CLUSTERS"
+LIVE_CLUSTER_TAU_ENV = "MPLC_TORCH_LIVE_CLUSTER_TAU"

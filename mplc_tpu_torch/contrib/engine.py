@@ -75,8 +75,13 @@ calls, counted once a shape by `FlopCounterMode` on meta tensors), and
 harvested v(S) with its float path and saves the ledger after each
 `evaluate` that did device work; `MPLC_TORCH_NUMERICS_AUDIT=1` audits the
 partner reduction of up to 4 fenced coalitions through separate capture
-runs. None of it changes a v(S). The program bank is ROADMAP.md queue 1
-item 7b; the 2-D mode's singles path and its ladder exhaustion item 10.
+runs. None of it changes a v(S).
+
+The program bank (contrib/bank.py, `program_bank`; None under
+MPLC_TORCH_PROGRAM_BANK=0): every batch off the CPU rung acquires its
+(slots, width) program, which records the program's key and the batch's
+counted FLOPs and nothing else, so the bank never changes a v(S). The 2-D mode's
+singles path and its ladder exhaustion are ROADMAP.md queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -103,6 +108,7 @@ from ..obs import devcost
 from ..obs import metrics as obs_metrics
 from ..obs import numerics as obs_numerics
 from ..obs import trace as obs_trace
+from .bank import ProgramBank, bank_enabled
 
 logger = logging.getLogger("mplc_tpu_torch")
 
@@ -393,6 +399,11 @@ class CharacteristicEngine:
         self.numerics_ledger = (obs_numerics.ValueLedger(
             self._fingerprint_digest(), meta=self._ledger_meta(), path=path)
             if path else None)
+        # The program bank (contrib/bank.py): the key and counted FLOPs of
+        # every (slots, width) program a batch runs, bookkeeping only (the
+        # JAX engine's exemption of the deterministic reduce guards XLA
+        # compiles, which the port has none of)
+        self.program_bank = ProgramBank(self) if bank_enabled() else None
 
     def _fingerprint_digest(self) -> str:
         """The ledger's engine fingerprint: sha256 of the cache fingerprint
@@ -881,7 +892,7 @@ class CharacteristicEngine:
         meta = {**attrs, "t0": time.perf_counter(), "ordinal": self._batch_ordinal,
                 "kind": "single" if ctx["single"] else "multi", "ensemble": K > 1,
                 "passes_per_mb": ctx["passes_per_mb"],
-                "mb_count": pipe.trainer.cfg.minibatch_count}
+                "mb_count": pipe.trainer.cfg.minibatch_count, "pipe": pipe}
         # the CPU rung's batches are neither fenced nor counted: they run
         # at another rate than the device's
         fence = not degraded and devcost.should_fence(self._batch_ordinal,
@@ -991,6 +1002,9 @@ class CharacteristicEngine:
                             coalitions=n):
             accs, epochs = self._fetch_with_retry(fetch, meta)
         self._maybe_fence(meta)
+        if self.program_bank is not None and not meta.get("degraded"):
+            self.program_bank.acquire(meta["pipe"], slot_count, meta["width"],
+                                      flops=meta.get("flops"))
         # the float path of this batch's ledger entries (cleared after, so
         # a store outside a batch inherits none)
         self._ledger_ctx = {"slot_count": slot_count, "degraded": meta.get("degraded")}
@@ -1152,9 +1166,11 @@ class CharacteristicEngine:
         self._digest = h.hexdigest()[:16]
         return self._digest
 
-    def _fingerprint(self) -> dict:
+    def _fingerprint(self, data_digest: bool = True) -> dict:
         """Everything v(S) depends on, with the JAX engine's keys and the
-        port's random streams."""
+        port's random streams. `data_digest=False` leaves the content hash
+        of the staged data out (None): the program bank's key, which must
+        not copy the data to the host."""
         cfg = self._multi_cfg
         sc = self.scenario
         return {
@@ -1176,7 +1192,7 @@ class CharacteristicEngine:
             "split": [str(sc.samples_split_type), str(sc.samples_split_description)],
             "corruption": [str(c) for c in sc.corrupted_datasets],
             "partner_sizes": [int(s) for s in self.stacked.sizes.tolist()],
-            "data_digest": self._data_digest(),
+            "data_digest": self._data_digest() if data_digest else None,
             "rng_streams": RNG_STREAMS,
         }
 

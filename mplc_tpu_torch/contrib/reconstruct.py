@@ -38,6 +38,16 @@ rung (`RECON_BATCH >> cap_halvings`). The JAX evaluator takes the
 retraining engine's cap (16) instead; 64 keeps K1's widest coalition tile
 (MT = 4) on the main path. A value does not depend on the width.
 
+The live tier (live/game.py) swaps the stream under a resident game:
+`reset_recorded` drops the memo and the old flattened stream, then
+flattens the new one, so K = R*P varies across a live game's life (every
+invalidating append adds P rows, zero-weight rounds are left out) and each
+launch takes K from the stream's shape. A live game's rounds live on the
+host as a list of rounds (`RecordedRun.host_rounds`); the evaluator
+uploads each round's leaves into the flattened stream on the engine's
+device, so the host never stacks or joins them. Its `use_bank` flag acquires each (rounds, width) program from the
+engine's program bank (contrib/bank.py), bookkeeping only.
+
 Precision: the evaluator answers for the engine's frozen mode. Under fp32
 and mixed it reconstructs in fp32 (K1); under bf16 it keeps the flattened
 stream in bf16 only and reconstructs through K1-bf16 (fp32 accumulation),
@@ -61,11 +71,25 @@ from ..ops import recon_kernel
 from .engine import _bucket_size, _memo_counters, _release
 
 
+def _check_not_2d(engine) -> None:
+    """Fail fast: update recording and the 2-D coalition x partner mode are
+    mutually exclusive (the recorded [rounds, partners, ...] stack needs
+    the whole partner axis on one device). `Scenario` already refuses
+    `partner_shards > 1`; this guards an engine built around it."""
+    if int(getattr(engine.scenario, "partner_shards", 1) or 1) > 1:
+        raise ValueError(
+            "update recording (retrain-free GTG-Shapley/SVARM, the live tier) is "
+            "not supported in the 2-D partner-sharded mode (partner_shards > 1): "
+            "the recorded per-partner update stack needs the whole partner axis "
+            "on one device")
+
+
 @dataclasses.dataclass
 class RecordedRun:
     """One grand-coalition training's recorded update stream."""
     init_params: dict        # the run's initial global params
-    deltas: dict             # leaves [R, P, ...]: per-round deltas
+    deltas: dict | None      # leaves [R, P, ...]: per-round deltas (None:
+    #                          `host_rounds` holds them)
     weights: torch.Tensor    # [R, P] normalized aggregation weights
     rounds: int              # R = epoch_count x minibatch_count
     partners_count: int
@@ -73,6 +97,10 @@ class RecordedRun:
     training_passes: int | None  # partner passes paid (None: likewise)
     memory_bytes: int        # recorded-update memory footprint
     final_params: dict | None = None   # the run's final global params
+    # the live tier's form (live/game.py): the R rounds as a list of
+    # per-round dicts of [P, ...] host leaves, flattened straight onto the
+    # engine's device (`recon_kernel.flatten_rounds`), never stacked
+    host_rounds: list | None = None
 
     def describe(self) -> dict:
         return {"rounds": self.rounds, "partners": self.partners_count,
@@ -91,6 +119,7 @@ def record_updates(engine) -> RecordedRun:
     The recording is a batch of the fault
     plan: a transient failure retries it from a fresh generator (the same
     stream); an OOM propagates."""
+    _check_not_2d(engine)
     cfg = dataclasses.replace(engine._multi_cfg, record_updates=True,
                               fixed_call_width=False)
     trainer = MplTrainer(engine.model, cfg)
@@ -152,32 +181,63 @@ def record_updates(engine) -> RecordedRun:
 class ReconstructionEvaluator:
     """Memoizing, batching v(S) over reconstructed coalition models.
 
-    The recorded stream is flattened once to K1's layout (init [Dp],
-    deltas [K = R*P, Dp], rows zero-padded to a multiple of 8 values, in
-    the precision's stream dtype); each batch of up to RECON_BATCH
+    The recorded stream is flattened to K1's layout once a stream (init
+    [Dp], deltas [K = R*P, Dp], rows zero-padded to a multiple of 8 values,
+    in the precision's stream dtype); a live game swaps streams with
+    `reset_recorded`, so K varies across its life and every launch takes
+    it from the stream's shape. Each batch of up to RECON_BATCH
     coalitions (halved by every rung of the engine's OOM ladder) is one
     kernel launch followed by a vmapped evaluation of the batch's models on
     the test set. Values are row-independent, so the batch width never
     changes them (on the card, up to the rounding of the evaluation's
     convolutions at another batch shape)."""
 
+    # the live tier's flag: acquire each (rounds, width) program from the
+    # engine's program bank (bookkeeping only; values do not change)
+    use_bank = False
+
     def __init__(self, engine, recorded: RecordedRun | None = None):
+        _check_not_2d(engine)
         self.engine = engine
         # the engine's frozen precision: every memoized value answers for it
         self.precision = engine._multi_cfg.precision
         self.recorded = recorded if recorded is not None else record_updates(engine)
         self.values: dict[tuple, float] = {(): 0.0}
         self.reconstructions = 0
-        rec = self.recorded
+        self._load_stream(self.recorded)
+
+    def _load_stream(self, rec: RecordedRun) -> None:
+        """Flatten `rec` to K1's layout on the engine's device, from its
+        stacked deltas or a live game's host rounds, uploaded round by
+        round into place."""
         R, P = rec.weights.shape
-        self._init, self._d2, self._layout = recon_kernel.flatten_stream(
-            rec.init_params, rec.deltas, R * P,
-            recon_kernel.stream_dtype(self.precision))
-        self._weights = rec.weights.float()
+        dtype = recon_kernel.stream_dtype(self.precision)
+        dev = self.engine.device
+        if rec.deltas is None:
+            self._init, self._d2, self._layout = recon_kernel.flatten_rounds(
+                rec.init_params, rec.host_rounds, P, dtype, dev)
+        else:
+            self._init, self._d2, self._layout = recon_kernel.flatten_stream(
+                rec.init_params, rec.deltas, R * P, dtype, dev)
+        self._weights = rec.weights.float().to(dev)
+
+    def reset_recorded(self, recorded: RecordedRun) -> None:
+        """Swap in a new recorded stream (the live tier's round-stamp
+        invalidation): the memo derives from the old stream and is dropped
+        to {(): 0.0}; the old flattened stream is freed before the new one
+        is built, so the device never holds both. The engine's ladder state
+        (cap halvings) is kept."""
+        self.recorded = None
+        self._init = self._d2 = self._weights = None
+        self.values = {(): 0.0}
+        self.recorded = recorded
+        self._load_stream(recorded)
 
     def reconstruct(self, masks: torch.Tensor) -> torch.Tensor:
         """[B, Dp] flat parameters of the coalitions `masks` [B, P], in the
         evaluator's precision (the tail past the layout's D is zeros)."""
+        if self.use_bank and self.engine.program_bank is not None:
+            self.engine.program_bank.acquire_recon(self, int(masks.shape[0]))
         return recon_kernel.reconstruct_flat(masks, self._init, self._d2,
                                              self._weights, self.precision)
 

@@ -479,7 +479,7 @@ class MplTrainer:
         models x rows in one forward stay within the model's rows in flight
         (`constants.eval_rows_in_flight`)."""
         B = next(iter(next(iter(params_b.values())).values())).shape[0]
-        rows = max(1, constants.eval_rows_in_flight(self.model.eval_row_bytes) // B)
+        rows = self._eval_rows(B)
         ls = cs = cnt = 0.0
         for cx, cy, cm in zip(ev.x, ev.y, ev.mask):
             for s in range(0, cx.shape[0], rows):
@@ -489,6 +489,18 @@ class MplTrainer:
                 ls, cs, cnt = ls + l, cs + a, cnt + c
         denom = torch.clamp(cnt, min=1.0)
         return ls / denom, cs / denom
+
+    def _eval_rows(self, B: int) -> int:
+        """Rows of one evaluation forward call of B models."""
+        return max(1, constants.eval_rows_in_flight(self.model.eval_row_bytes) // B)
+
+    def eval_calls(self, B: int, ev: EvalSet) -> list:
+        """The (kind, models, rows) calls `evaluate_models` makes for B
+        models on `ev`, as it logs them (`call_log`), without running them."""
+        rows = self._eval_rows(B)
+        n = ev.x.shape[1]
+        return [("eval", B, min(rows, n - s)) for _ in range(ev.x.shape[0])
+                for s in range(0, n, rows)]
 
     def _maybe_val_eval(self, params: dict, val: EvalSet, mb_i: int, es_col: int = 0):
         """The global val (loss, acc) at the start of minibatch `mb_i`, or

@@ -110,6 +110,18 @@ SPAN_REGISTRY = {
     "contrib.plan": "the planner resolved method='auto' (attrs: "
                     "QueryPlan.describe())",
     "mpl.fit": "one multi-partner fit",
+    "live.plan": "the planner resolved method='auto' for a live query "
+                 "(attrs: tenant + QueryPlan.describe())",
+    "live.query": "one live contributivity query (attrs: tenant/method/"
+                  "rounds/stamp/prune_tau/memo_hit/evaluations/pruned)",
+    "live.append": "one aggregation round appended to a resident live "
+                   "game (attrs: tenant/seq/stamp/invalidating)",
+    "live.recover": "journal-restored live game (attrs: tenant/rounds/"
+                    "stamp)",
+    "live.evict": "live game's round stack LRU-evicted to a WAL-backed "
+                  "stub (attrs: tenant/rounds/stamp)",
+    "live.restore": "evicted live game restored from its WAL on touch "
+                    "(attrs: tenant/rounds/stamp/restore_s)",
     "flight.dump": "flight-recorder postmortem written (attrs: reason/"
                    "path/records)",
 }

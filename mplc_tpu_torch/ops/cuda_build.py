@@ -1,9 +1,17 @@
 """Build the port's CUDA sources into shared libraries at first use.
 
 Each `mplc_tpu_torch/csrc/<name>.cu` exposes a plain C entry point and is
-compiled by `nvcc` for `sm_90a` into `build/kernels/lib<name>.so` at the
-root of the checkout (listed in `.gitignore`), then loaded with `ctypes`.
-A library newer than its source is reused. Nothing is built at import.
+compiled by `nvcc` for `sm_90a` into `lib<name>-<digest>.so` in the kernel
+build folder (`build_dir`), then loaded with `ctypes`. The digest covers
+the source's bytes and `NVCC_FLAGS`, so a library is reused exactly when
+it was built from the same source with the same flags: a folder shared by
+checkouts at different revisions never serves one the other's kernel.
+The folder is `MPLC_TORCH_COMPILE_CACHE_DIR` when set
+(`utils.enable_compile_cache_from_env`), else `build/kernels` of the
+checkout (listed in `.gitignore`) when the package sits in a writable
+checkout, else a user cache folder. A build writes to a temporary name and
+renames it into place, so concurrent builds never load a half-written
+library; a failed build raises. Nothing is built at import.
 
 Each source nvcc builds emits a `trainer.compile` trace event (`fn` the
 source's name, `dur` nvcc's seconds) and adds to the `trainer.compiles_total`
@@ -16,6 +24,7 @@ compiles: its trainers run eagerly, with nothing traced or compiled.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -23,10 +32,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from .. import utils
 from ..obs import metrics, trace
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# the checkout holding the package (when it is one: an installed wheel's
+# parent is site-packages)
+CHECKOUT = Path(__file__).resolve().parents[2]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -45,29 +57,50 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+def build_dir() -> Path:
+    """The kernel build folder: MPLC_TORCH_COMPILE_CACHE_DIR, else the
+    checkout's `build/kernels` when the checkout is writable, else
+    `$XDG_CACHE_HOME/mplc_tpu_torch/kernels` (`~/.cache` by default)."""
+    configured = utils.enable_compile_cache_from_env()
+    if configured:
+        return Path(configured)
+    if (CHECKOUT / "pyproject.toml").is_file() and os.access(CHECKOUT, os.W_OK):
+        return CHECKOUT / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "mplc_tpu_torch" / "kernels"
+
+
+def source_digest(name: str) -> str:
+    """16 hex digits of sha256 over `csrc/<name>.cu`'s bytes and NVCC_FLAGS."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_name(name: str) -> str:
+    return f"lib{name}-{source_digest(name)}.so"
+
+
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
-
-
-def _stale(name: str) -> bool:
-    lib = library_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    return build_dir() / library_name(name)
 
 
 def build(names) -> None:
-    """Compile every stale source of `names`, one nvcc process each, all
-    started together; raises with the compiler's output if one fails."""
-    stale = [n for n in names if _stale(n)]
+    """Compile every source of `names` whose library (by digest) is not in
+    the build folder, one nvcc process each, all started together; raises
+    with the compiler's output if one fails."""
+    folder = build_dir()
+    libs = {n: folder / library_name(n) for n in names}
+    stale = [n for n in names if not libs[n].exists()]
     if not stale:
         return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    folder.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = []
     for n in stale:
         # unique temp name, renamed into place: concurrent builds never
         # load a half-written library
-        tmp = BUILD_DIR / f".lib{n}.{os.getpid()}.so"
+        tmp = folder / f".lib{n}.{os.getpid()}.so"
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         jobs.append((n, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -87,7 +120,7 @@ def build(names) -> None:
             failures.append(f"{n}.cu:\n{log}")
             tmp.unlink(missing_ok=True)
             continue
-        os.replace(tmp, library_path(n))
+        os.replace(tmp, libs[n])
         trace.event("trainer.compile", dur=seconds, fn=n)
         metrics.counter("trainer.compiles_total").inc()
         metrics.counter("trainer.compile_seconds_total").inc(seconds)

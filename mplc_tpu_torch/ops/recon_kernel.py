@@ -188,22 +188,48 @@ def stream_dtype(precision: str) -> torch.dtype:
 
 
 def flatten_stream(init_params: dict, deltas: dict, K: int,
-                   dtype: torch.dtype = torch.float32):
+                   dtype: torch.dtype = torch.float32, device=None):
     """(init [Dp] float32, d2 [K, Dp] in `dtype`, layout) from a parameter
-    dict and its recorded deltas ([R, P, ...] leaves, K = R*P): every leaf
-    flattened and laid side by side, so the whole stream is one
-    contraction, then zero columns up to Dp = D rounded up to ROW_ALIGN
-    (they reconstruct to exact zeros, which `unflatten` never reads).
-    `layout` lists (group, name, shape) in that order, for `unflatten`."""
+    dict and its recorded deltas ([R, P, ...] leaves, K = R*P), on `device`
+    (default: the deltas'): every leaf flattened and laid side by side, so
+    the whole stream is one contraction, then zero columns up to Dp = D
+    rounded up to ROW_ALIGN (they reconstruct to exact zeros, which
+    `unflatten` never reads). `layout` lists (group, name, shape) in that
+    order, for `unflatten`. Built round by round (`flatten_rounds`)."""
+    leaf = next(t for d in deltas.values() for t in d.values())
+    R, P = leaf.shape[:2]
+    if R * P != K:
+        raise ValueError(f"K = {K} is not the deltas' rounds x partners ({R} x {P})")
+    rounds = [{g: {k: t[r] for k, t in d.items()} for g, d in deltas.items()}
+              for r in range(R)]
+    return flatten_rounds(init_params, rounds, P, dtype,
+                          leaf.device if device is None else device)
+
+
+def flatten_rounds(init_params: dict, rounds: list, P: int,
+                   dtype: torch.dtype, device) -> tuple:
+    """`flatten_stream`'s (init, d2, layout) on `device` from a list of
+    rounds, each a dict of [P, ...] leaves (tensors or host arrays; a live
+    game's resident history), K = len(rounds)*P. d2 is allocated there once
+    and each round's leaves are moved there and copied (cast there) into
+    their rows and columns: a host stream is never stacked, joined or cast
+    on the host, and the device holds d2 and one leaf beside it."""
     layout = [(g, k, tuple(t.shape)) for g, d in init_params.items()
               for k, t in d.items()]
-    inits = [init_params[g][k].reshape(-1).float() for g, k, _ in layout]
-    d_cols = [deltas[g][k].reshape(K, -1).to(dtype) for g, k, _ in layout]
-    pad = -sum(t.numel() for t in inits) % ROW_ALIGN
-    if pad:
-        inits.append(inits[0].new_zeros(pad))
-        d_cols.append(d_cols[0].new_zeros((K, pad)))
-    return torch.cat(inits), torch.cat(d_cols, dim=1), layout
+    init = torch.cat([torch.as_tensor(init_params[g][k]).reshape(-1).float()
+                      for g, k, _ in layout])
+    D = init.numel()
+    pad = -D % ROW_ALIGN
+    init = torch.cat([init, init.new_zeros(pad)]).to(device)
+    d2 = torch.empty((len(rounds) * P, D + pad), dtype=dtype, device=device)
+    d2[:, D:].zero_()
+    for r, deltas in enumerate(rounds):
+        off = 0
+        for g, k, _ in layout:
+            leaf = torch.as_tensor(deltas[g][k]).reshape(P, -1)
+            d2[r * P:(r + 1) * P, off:off + leaf.shape[1]].copy_(leaf.to(device))
+            off += leaf.shape[1]
+    return init, d2, layout
 
 
 def unflatten(out: torch.Tensor, layout) -> dict:

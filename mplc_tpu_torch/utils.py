@@ -1,5 +1,6 @@
-"""Device selection for the port's entry points, a `torch.profiler` trace of a
-region (`profile_trace`), and the CLI's helpers
+"""Device selection for the port's entry points, the kernel build folder
+(`enable_compile_cache_from_env`, `compile_cache_entries`), a
+`torch.profiler` trace of a region (`profile_trace`), and the CLI's helpers
 (`python3 -m mplc_tpu_torch.main`): YAML experiment files of the shape
 {experiment_name, n_repeats, scenario_params_list}, whose list-valued
 parameters are expanded into one scenario a combination, experiment
@@ -57,6 +58,35 @@ def resolve_device(device=None) -> torch.device:
         # outputs included
         torch.utils.deterministic.fill_uninitialized_memory = False
     return dev
+
+
+def enable_compile_cache_from_env() -> str | None:
+    """The folder `MPLC_TORCH_COMPILE_CACHE_DIR` names, made if missing:
+    the kernel build folder (ops/cuda_build.py) and the program bank's
+    manifest folder (contrib/bank.py), which several checkouts and
+    processes may share, since each library is named by a digest of its
+    source and flags. None when the knob is unset, or when the folder
+    cannot be made (a warning; the kernels then build into the default
+    folder)."""
+    path = os.environ.get(constants.COMPILE_CACHE_DIR_ENV)
+    if not path:
+        return None
+    try:
+        os.makedirs(path, exist_ok=True)
+    except OSError as e:
+        import warnings
+        warnings.warn(f"{constants.COMPILE_CACHE_DIR_ENV}={path!r} could not be made "
+                      f"({e}); the kernels build into the default folder", stacklevel=2)
+        return None
+    return path
+
+
+def compile_cache_entries(path: str | None) -> int | None:
+    """Files under a kernel build folder (None when the path is unset or
+    missing): a run whose count did not grow built nothing."""
+    if not path or not os.path.isdir(path):
+        return None
+    return sum(len(files) for _, _, files in os.walk(path))
 
 
 PROFILE_DIR_ENV = "MPLC_TORCH_PROFILE_DIR"

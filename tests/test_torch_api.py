@@ -50,7 +50,7 @@ NOT_PORTED = {
     "ops": {"broadcast"},          # aggregate reshapes its weights itself
     "obs": {"export"},             # the live endpoints: queue 1 item 9
 }
-SUBPACKAGES = ("contrib", "data", "models", "mpl", "ops", "obs")
+SUBPACKAGES = ("contrib", "data", "models", "mpl", "ops", "obs", "live")
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)

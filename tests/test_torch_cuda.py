@@ -572,3 +572,112 @@ def test_gradients_do_not_depend_on_the_step_width_on_the_card(cuda, name, other
             for k in got:
                 for q in got[k]:
                     assert torch.equal(got[k][q][j], solo[j % 4][k][q][0]), (n, j, k, q)
+
+
+# -- the live tier on the card -------------------------------------------------
+
+# K1 on a live game's grown stream, on the live path's own kind of inputs
+# (each round's weights renormalized to sum to 1, deltas near 1e-3): K = 400
+# (the MNIST CNN's recording doubled, R = 40 rounds of P = 10) and K = 410, a
+# multiple of P but not of 32 (zero-weight rounds are left out of a stream).
+# Standard-normal inputs at this depth part from the plain version past the
+# tolerance through the plain version's own error; the exact-sum check holds
+# K1 on them too
+@pytest.mark.parametrize("B,R,D", [(64, 40, 40000), (16, 40, 40001), (64, 41, 40000),
+                                   (8, 41, 1003)])
+def test_kernel_on_a_live_depth_matches_plain_version(cuda, B, R, D):
+    P = 10
+    rng = np.random.default_rng(B + R)
+    w = rng.random((B, R, P))
+    w /= w.sum(-1, keepdims=True)
+    w[0] = 0.0
+    wn2, d2, init = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        w.reshape(B, R * P), rng.normal(0, 1e-3, (R * P, D)), rng.normal(0, 0.05, D)))
+    got = trk.fused_contract(wn2, d2, init)
+    torch.testing.assert_close(got, trk.fused_contract_reference(wn2, d2, init),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(got[0], init)
+    wb, db = wn2.to(torch.bfloat16), d2.to(torch.bfloat16)
+    torch.testing.assert_close(trk.fused_contract_bf16(wb, db, init),
+                               trk.fused_contract_bf16_reference(wb, db, init),
+                               rtol=RTOL, atol=ATOL)
+    sn2, sd2, sinit = _inputs(B, R * P, D, B + R, cuda)
+    got = trk.fused_contract(sn2, sd2, sinit)
+    exact = torch.addmm(sinit.double().reshape(1, -1), sn2.double(), sd2.double())
+    err, err_plain = ((t.double() - exact).abs().max().item()
+                      for t in (got, trk.fused_contract_reference(sn2, sd2, sinit)))
+    assert err <= max(err_plain, ATOL)
+
+
+def _live_titanic(device, partners=3):
+    sc = Scenario(partners, [(i + 1) / sum(range(1, partners + 1)) for i in range(partners)],
+                  is_dry_run=True, dataset=load_titanic(), epoch_count=2, minibatch_count=2,
+                  gradient_updates_per_pass_count=2, is_early_stopping=False, seed=0,
+                  device=device)
+    sc.instantiate_scenario_partners()
+    sc.split_data()
+    return sc
+
+
+def test_live_exact_query_equals_exact_reconstructed_on_the_card(cuda):
+    """`LiveGame.from_recording` on the card: its exact query's v(S)
+    bit-equal to `Contributivity.exact_reconstructed` on the same scenario,
+    through K1; a warm query makes no launch."""
+    from mplc_tpu_torch.live import LiveGame
+    sc = _live_titanic("cuda", 4)
+    c = Contributivity(sc)
+    c.exact_reconstructed()
+    want = c._reconstructor().values
+    game = LiveGame.from_recording(sc)
+    before = trk.launches
+    r = game.query("exact")
+    assert trk.launches > before
+    assert game._recon.values == want
+    assert r.scores.tobytes() == c.contributivity_scores.tobytes()
+    before = trk.launches
+    assert game.query("exact") is r and trk.launches == before
+
+
+def test_live_evict_restore_is_bit_equal_on_the_card(cuda, tmp_path):
+    """A journaled Titanic game on the card, evicted and restored, then
+    killed and reopened on its WAL: every exact and GTG answer bit-equal
+    to the never-evicted game's."""
+    from mplc_tpu_torch.live import LiveGame
+    wal = tmp_path / "wal.jsonl"
+    sc = _live_titanic("cuda")
+    game = LiveGame.from_recording(sc, journal_path=wal)
+    kw = dict(sv_accuracy=1.0, min_iter=8, perm_batch=4, truncation=0.0)
+    want = game.query("exact").scores, game.query("GTG-Shapley", **kw).scores
+    assert game.evict() and not game.resident
+    got = game.query("exact").scores, game.query("GTG-Shapley", **kw).scores
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(got, want))
+    game.close()
+    again = LiveGame(_live_titanic("cuda"), journal_path=wal)
+    assert again.query("exact").scores.tobytes() == want[0].tobytes()
+    again.close()
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_live_stream_flattened_on_the_card_equals_the_host_flattening(cuda, precision):
+    """A live game's stream, its host rounds copied into K1's layout on
+    the card (`flatten_rounds`, the bf16 cast there), equals the plain
+    flattening on the host (numpy concatenation of the stacked rounds,
+    cast last), bit for bit: 41 rounds of 10 partners (K = 410, no
+    multiple of 32)."""
+    rng = np.random.default_rng(7)
+    P, R = 10, 41
+    init = {"a": {"w": rng.normal(size=(5, 7)).astype(np.float32),
+                  "b": rng.normal(size=(7,)).astype(np.float32)},
+            "b": {"w": rng.normal(size=(7, 3)).astype(np.float32)}}
+    rounds = [{g: {k: rng.normal(0, 1e-3, (P,) + a.shape).astype(np.float32)
+                   for k, a in d.items()} for g, d in init.items()} for _ in range(R)]
+    dtype = trk.stream_dtype(precision)
+    got_init, got, _ = trk.flatten_rounds(init, rounds, P, dtype, cuda)
+    leaves = [(g, k) for g, d in init.items() for k in d]
+    pad = -sum(init[g][k].size for g, k in leaves) % 8
+    want = np.concatenate([np.stack([r[g][k] for r in rounds]).reshape(R * P, -1)
+                           for g, k in leaves] + [np.zeros((R * P, pad), np.float32)], axis=1)
+    want_init = np.concatenate([init[g][k].ravel() for g, k in leaves] + [np.zeros(pad)])
+    assert got.is_cuda and got.dtype == dtype
+    assert torch.equal(got.cpu(), torch.from_numpy(want).to(dtype))
+    assert torch.equal(got_init.cpu(), torch.from_numpy(want_init.astype(np.float32)))

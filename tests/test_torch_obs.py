@@ -383,7 +383,7 @@ def test_build_emits_a_compile_event_per_nvcc_run(tmp_path, monkeypatch):
                     "touch \"$2\"; fi\n  shift\ndone\n")
     nvcc.chmod(0o755)
     monkeypatch.setattr(cuda_build, "CSRC", csrc)
-    monkeypatch.setattr(cuda_build, "BUILD_DIR", build)
+    monkeypatch.setenv("MPLC_TORCH_COMPILE_CACHE_DIR", str(build))
     monkeypatch.setattr(cuda_build, "_nvcc", lambda: str(nvcc))
     with trace.collect() as recs:
         cuda_build.build(["k_a", "k_b"])

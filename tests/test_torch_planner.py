@@ -1,9 +1,9 @@
 """The port's query planner (`mplc_tpu_torch/contrib/planner.py`) against the
 JAX package's (`mplc_tpu/contrib/planner.py`), on the CPU: `plan_query`
 over a grid of game sizes, accuracy targets and deadlines must describe
-the same plan key for key; the live rungs are not ported and raise; and
-`compute_contributivity("auto")` on an analytic game routes and scores as
-the JAX one does, bit for bit."""
+the same plan key for key, its live rungs (hierarchical, pruned GTG)
+included; and `compute_contributivity("auto")` on an analytic game routes
+and scores as the JAX one does, bit for bit."""
 
 import json
 
@@ -62,10 +62,32 @@ def test_planner_knobs_match_jax(monkeypatch):
     assert p.accuracy_target == 0.07 and p.deadline_sec == 20.0
 
 
-def test_live_rungs_are_not_ported():
-    for n in (3, 20):
-        with pytest.raises(NotImplementedError):
-            planner.plan_query(n, live=True)
+@pytest.mark.parametrize("eval_sec", [None, 0.001, 0.5])
+@pytest.mark.parametrize("deadline", [None, 1e-6, 0.5, 5.0, 60.0, 3600.0])
+@pytest.mark.parametrize("n", [3, 10, 17, 33, 100])
+def test_live_rungs_describe_the_jax_plan(n, deadline, eval_sec):
+    """The live planner (hierarchical past 16 partners, pruned GTG last)
+    describes the JAX package's plan key for key."""
+    kw = {} if eval_sec is None else dict(eval_sec=eval_sec, cost_basis="meter")
+    p = planner.plan_query(n, 0.02, deadline, live=True, **kw)
+    jp = jplanner.plan_query(n, 0.02, deadline, live=True, **kw)
+    assert p.describe() == jp.describe()
+    assert planner.plan_from_dict(json.loads(json.dumps(p.describe()))) == p
+
+
+@pytest.mark.parametrize("n,clusters,tau,prune", [(33, "7", "0.2", "0.3"), (100, "40", "0", "0"),
+                                                  (20, "0", "0.1", "2.5")])
+def test_live_rung_knobs_match_jax(monkeypatch, n, clusters, tau, prune):
+    for name, value in (("LIVE_CLUSTERS", clusters), ("LIVE_CLUSTER_TAU", tau),
+                        ("LIVE_PRUNE_TAU", prune)):
+        monkeypatch.setenv(f"MPLC_TORCH_{name}", value)
+        monkeypatch.setenv(f"MPLC_TPU_{name}", value)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for deadline in (None, 1e-6):
+            assert planner.plan_query(n, live=True, deadline_sec=deadline).describe() == \
+                jplanner.plan_query(n, live=True, deadline_sec=deadline).describe()
 
 
 def test_bad_game_size_raises():
