@@ -294,6 +294,42 @@ Phases, each of which fails the script (non-zero exit, no result line):
    (a)-(b)'s reconstruction programs with FLOPs; a meterless engine
    plans on "bank_cost_model"; with MPLC_TORCH_PROGRAM_BANK=0 a twin of
    (a)'s game gives (a)'s values bit for bit and records no program.
+24. service: the sweep service in one process (mplc_tpu_torch/service/),
+   reusing the process's warm state. (a) Bench config 6's shape: two
+   tenants submit exact-Shapley games (the MNIST CNN at full width, 5
+   partners, [sweep]'s training; tenant 0 on [sweep]'s seed, tenant 1 on
+   seed 1) to one journaled `SweepService` at the default slice of 16
+   coalitions and one worker, driven by `step()`; after tenant 0's first
+   quantum the service is abandoned and a new one built on the same WAL,
+   which must list both jobs; both are resubmitted under their old ids:
+   tenant 0's 31 v(S) bit-equal to [sweep]'s, trained only where the
+   journal lacked them (15 coalitions), tenant 1's finite in [0, 1] and
+   summing to v(N), cross-tenant packed batches above 0, no bank program
+   added by tenant 1's quanta, device seconds billed to both tenants (the
+   basis printed), the WAL's record counts printed. (b) Titanic, 4
+   partners, on the card, each game bit-equal to a solo engine there:
+   under crash@job1:batch2,stall@job2:sec1 tenant A retried and both
+   complete; a job crashing on every attempt quarantined after
+   MPLC_TORCH_MAX_RETRIES=1 with its flight-recorder file; a deadline
+   cancelling at a batch boundary; `max_pending=1` raising
+   `ServiceOverloaded` with `retry_after_sec >= 0`; a governor at a tiny
+   `shed_p99_sec` shedding the lowest tier with `JobShed`; two tenants on
+   two workers sharing the card. (c) The main path's scenario as a
+   `GTG-Shapley` job with `profile=True`: K1's counts from 0, it must
+   launch alone; the scores bit-equal to [slice]'s GTG-Shapley scores;
+   the job's torch.profiler trace under MPLC_TORCH_PROFILE_DIR/<job_id>
+   holding K1's kernel once a launch; K1 against its plain version on
+   the job's stream. (d) With MPLC_TORCH_METRICS_PORT (a free loopback
+   port), MPLC_TORCH_LIVE_INGEST=1 and MPLC_TORCH_METRICS_TOKEN: a live
+   game of the main path's 20 recorded rounds (`live_game`,
+   `append_round`) answers `submit_live(method="exact")` with K1, its
+   1023 v(S) and scores bit-equal to [slice]'s; one round appended in
+   process to it and the same round POSTed to `/live/<tenant>/round` of a
+   second game of the recording give one stamp and bit-equal fresh
+   GTG-Shapley jobs; `/metrics` carries `service_device_seconds`,
+   `/healthz` answers 200 with a block for each worker, and a tenant's
+   token sees its own `/varz` live game in full and the other redacted.
+   Each part's seconds and K1's launches by width are printed.
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -334,10 +370,14 @@ from mplc_tpu_torch.contrib.reconstruct import (ReconstructionEvaluator,  # noqa
 from mplc_tpu_torch.contrib.shapley import powerset_order  # noqa: E402
 from mplc_tpu_torch import constants, faults  # noqa: E402
 from mplc_tpu_torch.live import LiveGame, hierarchy, residency  # noqa: E402
+from mplc_tpu_torch.live.game import _encode_tree as encode_tree  # noqa: E402
 from mplc_tpu_torch.data.datasets import (Dataset, load_cifar10, load_mnist,  # noqa: E402
                                           load_titanic, with_held_out_test)
 from mplc_tpu_torch.obs import (analyze_trace, chrome_trace, devcost, flight,  # noqa: E402
                                 metrics, numerics, report, trace)
+from mplc_tpu_torch.obs import export as obs_export  # noqa: E402
+from mplc_tpu_torch.service import (JobShed, ServiceOverloaded, SweepJournal,  # noqa: E402
+                                    SweepService)
 from mplc_tpu_torch.mpl import dropout  # noqa: E402
 from mplc_tpu_torch.mpl import approaches  # noqa: E402
 from mplc_tpu_torch.mpl.engine import MplTrainer, upload  # noqa: E402
@@ -3656,6 +3696,383 @@ def phase_live(sl, card) -> dict:
             "entry": entry, "residency": e, "hierarchical": f}
 
 
+# The service phase (mplc_tpu_torch/service/): (a) bench config 6's shape,
+# two tenants' exact-Shapley games on [sweep]'s training at the MNIST CNN's
+# full width, 5 partners, in one journaled service at the default slice of
+# 16 coalitions and one worker, killed after tenant 0's first quantum and
+# restarted on its WAL; (b) Titanic, 4 partners, isolation and the fault
+# ladder at the service level; (c) the main path's configuration as a
+# GTG-Shapley job, profiled; (d) the live tier through the service and its
+# telemetry plane. No depth is cut here: every game is [sweep]'s, [slice]'s
+# or Titanic's as they are
+SERVICE_SEEDS = (0, 1)          # tenant 0 is [sweep]'s seed
+SERVICE_PLAN = "crash@job1:batch2,stall@job2:sec1"
+SERVICE_POISON = "crash@job1:batch1,crash@job1:batch2"
+SERVICE_TITANIC = 4
+SERVICE_TOKEN = "chip-smoke-operator"
+
+
+def service_recovery(sweep: dict, work: Path) -> dict:
+    """(a) Two tenants, a kill after tenant 0's first quantum, a restart on
+    the WAL: tenant 0's 31 v(S) bit-equal to [sweep]'s, trained only where
+    the journal lacked them; tenant 1's finite, efficient and on tenant 0's
+    programs."""
+    P = SWEEP_PARTNERS
+    subsets = powerset_order(P)
+    want = np.array([sweep["scenario"]._charac_engine.charac_fct_values[s] for s in subsets])
+    wal = work / "service.jsonl"
+    metrics.reset()
+    k1_reset()
+    t0 = time.perf_counter()
+    games = {seed: (f"tenant{i}", f"mnist{i}") for i, seed in enumerate(SERVICE_SEEDS)}
+
+    def submit(svc):
+        return [svc.submit(prepared(mnist_scenario(["Shapley values"], P, seed=seed)),
+                           tenant=tenant, job_id=job_id)
+                for seed, (tenant, job_id) in games.items()]
+
+    svc = SweepService(journal_path=wal, start=False)
+    j0, j1 = submit(svc)
+    svc.step()
+    first = len(j0._stream)
+    check(j0.first_quantum_at is not None and j1.first_quantum_at is None,
+          "(a) the first quantum was not tenant 0's")
+    check(first == svc._slice, f"(a) tenant 0's first quantum harvested {first} values")
+    svc.abandon()
+    killed_s = time.perf_counter() - t0
+    svc2 = SweepService(journal_path=wal, start=False)
+    rec = {r["job_id"]: r for r in svc2.recovered_jobs()}
+    check(set(rec) == {"mnist0", "mnist1"}, f"(a) recovered jobs {sorted(rec)}")
+    check(rec["mnist0"]["values"] == first and rec["mnist1"]["values"] == 0,
+          f"(a) the journal recovered {rec}")
+    r0, r1 = submit(svc2)
+    new_programs = 0
+    while True:
+        before, programs = len(r1._stream), metrics.counter("bank.programs").value
+        more = svc2.step()
+        if len(r1._stream) > before:
+            new_programs += metrics.counter("bank.programs").value - programs
+        if not more:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(r0.status == r1.status == "completed", f"(a) {r0.status}, {r1.status}")
+    v0 = np.array([r0.values[s] for s in subsets])
+    v1 = np.array([r1.values[s] for s in subsets])
+    trained0 = sum(b["coalitions"] for b in r0.engine.batch_log)
+    packed = metrics.counter("service.cross_tenant_packed_batches").value
+    billed = dict(svc2._tenant_device_seconds)
+    svc2.shutdown()
+    records, _ = SweepJournal.replay(wal)
+    kinds = {}
+    for r in records:
+        kinds[r["type"]] = kinds.get(r["type"], 0) + 1
+    sv1 = np.asarray(r1.scores)
+    v_all1 = r1.values[tuple(range(P))]
+    print(f"[service] (a) 2 tenants x {len(subsets)} coalitions, slice {svc._slice}: "
+          f"{wall:.2f} s ({killed_s:.2f} s to the kill), against twice [sweep]'s "
+          f"{2 * sweep['seconds']:.2f} s; tenant 0 recovered {r0.recovered_values} values and "
+          f"trained {trained0} coalitions in {len(r0.engine.batch_log)} batches after the "
+          f"restart; packed batches {packed:.0f}; tenant 1's new bank programs "
+          f"{new_programs:.0f}")
+    print(f"[service] (a) device seconds " + json.dumps(
+        {t: {"seconds": v, "basis": j.device_basis}
+         for t, v, j in ((r0.tenant, billed.get(r0.tenant), r0),
+                         (r1.tenant, billed.get(r1.tenant), r1))}))
+    print(f"[service] (a) WAL records {json.dumps(kinds)}; tenant 1 Shapley values "
+          f"{np.round(sv1, 4).tolist()} (sum {sv1.sum():.6f}, v(N) {v_all1:.4f})")
+    check(v0.tobytes() == want.tobytes(), "(a) tenant 0's v(S) differ from [sweep]'s")
+    check(r0.recovered_values == first and trained0 == len(subsets) - first,
+          "(a) tenant 0 trained a coalition its journal held")
+    check(bool(np.isfinite(v1).all() and (v1 >= 0).all() and (v1 <= 1).all()),
+          "(a) tenant 1's v(S) are not finite in [0, 1]")
+    check(abs(sv1.sum() - v_all1) <= 1e-6, "(a) tenant 1's Shapley values do not sum to v(N)")
+    check(packed > 0, "(a) no cross-tenant packed batch")
+    check(new_programs == 0, "(a) tenant 1 added bank programs")
+    check(all(billed.get(t, 0) > 0 for t in ("tenant0", "tenant1")),
+          f"(a) a tenant was billed no device seconds: {billed}")
+    check(recon_kernel.launches == recon_kernel.launches_bf16 == 0,
+          "(a) the retraining sweep launched a reconstruction kernel")
+    return {"seconds": wall, "kinds": kinds}
+
+
+def service_titanic(seed: int) -> Scenario:
+    """A prepared Titanic game of SERVICE_TITANIC partners split (i+1)/10,
+    2 epochs of 2 minibatches of 2 steps, seeded `seed`."""
+    return prepared(Scenario(SERVICE_TITANIC, [(i + 1) / 10 for i in range(SERVICE_TITANIC)],
+                             is_dry_run=True, dataset=load_titanic(), epoch_count=2,
+                             minibatch_count=2, gradient_updates_per_pass_count=2,
+                             is_early_stopping=False, seed=seed, device=DEVICE))
+
+
+def service_isolation(work: Path) -> dict:
+    """(b) Titanic on the card: a crash and a stall under the service fault
+    plan, a poison job quarantined with its postmortem, a deadline at a
+    batch boundary, backpressure, shedding, and two workers sharing the
+    card; every completed tenant bit-equal to a solo engine on the card."""
+    subsets = powerset_order(SERVICE_TITANIC)
+    solo = {seed: CharacteristicEngine(service_titanic(seed)).evaluate(subsets)
+            for seed in (3, 4)}
+    t0 = time.perf_counter()
+    out = {}
+
+    def equal(job, seed):
+        return np.array([job.values[s] for s in subsets]).tobytes() == solo[seed].tobytes()
+
+    with knob(constants.RETRY_BACKOFF_ENV, "0"), \
+            knob(constants.COALITIONS_PER_DEVICE_ENV, "2"), \
+            knob(flight.FLIGHT_DIR_ENV, str(work / "flight")):
+        with knob(constants.SERVICE_FAULT_PLAN_ENV, SERVICE_PLAN):
+            svc = SweepService(start=False, slice_coalitions=3)
+            a = svc.submit(service_titanic(3), tenant="A")
+            b = svc.submit(service_titanic(4), tenant="B")
+            svc.run_until_idle()
+        out["plan"] = (a.status, a.attempts, b.status)
+        check(a.status == b.status == "completed" and a.attempts == 1,
+              f"(b) under {SERVICE_PLAN}: {a.status} after {a.attempts} failed attempts, "
+              f"{b.status}")
+        check(equal(a, 3) and equal(b, 4), "(b) a tenant under the fault plan differs from solo")
+        with knob(constants.SERVICE_FAULT_PLAN_ENV, SERVICE_POISON), \
+                knob(constants.MAX_RETRIES_ENV, "1"):
+            svc = SweepService(start=False, slice_coalitions=3)
+            poison = svc.submit(service_titanic(3), tenant="P")
+            svc.run_until_idle()
+        dumps = sorted((work / "flight").glob("mplc_flight_job_quarantined_*.json"))
+        out["poison"] = (poison.status, poison.attempts, len(dumps))
+        check(poison.status == "quarantined" and dumps,
+              f"(b) the poison job is {poison.status} with {len(dumps)} postmortems")
+        svc = SweepService(start=False, slice_coalitions=len(subsets))
+        late = svc.submit(service_titanic(3), tenant="D", deadline_sec=1e6)
+        calls = [0]
+
+        def expired():
+            calls[0] += 1
+            return calls[0] > 1   # the quantum start passes, batch 1 trips
+
+        late._deadline_expired = expired
+        svc.run_until_idle()
+        out["deadline"] = (late.status, len(late._stream))
+        check(late.status == "cancelled" and "batch boundary" in str(late.error)
+              and len(late._stream) > 0, f"(b) the deadline: {late.status} {late.error}")
+        svc = SweepService(start=False, max_pending=1)
+        svc.submit(service_titanic(3), tenant="A")
+        try:
+            svc.submit(service_titanic(4), tenant="B")
+            check(False, "(b) max_pending=1 admitted a second job")
+        except ServiceOverloaded as e:
+            out["overloaded_retry_after"] = e.retry_after_sec
+            check(e.retry_after_sec >= 0, "(b) a negative retry hint")
+        svc.shutdown(drain=False)
+        svc = SweepService(start=False, slice_coalitions=3, max_pending=4, shed_p99_sec=1e-9)
+        lows = [svc.submit(service_titanic(3), tenant="lo", priority=0) for _ in range(2)]
+        hi = svc.submit(service_titanic(4), tenant="hi", priority=1)
+        time.sleep(0.002)
+        svc.run_until_idle()
+        shed = [j for j in lows if j.status == "shed"]
+        out["shed"] = len(shed)
+        check(shed and all(isinstance(j.error, JobShed) for j in shed)
+              and hi.status == "completed" and equal(hi, 4),
+              f"(b) the governor shed {len(shed)} jobs, the high tier {hi.status}")
+        with knob(constants.SERVICE_WORKERS_ENV, "2"):
+            svc = SweepService(slice_coalitions=3)
+            jobs = {seed: svc.submit(service_titanic(seed), tenant=f"w{seed}") for seed in (3, 4)}
+            for j in jobs.values():
+                j.result(timeout=300)
+            svc.shutdown()
+        out["workers"] = svc._n_workers
+        check(all(equal(j, seed) for seed, j in jobs.items()),
+              "(b) two workers sharing the card changed a tenant's v(S)")
+    wall = time.perf_counter() - t0
+    print(f"[service] (b) Titanic {SERVICE_TITANIC} partners: {wall:.2f} s; " + json.dumps(out))
+    return {"seconds": wall}
+
+
+class _KeepStream(SweepService):
+    """The service, keeping each finished job's reconstruction evaluator
+    on the job (`_kept_recon`) for the kernel check after the job."""
+
+    def _release_engine_data(self, job):
+        job._kept_recon = getattr(job.engine, "_reconstruction", None)
+        super()._release_engine_data(job)
+
+
+def service_main_path(sl, work: Path, card) -> dict:
+    """(c) The main path's scenario as a profiled GTG-Shapley job: K1's
+    counts from 0, the scores bit-equal to [slice]'s, K1's kernel in the
+    job's torch.profiler trace, K1 against its plain version on the job's
+    stream."""
+    prof = work / "profile"
+    with knob(constants.PROFILE_DIR_ENV, str(prof)):
+        svc = _KeepStream(start=False)
+        sc = prepared(mnist_scenario(["GTG-Shapley"]))
+        k1_reset()
+        t0 = time.perf_counter()
+        job = svc.submit(sc, method="GTG-Shapley", tenant="main", profile=True)
+        svc.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, bf16, widths = k1_counts()
+    check(job.status == "completed", f"(c) the GTG job is {job.status}: {job.error}")
+    traces = sorted(Path(job.profile_path).glob("*" + analyze_trace.TRACE_SUFFIX))
+    profiled = 0
+    for path in traces:
+        summary = analyze_trace.summarize(str(path))
+        profiled += sum(k["count"] for n, k in summary["kernels"].items()
+                        if "recon_matmul_kernel" in n)
+    print(f"[service] (c) GTG-Shapley job on the main path's scenario: {wall:.2f} s "
+          f"(profiled), K1 launches {launches} by width {json.dumps(widths)}, "
+          f"{profiled} K1 kernel events in {len(traces)} traces; scores "
+          f"{np.round(job.scores, 4).tolist()}")
+    check(launches > 0 and bf16 == 0, "(c) the GTG job did not launch K1 alone")
+    check(np.asarray(job.scores).tobytes() == np.asarray(sl["gtg"]).tobytes(),
+          "(c) the GTG job's scores differ from [slice]'s")
+    check(traces and profiled == launches,
+          f"(c) the job's trace holds {profiled} K1 kernel events for {launches} launches")
+    recon = job._kept_recon
+    subsets = powerset_order(PARTNERS)[:15] + [()]
+    masks = torch.from_numpy(recon.engine._coalition_arrays(subsets)).to(DEVICE)
+    wn2 = recon_kernel.normalized_round_weights(masks, recon._weights).reshape(len(subsets), -1)
+    entry = kernel_entry(recon_kernel.KERNEL, wn2.contiguous(), recon._d2, recon._init,
+                         launches, card, timed=False)
+    print(f"[service] (c) K1 against its plain version on the job's stream "
+          f"{entry['shape']}: max abs err {entry['max_abs_err']:.3g}")
+    job._kept_recon = None
+    return {"launches": launches, "widths": widths, "seconds": wall}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wire_round(params: dict, seed: int) -> tuple:
+    """One aggregation round of the main path's game (deltas on every leaf
+    but the large dense kernel, which stays zero, so its wire form stays
+    small) and its weights, as host arrays, with its wire document."""
+    g = np.random.default_rng(seed)
+    deltas = {grp: {k: (np.zeros((PARTNERS,) + a.shape, np.float32) if a.size > 1e5 else
+                        g.normal(0, 1e-3, (PARTNERS,) + a.shape).astype(np.float32))
+                    for k, a in d.items()} for grp, d in params.items()}
+    w = g.dirichlet(np.ones(PARTNERS)).astype(np.float32)
+    return deltas, w, {"deltas": encode_tree(deltas), "weights": w.tolist()}
+
+
+def http(url: str, token: str, doc=None) -> tuple:
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=None if doc is None else json.dumps(doc).encode(),
+                                 method="GET" if doc is None else "POST")
+    req.add_header("Authorization", f"Bearer {token}")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def service_live(sl) -> dict:
+    """(d) The live tier through the service and its telemetry plane: a game
+    of the main path's recording answers an exact query job bit-equal to
+    [slice]'s through K1; one round appended in process to it and the same
+    round POSTed to a second game of the recording give one stamp and
+    bit-equal fresh GTG answers; /metrics, /healthz and a tenant's /varz."""
+    rec = sl["recon"].recorded
+    eng = sl["recon"].engine
+    deltas = {g: {k: v.detach().cpu().numpy() for k, v in d.items()} for g, d in rec.deltas.items()}
+    weights = rec.weights.detach().cpu().numpy()
+    port = free_port()
+    t0 = time.perf_counter()
+    with knob(constants.METRICS_PORT_ENV, str(port)), knob(constants.LIVE_INGEST_ENV, "1"), \
+            knob(constants.METRICS_TOKEN_ENV, SERVICE_TOKEN):
+        svc = SweepService()
+        base = f"http://127.0.0.1:{port}"
+        try:
+            games = {}
+            for tenant in ("mnist", "mnist-wire"):
+                games[tenant] = svc.live_game(eng.scenario, tenant=tenant, engine=eng)
+                for r in range(rec.rounds):
+                    svc.append_round(tenant, {g: {k: v[r] for k, v in d.items()}
+                                              for g, d in deltas.items()}, weights[r])
+            k1_reset()
+            job = svc.submit_live("mnist", method="exact")
+            scores = job.result(timeout=600)
+            torch.cuda.synchronize()
+            launches, bf16, widths = k1_counts()
+            values = np.array([job.values[s] for s in powerset_order(PARTNERS)])
+            check(job.status == "completed", f"(d) the live exact job is {job.status}")
+            check(launches > 0 and bf16 == 0, "(d) the live exact job did not launch K1 alone")
+            check(values.tobytes() == sl["values"].tobytes(),
+                  "(d) the live job's v(S) differ from [slice]'s exact_reconstructed")
+            check(np.asarray(scores).tobytes() == np.asarray(sl["sv"]).tobytes(),
+                  "(d) the live job's scores differ from [slice]'s")
+            d, w, doc = wire_round(games["mnist"]._init_params, 17)
+            stamp = svc.append_round("mnist", d, w)
+            t1 = time.perf_counter()
+            status, body = http(f"{base}/live/mnist-wire/round?tenant=mnist-wire",
+                                obs_export.tenant_token(SERVICE_TOKEN, "mnist-wire"), doc)
+            post_s = time.perf_counter() - t1
+            check(status == 200 and json.loads(body)["stamp"] == stamp,
+                  f"(d) the POSTed round: {status} {body[:200]}")
+            k1_reset()
+            gtg = {t: svc.submit_live(t, method="GTG-Shapley", **LIVE_GTG) for t in games}
+            answers = {t: np.asarray(j.result(timeout=600)) for t, j in gtg.items()}
+            gtg_launches, _, gtg_widths = k1_counts()
+            check(all(j.status == "completed" and j.live_result.stamp == stamp
+                      for j in gtg.values()), "(d) a GTG job failed or answered another stamp")
+            check(answers["mnist"].tobytes() == answers["mnist-wire"].tobytes(),
+                  "(d) the ingested round's GTG answer differs from the appended round's")
+            check(gtg_launches > 0, "(d) the fresh GTG queries did not launch K1")
+            status, text = http(f"{base}/metrics", SERVICE_TOKEN)
+            check(status == 200 and "mplc_service_device_seconds" in text,
+                  f"(d) /metrics: {status}")
+            status, body = http(f"{base}/healthz", "")
+            prov = json.loads(body)["providers"][svc._provider_key]
+            workers = [w for w in prov["workers"] if w["worker"] != "inline"]
+            check(status == 200 and len(workers) == svc._n_workers,
+                  f"(d) /healthz: {status}, {len(workers)} worker blocks")
+            status, body = http(f"{base}/varz?tenant=mnist",
+                                obs_export.tenant_token(SERVICE_TOKEN, "mnist"))
+            rows = json.loads(body)[svc._provider_key]["live_games"]
+            other = [r for t, r in rows.items() if t != "mnist"]
+            check(status == 200 and not rows["mnist"].get("redacted")
+                  and len(other) == 1 and other[0].get("redacted")
+                  and "mnist-wire" not in body, "(d) a tenant's /varz is not redacted")
+        finally:
+            for g in games.values():
+                g.close()
+            svc.shutdown(drain=False)
+            obs_export.stop()
+    wall = time.perf_counter() - t0
+    print(f"[service] (d) live through the service: {wall:.2f} s; exact job K1 launches "
+          f"{launches} by width {json.dumps(widths)}, v(S) and scores bit-equal to [slice]; "
+          f"POSTed round ({len(json.dumps(doc)) / 2 ** 20:.1f} MiB) in {post_s:.2f} s, stamp "
+          f"{stamp}; GTG answers bit-equal, K1 launches {gtg_launches} by width "
+          f"{json.dumps(gtg_widths)}; /metrics, /healthz and a tenant's redacted /varz "
+          f"answered")
+    return {"launches": launches + gtg_launches, "widths": add_widths(widths, gtg_widths),
+            "seconds": wall}
+
+
+def phase_service(sl, sweep: dict, card) -> dict:
+    """The sweep service, (a)-(d), reusing the process's warm state."""
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="mplc_service_"))
+    a = service_recovery(sweep, work)
+    b = service_isolation(work)
+    c = service_main_path(sl, work, card)
+    d = service_live(sl)
+    launches = c["launches"] + d["launches"]
+    widths = add_widths(c["widths"], d["widths"])
+    print(f"[service] seconds (a) {a['seconds']:.2f}, (b) {b['seconds']:.2f}, "
+          f"(c) {c['seconds']:.2f}, (d) {d['seconds']:.2f}")
+    print(f"[service] K1 launches {launches} by width {json.dumps(widths)} "
+          f"((c) the GTG job, (d) the live jobs)")
+    print(f"[service] all parts passed in {time.perf_counter() - t0:.2f} s")
+    return {"launches": launches, "widths": widths}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3709,6 +4126,7 @@ def main() -> int:
     rung_free("width", phase_width, sweep)
     paths["devcost"] = rung_free("devcost", phase_devcost, sl, sweep, ledger_dir, card)
     paths["live"] = rung_free("live", phase_live, sl, card)
+    paths["service"] = rung_free("service", phase_service, sl, sweep, card)
     for e in kernels:
         B = e["shape"]["B"]
         if not e["name"].startswith(recon_kernel.KERNEL_BF16):

@@ -397,3 +397,81 @@ LIVE_MAX_ROUNDS_ENV = "MPLC_TORCH_LIVE_MAX_ROUNDS"
 LIVE_MAX_RESIDENT_ENV = "MPLC_TORCH_LIVE_MAX_RESIDENT"
 LIVE_CLUSTERS_ENV = "MPLC_TORCH_LIVE_CLUSTERS"
 LIVE_CLUSTER_TAU_ENV = "MPLC_TORCH_LIVE_CLUSTER_TAU"
+#   MPLC_TORCH_LIVE_QUERY_DEADLINE_SEC
+#                                the default deadline of a live query job
+#                                submitted through the sweep service
+#                                (`SweepService.submit_live`); 0/unset:
+#                                none. An explicit deadline_sec wins.
+#   MPLC_TORCH_LIVE_INGEST       "1" gives the telemetry server its
+#                                streaming-ingestion route (POST
+#                                /live/<tenant>/round, obs/export.py): a
+#                                wire round fed to the tenant's game
+#                                without an in-process call. Off by
+#                                default: a mutating HTTP surface is the
+#                                operator's decision.
+LIVE_QUERY_DEADLINE_ENV = "MPLC_TORCH_LIVE_QUERY_DEADLINE_SEC"
+LIVE_INGEST_ENV = "MPLC_TORCH_LIVE_INGEST"
+
+# The sweep service (service/), the JAX package's knobs and defaults, all
+# read when a SweepService is built, a malformed value warning and falling
+# back:
+#   MPLC_TORCH_SERVICE_MAX_PENDING  jobs not yet terminal the queue admits
+#                                   (32); past it submit() raises
+#                                   ServiceOverloaded
+#   MPLC_TORCH_SERVICE_SLICE        coalitions a scheduling quantum of an
+#                                   exact sweep (16)
+#   MPLC_TORCH_SERVICE_FAULT_PLAN   the service fault plan, addressed by
+#                                   submission ordinal (faults.py):
+#                                   crash@job2:batch3, reject@job4,
+#                                   stall@job1:sec2, chaos@rate0.05:seed7
+#   MPLC_TORCH_SERVICE_WORKERS      worker threads (1), worker i on the
+#                                   card i % torch.cuda.device_count()
+#   MPLC_TORCH_SERVICE_PRIORITY_DEFAULT
+#                                   the tier of a submit() that names none
+#                                   (0); higher is more important
+#   MPLC_TORCH_SERVICE_SHED_P99_SEC the overload governor's queue-wait p99
+#                                   threshold: past it the lowest tier is
+#                                   deferred, then shed (JobShed). 0/unset:
+#                                   off
+#   MPLC_TORCH_SERVICE_RETRY_FLOOR_SEC
+#                                   floor under the retry_after_sec hint of
+#                                   ServiceOverloaded and JobShed (0.05)
+#   MPLC_TORCH_PROFILE_DIR          where `submit(..., profile=True)` writes
+#                                   a job's torch.profiler trace
+#                                   (<dir>/<job_id>); unset: no trace
+SERVICE_MAX_PENDING_ENV = "MPLC_TORCH_SERVICE_MAX_PENDING"
+SERVICE_SLICE_ENV = "MPLC_TORCH_SERVICE_SLICE"
+SERVICE_FAULT_PLAN_ENV = "MPLC_TORCH_SERVICE_FAULT_PLAN"
+SERVICE_WORKERS_ENV = "MPLC_TORCH_SERVICE_WORKERS"
+SERVICE_PRIORITY_DEFAULT_ENV = "MPLC_TORCH_SERVICE_PRIORITY_DEFAULT"
+SERVICE_SHED_P99_ENV = "MPLC_TORCH_SERVICE_SHED_P99_SEC"
+SERVICE_RETRY_FLOOR_ENV = "MPLC_TORCH_SERVICE_RETRY_FLOOR_SEC"
+PROFILE_DIR_ENV = "MPLC_TORCH_PROFILE_DIR"
+
+# The telemetry plane (obs/export.py), read when a service is built:
+#   MPLC_TORCH_METRICS_PORT   serve /metrics, /healthz and /varz on this
+#                             loopback port (host:port to bind wider; 0:
+#                             an ephemeral port). Unset: no thread, no
+#                             socket
+#   MPLC_TORCH_METRICS_TOKEN  the operator's bearer token: /metrics and
+#                             /varz need it (or, for /varz, a tenant's
+#                             HMAC credential, which sees only its own
+#                             rows); /healthz stays open
+METRICS_PORT_ENV = "MPLC_TORCH_METRICS_PORT"
+METRICS_TOKEN_ENV = "MPLC_TORCH_METRICS_TOKEN"
+
+# The fleet's state plane (parallel/fleet.py), read when a service is
+# built; none of it changes a computed number:
+#   MPLC_TORCH_FLEET_STATE_DIR  a folder each service process publishes its
+#                               queue depth and admission state into, and
+#                               reads the cluster's view back from (the
+#                               redirect hint of ServiceOverloaded, the
+#                               /healthz and /varz fleet blocks). Unset:
+#                               the single-process behavior
+#   MPLC_TORCH_FLEET_SHARD_ID   this process's name there (pid<pid>)
+#   MPLC_TORCH_FLEET_STALE_SEC  a shard whose state file is older than this
+#                               (30 s) is stale: out of the live set and
+#                               never the least-loaded redirect
+FLEET_STATE_DIR_ENV = "MPLC_TORCH_FLEET_STATE_DIR"
+FLEET_SHARD_ID_ENV = "MPLC_TORCH_FLEET_SHARD_ID"
+FLEET_STALE_SEC_ENV = "MPLC_TORCH_FLEET_STALE_SEC"

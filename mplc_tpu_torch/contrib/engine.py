@@ -243,6 +243,9 @@ class CharacteristicEngine:
     _fence_interval = 0
     _numerics_audit = False
     _ledger_ctx: dict = {}
+    # callable(done_in_group, remaining_in_call, slot_count), called after
+    # every harvested batch (the sweep service's per-batch hook)
+    progress = None
 
     def __init__(self, scenario, seed_ensemble: int | None = None):
         self.scenario = scenario
@@ -357,6 +360,14 @@ class CharacteristicEngine:
         # the cache is saved here after every trained batch (Scenario.run),
         # so a crash loses at most the batch it interrupts
         self.autosave_path = None
+        # Optional callable(done_in_group, remaining_in_call, slot_count),
+        # called after every harvested batch, training and reconstruction
+        # alike (the JAX engine's hook): the sweep service journals, meters
+        # and checks deadlines there. Each batch is harvested before the
+        # next is dispatched, so when the hook raises no batch is in
+        # flight: the memo, `batch_log` and the meter hold every batch
+        # harvested so far and nothing else
+        self.progress = None
 
         # The fault ladder (faults.py), its knobs read here, once an engine.
         # Recovery never changes v(S): a retried or re-bucketed batch (or,
@@ -868,6 +879,7 @@ class CharacteristicEngine:
                 self._degrade_cap(e)
                 continue
             i += len(group)
+            meta["remaining"] = n_jobs - i
             self._record_or_recover((group, fetch, meta), per_partner, slot_count, pipe)
 
     def _batch_job(self, pipe, slot_count, i: int, b: int, ctx: dict,
@@ -938,6 +950,7 @@ class CharacteristicEngine:
             group, meta, dispatch = self._batch_job(pipe, slot_count, i, b, ctx,
                                                     degraded="cpu")
             i += len(group)
+            meta["remaining"] = n_jobs - i
             fetch = self._retry_transient(dispatch, "dispatch", meta["ordinal"])
             self._record_group(group, fetch, meta, ctx["per_partner"], slot_count)
 
@@ -996,7 +1009,7 @@ class CharacteristicEngine:
         value ledger, when it is on), account its epochs, samples and
         partner passes, emit its `engine.batch` event, note it on the
         device meter, audit a fenced batch's first coalition
-        (MPLC_TORCH_NUMERICS_AUDIT), autosave."""
+        (MPLC_TORCH_NUMERICS_AUDIT), autosave, call `progress`."""
         n = meta["coalitions"]
         with obs_trace.span("engine.harvest", width=meta["width"], slot_count=slot_count,
                             coalitions=n):
@@ -1062,6 +1075,8 @@ class CharacteristicEngine:
         obs_metrics.sample_device_memory(device=self.device)
         if self.autosave_path is not None:
             self.save_cache(self.autosave_path)
+        if self.progress is not None:
+            self.progress(len(group), meta.get("remaining", 0), slot_count)
 
     def _account_batch(self, seconds: float, attrs: dict, epochs: int, samples: int,
                        passes: int, ordinal: int | None = None, **extra) -> None:
@@ -1134,6 +1149,42 @@ class CharacteristicEngine:
     def not_twice_characteristic(self, subset) -> float:
         """Reference-API single-subset entry (contributivity.py:92-136)."""
         return float(self.evaluate([np.atleast_1d(np.asarray(subset, int))])[0])
+
+    def _bucket_plan(self, singles: list, multis: list) -> list:
+        """[(pipe, slot_count, width)] in dispatch order of an `evaluate`
+        call whose missing coalitions are `singles` and `multis` (routed by
+        effective size): the singles' batch, then each slot bucket (widths
+        ascending) or the masked batch, each at its `_planned_width`. Empty
+        once the CPU rung is taken, whose batches are no device program."""
+        if self._cpu_degraded:
+            return []
+        K = self.seed_ensemble
+        plan = []
+        if singles:
+            plan.append((self.single_pipe, None,
+                         self._planned_width(len(singles) * K, None)))
+        if multis and self._use_slots:
+            for width, group in self._slot_buckets(multis):
+                plan.append((self._slot_pipe(width), width,
+                             self._planned_width(len(group) * K, width)))
+        elif multis:
+            plan.append((self.multi_pipe, None,
+                         self._planned_width(len(multis) * K, None)))
+        return plan
+
+    def sweep_plan(self, subsets) -> list:
+        """The bucket plan an `evaluate` over `subsets` would run with none
+        of them memoized (what the sweep service's packer keys programs
+        by). It mirrors `evaluate`'s routing: coalitions whose every member
+        is dropped from epoch 1 are stored as 0 and never dispatched, the
+        others are classified by their effective size and bucketed by their
+        full membership."""
+        keys = list(dict.fromkeys(tuple(sorted(int(i) for i in s)) for s in subsets))
+        keys = [k for k in keys if self._effective_subset(k)]
+        lens = {k: len(self._effective_subset(k)) for k in keys}
+        singles = [k for k in keys if lens[k] == 1]
+        multis = [k for k in keys if lens[k] > 1]
+        return self._bucket_plan(singles, multis)
 
     # ------------------------------------------------------------------
     # the coalition cache: a long sweep is resumable because v(S) is

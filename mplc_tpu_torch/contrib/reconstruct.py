@@ -371,3 +371,8 @@ class ReconstructionEvaluator:
                 # neither fenced nor counted: eval-only batches bill at their
                 # own host span, outside the fenced training rate
                 eng.device_meter.note(len(group), span_sec=seconds, eval_only=True)
+            if eng.progress is not None:
+                # the engine's per-batch hook (the sweep service's heartbeat,
+                # journal and deadline): this batch is fully recorded, and
+                # nothing else is in flight
+                eng.progress(len(group), n - i, None)

@@ -1,6 +1,6 @@
 """Deterministic fault injection and the error classifier (a copy of
-`mplc_tpu/faults.py`'s batch-fault and partner-fault halves, on torch's
-errors).
+`mplc_tpu/faults.py`'s batch-fault, partner-fault and service-fault
+parts, on torch's errors).
 
 The batch-fault plan (`MPLC_TORCH_FAULT_PLAN`) turns the three families of
 failure a long sweep dies to into injectable, deterministic events, so
@@ -80,8 +80,10 @@ entries warn and are skipped; a repeated (kind, partner) pair warns and
 keeps the first entry; entries for partner ids outside the scenario warn
 and are dropped (`clip_partner_plan`).
 
-The JAX module's service and router plans wait for the port's service
-(ROADMAP.md queue 1).
+The service fault plan (`MPLC_TORCH_SERVICE_FAULT_PLAN`) addresses the
+sweep service's jobs by submission ordinal (grammar below). The JAX
+module's router plan waits for the port's fleet router (ROADMAP.md queue
+1 item 9b).
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ import warnings
 
 import torch
 
-from .constants import FAULT_PLAN_ENV, PARTNER_FAULT_PLAN_ENV
+from .constants import FAULT_PLAN_ENV, PARTNER_FAULT_PLAN_ENV, SERVICE_FAULT_PLAN_ENV
 
 
 class InjectedTransient(RuntimeError):
@@ -362,3 +364,181 @@ def normalized_plan_repr(plan: dict) -> str:
         for kind in sorted(plan[pid]):
             parts.append(f"{kind}@p{pid}:{plan[pid][kind]}")
     return ",".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# Service-level fault plan (MPLC_TORCH_SERVICE_FAULT_PLAN)
+# ---------------------------------------------------------------------------
+#
+# Where MPLC_TORCH_FAULT_PLAN injects batch-boundary faults into ONE engine,
+# this plan targets the multi-tenant sweep service (service/):
+# entries address jobs by their 1-based SUBMISSION ordinal, so a two-tenant
+# isolation test can fault exactly tenant A's job and assert tenant B's
+# results bit-identical to a solo run. Comma-separated entries:
+#
+#   crash@job2:batch3      an InjectedCrash at the dispatch boundary of
+#                          job 2's 3rd device batch (batch ordinals are
+#                          per-JOB: each tenant engine counts its own)
+#   oom@job2:batch3        ditto, InjectedOom (drives that job's private
+#                          degrade ladder; other tenants' caps untouched)
+#   transient@job2:batch3  ditto, InjectedTransient (rides the retry rung)
+#   reject@job4            admission control refuses the 4th submission
+#                          (clean ServiceRejected, counted as rejected)
+#   stall@job1:sec2        the scheduler sleeps 2 s before job 1's next
+#                          quantum (a simulated hang; consumed once, and
+#                          the stall bills against THAT job's deadline)
+#
+# Batch-kind entries are installed into the target job's private engine
+# injector at job start, so the firing semantics (once per entry, retries
+# keep their ordinal) are exactly `FaultInjector`'s. Malformed entries
+# warn and are skipped — same contract as the other plans.
+#
+# Chaos mode (the load harness's randomized-but-seeded extension):
+#
+#   chaos@rate0.05:seed7   every submitted job independently draws, with
+#                          probability 0.05, ONE random fault — an
+#                          injected crash, a transient, or a scheduler
+#                          stall — from a generator seeded by
+#                          (seed, job ordinal). The draw depends only on
+#                          the ordinal, never on scheduling order or
+#                          thread interleaving, so a chaos run is
+#                          REPLAYABLE: same seed + same submission order
+#                          = same faults, under any worker count.
+#
+# A chaos entry composes with explicit per-job entries (both apply); at
+# most one chaos entry is honored per plan (a duplicate warns and is
+# ignored). Chaos never injects `reject` or `oom`: admission decisions
+# stay deterministic, and an OOM would re-shape the victim's batch caps
+# rather than exercise the retry/stall recovery paths the harness is
+# probing (it remains available as an explicit per-job entry).
+
+_SERVICE_ENTRY_RE = re.compile(
+    r"^(crash|oom|transient)@job([0-9]+):batch([0-9]+)$"
+    r"|^(reject)@job([0-9]+)$"
+    r"|^(stall)@job([0-9]+):sec([0-9]+(?:\.[0-9]+)?)$"
+    r"|^(chaos)@rate([0-9]+(?:\.[0-9]+)?):seed([0-9]+)$")
+
+
+def parse_service_fault_plan(spec: str | None) -> dict:
+    """`{job_ordinal: {"batch": {(site, ordinal): [kind, ...]},
+    "reject": bool, "stall_sec": float}}` from the service-plan grammar,
+    plus — when the plan carries a chaos entry — a `"chaos"` key (a
+    string, so it can never collide with the integer job ordinals)
+    holding `{"rate": float, "seed": int}`. Job ordinals are 1-based
+    submission order. Malformed entries warn and are dropped;
+    empty/unset spec is the empty plan."""
+    plan: dict = {}
+    if not spec:
+        return plan
+
+    def slot(job: int) -> dict:
+        return plan.setdefault(job, {"batch": {}, "reject": False,
+                                     "stall_sec": 0.0})
+
+    for raw in spec.split(","):
+        entry = raw.strip()
+        if not entry:
+            continue
+        m = _SERVICE_ENTRY_RE.match(entry)
+        if m is None:
+            warnings.warn(
+                f"{SERVICE_FAULT_PLAN_ENV}: ignoring malformed entry "
+                f"{entry!r} (expected <crash|oom|transient>@job<J>:batch<B> "
+                "| reject@job<J> | stall@job<J>:sec<F> | "
+                "chaos@rate<F>:seed<N>)", stacklevel=2)
+            continue
+        if m.group(1):  # batch-boundary kind
+            job, ordinal = int(m.group(2)), int(m.group(3))
+            if job < 1 or ordinal < 1:
+                warnings.warn(
+                    f"{SERVICE_FAULT_PLAN_ENV}: ignoring entry {entry!r} "
+                    "(job and batch ordinals are 1-based)", stacklevel=2)
+                continue
+            slot(job)["batch"].setdefault(
+                ("dispatch", ordinal), []).append(m.group(1))
+        elif m.group(4):  # reject
+            job = int(m.group(5))
+            if job < 1:
+                warnings.warn(
+                    f"{SERVICE_FAULT_PLAN_ENV}: ignoring entry {entry!r} "
+                    "(job ordinals are 1-based)", stacklevel=2)
+                continue
+            slot(job)["reject"] = True
+        elif m.group(6):  # stall
+            job, sec = int(m.group(7)), float(m.group(8))
+            if job < 1:
+                warnings.warn(
+                    f"{SERVICE_FAULT_PLAN_ENV}: ignoring entry {entry!r} "
+                    "(job ordinals are 1-based)", stacklevel=2)
+                continue
+            slot(job)["stall_sec"] += sec
+        else:  # chaos
+            rate, seed = float(m.group(10)), int(m.group(11))
+            if not 0.0 <= rate <= 1.0:
+                warnings.warn(
+                    f"{SERVICE_FAULT_PLAN_ENV}: ignoring entry {entry!r} "
+                    "(chaos rate must be in [0, 1])", stacklevel=2)
+                continue
+            if "chaos" in plan:
+                warnings.warn(
+                    f"{SERVICE_FAULT_PLAN_ENV}: ignoring duplicate chaos "
+                    f"entry {entry!r} (keeping the first)", stacklevel=2)
+                continue
+            plan["chaos"] = {"rate": rate, "seed": seed}
+    return plan
+
+
+# chaos stall draws are short: the point is scheduling jitter (a quantum
+# that takes noticeably longer than its work), not wall-clock burn — a
+# thousand-job harness run at rate 0.05 sleeps ~1-4 s total
+_CHAOS_KINDS = ("crash", "transient", "stall")
+_CHAOS_STALL_RANGE = (0.02, 0.2)
+_CHAOS_MAX_BATCH = 3
+
+
+def chaos_entry(chaos: "dict | None", ordinal: int) -> "dict | None":
+    """The chaos plan's deterministic per-job draw: None (no fault for
+    this submission) or a plan-slot-shaped entry — `{"batch": {...},
+    "reject": False, "stall_sec": s}` — to merge with any explicit entry
+    for the same ordinal. The generator is seeded by (seed, ordinal)
+    alone, so the draw is identical under any worker count, submission
+    interleaving or retry schedule; batch-kind faults target an early
+    batch ordinal (1..3) so they reliably fire even on small games."""
+    if not chaos:
+        return None
+    rate = float(chaos.get("rate", 0.0))
+    if rate <= 0.0:
+        return None
+    import random
+    rng = random.Random((int(chaos.get("seed", 0)) << 24) ^ int(ordinal))
+    if rng.random() >= rate:
+        return None
+    kind = rng.choice(_CHAOS_KINDS)
+    if kind == "stall":
+        lo, hi = _CHAOS_STALL_RANGE
+        return {"batch": {}, "reject": False,
+                "stall_sec": round(rng.uniform(lo, hi), 3)}
+    batch = rng.randint(1, _CHAOS_MAX_BATCH)
+    return {"batch": {("dispatch", batch): [kind]}, "reject": False,
+            "stall_sec": 0.0}
+
+
+def merge_service_entries(*entries) -> "dict | None":
+    """Combine explicit and chaos-drawn plan entries for one job into a
+    fresh slot dict (batch fault lists concatenated per boundary, stall
+    seconds summed, reject OR'd). Returns None when every input is None
+    — the common no-fault case stays allocation-free."""
+    live = [e for e in entries if e]
+    if not live:
+        return None
+    out = {"batch": {}, "reject": False, "stall_sec": 0.0}
+    for e in live:
+        for key, kinds in (e.get("batch") or {}).items():
+            out["batch"].setdefault(key, []).extend(kinds)
+        out["reject"] = out["reject"] or bool(e.get("reject"))
+        out["stall_sec"] += float(e.get("stall_sec") or 0.0)
+    return out
+
+
+def service_fault_plan_from_env() -> dict:
+    return parse_service_fault_plan(os.environ.get(SERVICE_FAULT_PLAN_ENV))

@@ -122,6 +122,24 @@ SPAN_REGISTRY = {
                   "stub (attrs: tenant/rounds/stamp)",
     "live.restore": "evicted live game restored from its WAL on touch "
                     "(attrs: tenant/rounds/stamp/restore_s)",
+    "live.ingest": "one wire round accepted via POST /live/<tenant>/"
+                   "round (attrs: tenant/stamp/rounds)",
+    "service.submit": "job accepted onto the service queue",
+    "service.reject": "admission refused (backpressure or fault plan)",
+    "service.slice": "one scheduling quantum of one job (attrs: tenant/job/"
+                     "batches/coalitions/epochs/samples/packed_batches/"
+                     "device_sec/device_basis)",
+    "service.stall": "injected scheduler stall (service fault plan)",
+    "service.shed": "job shed by the overload admission governor "
+                    "(attrs: priority/queue_wait_p99_sec/retry_after_sec)",
+    "service.job": "terminal job event (attrs incl. SLO: queue_wait_sec/"
+                   "ttfv_sec/deadline_missed)",
+    "service.job_fault": "one failed job attempt (pre retry/quarantine)",
+    "service.recover": "journal-seeded job recovery",
+    "service.journal_broken": "WAL append failure (journaling disabled)",
+    "service.auth_reject": "submit-path credential check failed (attrs: "
+                           "tenant): a synchronous auth error, never a "
+                           "quarantine",
     "flight.dump": "flight-recorder postmortem written (attrs: reason/"
                    "path/records)",
 }

@@ -89,7 +89,7 @@ def compile_cache_entries(path: str | None) -> int | None:
     return sum(len(files) for _, _, files in os.walk(path))
 
 
-PROFILE_DIR_ENV = "MPLC_TORCH_PROFILE_DIR"
+PROFILE_DIR_ENV = constants.PROFILE_DIR_ENV
 _profile_seq = itertools.count(1)
 
 

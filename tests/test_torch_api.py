@@ -48,9 +48,9 @@ ROOT = Path(__file__).resolve().parents[1]
 NOT_PORTED = {
     "models": {"adam_like_keras", "rmsprop_like_keras"},   # optax helpers
     "ops": {"broadcast"},          # aggregate reshapes its weights itself
-    "obs": {"export"},             # the live endpoints: queue 1 item 9
+    "service": {"FleetRouter", "RoutedJobFailed"},   # the fleet router: queue 1 item 9b
 }
-SUBPACKAGES = ("contrib", "data", "models", "mpl", "ops", "obs", "live")
+SUBPACKAGES = ("contrib", "data", "models", "mpl", "ops", "obs", "live", "service")
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)

@@ -3,8 +3,9 @@ retraining sweep, SVARM, seqavg, lflip, the partner fault plan, fused
 wide steps, dropout masks and the CIFAR10 and ESC50 CNNs' training forward
 passes against the CPU, fp32 reproducibility (the IMDB model's embedding
 gradient too), the CLI's Titanic grid against the CPU's, and the
-retrain-free path traced and profiled on the card, and every model's
-gradients at every step width (the gradient-call width rule).
+retrain-free path traced and profiled on the card, every model's
+gradients at every step width (the gradient-call width rule), the live
+tier, and the sweep service's jobs against the solo engine and K1.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -681,3 +682,61 @@ def test_live_stream_flattened_on_the_card_equals_the_host_flattening(cuda, prec
     assert got.is_cuda and got.dtype == dtype
     assert torch.equal(got.cpu(), torch.from_numpy(want).to(dtype))
     assert torch.equal(got_init.cpu(), torch.from_numpy(want_init.astype(np.float32)))
+
+
+def test_titanic_service_job_on_the_card_is_bit_equal_to_the_solo_engine(cuda, monkeypatch):
+    """Two tenants through the sweep service on the card, quanta of 3
+    coalitions and two workers sharing the card: each tenant's v(S)
+    bit-equal to the port's solo engine on the card."""
+    from mplc_tpu_torch.contrib.engine import CharacteristicEngine
+    from mplc_tpu_torch.service import SweepService
+    monkeypatch.setenv("MPLC_TORCH_COALITIONS_PER_DEVICE", "2")
+    subsets = powerset_order(4)
+    solo = {seed: CharacteristicEngine(_live_titanic_seed("cuda", seed)).evaluate(subsets)
+            for seed in (0, 1)}
+    for workers in (None, 2):
+        svc = SweepService(start=workers is not None, workers=workers, slice_coalitions=3)
+        jobs = {seed: svc.submit(_live_titanic_seed("cuda", seed), tenant=f"t{seed}")
+                for seed in (0, 1)}
+        if workers is None:
+            svc.run_until_idle()
+        for job in jobs.values():
+            job.result(timeout=600)
+        svc.shutdown()
+        for seed, job in jobs.items():
+            got = np.array([job.values[s] for s in subsets])
+            assert got.tobytes() == solo[seed].tobytes(), (workers, seed)
+            assert job.device_seconds > 0
+
+
+def test_live_query_job_launches_k1_and_equals_exact_reconstructed(cuda):
+    """A live query job through the service on the card: K1 launches and
+    the job's v(S) and scores are `exact_reconstructed`'s bit for bit."""
+    from mplc_tpu_torch.service import SweepService
+    sc = _live_titanic("cuda", 4)
+    c = Contributivity(sc)
+    c.exact_reconstructed()
+    want = dict(c._reconstructor().values)
+    svc = SweepService(start=False)
+    game = svc.live_game(_live_titanic("cuda", 4), tenant="t")
+    rec = record_updates(game.engine)
+    for r in range(rec.rounds):
+        svc.append_round("t", {g: {k: v[r] for k, v in d.items()} for g, d in rec.deltas.items()},
+                         rec.weights[r])
+    before = trk.launches
+    job = svc.submit_live("t", method="exact")
+    svc.run_until_idle()
+    assert job.status == "completed" and trk.launches > before
+    assert job.values == want
+    assert np.asarray(job.result(1.0)).tobytes() == c.contributivity_scores.tobytes()
+    svc.shutdown()
+
+
+def _live_titanic_seed(device, seed, partners=4):
+    sc = Scenario(partners, [(i + 1) / sum(range(1, partners + 1)) for i in range(partners)],
+                  is_dry_run=True, dataset=load_titanic(), epoch_count=2, minibatch_count=2,
+                  gradient_updates_per_pass_count=2, is_early_stopping=False, seed=seed,
+                  device=device)
+    sc.instantiate_scenario_partners()
+    sc.split_data()
+    return sc

@@ -31,7 +31,9 @@ def test_port_files_found():
     for module in ("obs/numerics.py", "ops/recon_kernel.py", "constants.py",
                    "contrib/reconstruct.py", "models/zoo.py", "mpl/engine.py",
                    "obs/trace.py", "obs/report.py", "obs/chrome_trace.py",
-                   "obs/metrics.py", "obs/flight.py", "obs/analyze_trace.py"):
+                   "obs/metrics.py", "obs/flight.py", "obs/analyze_trace.py",
+                   "obs/export.py", "parallel/fleet.py", "service/admission.py",
+                   "service/packer.py", "service/scheduler.py"):
         assert REPO / "mplc_tpu_torch" / module in FILES, module
 
 
