@@ -81,7 +81,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
    [0, 1], Shapley values summing to v(N)), its first multi-partner batch
    again masked (printed), and that batch on slots and masked under the
    deterministic reduce (bit-equal); the seq-pure and
-   seq-with-final-agg fits at 10 partners (accuracy above 0.3); Titanic
+   seq-with-final-agg fits at 10 partners, 1 epoch (accuracy above 0.3); Titanic
    seqavg (params within 1e-4) and a small MNIST lflip fit (theta within
    1e-5, weights within Adam's step bound, beside fedavg's as a control)
    on the card against the CPU. No reconstruction kernel launches in this
@@ -117,7 +117,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
    B = 16. (c) A 3-partner fit on the card and on the CPU from one seed:
    every dropout mask drawn bit-equal, final params within 1e-4. (d) The
    recording made again, bit-equal. (e) One batch of coalitions on slots
-   and masked under the deterministic reduce: bit-equal v(S);
+   and masked under the deterministic reduce, 1 epoch: bit-equal v(S);
 16. imdb: bench config 4's scenario (bench.py:1870-1872: SMCS on IMDB, 4
    partners split (i+1)/10) with bench's training (`_make_scenario`:
    fedavg, data-volume, minibatch 10, gup 8, no early stopping, seed 0)
@@ -330,6 +330,36 @@ Phases, each of which fails the script (non-zero exit, no result line):
    `/healthz` answers 200 with a block for each worker, and a tenant's
    token sees its own `/varz` live game in full and the other redacted.
    Each part's seconds and K1's launches by width are printed.
+25. router: the fleet router, the load harness and the fleet collector
+   (mplc_tpu_torch/service/router.py, load_gen.py, obs/fleet_view.py),
+   reusing the process's warm state. (a) [service] (a)'s two tenants
+   routed by a `FleetRouter` over two inline journaled shards (one on
+   each); after one `pump()` (each tenant's first quantum of 16) tenant
+   0's shard is killed with `kill_shard` and its job fails over to the
+   survivor, seeded from the dead shard's WAL: tenant 0's 31 v(S)
+   bit-equal to [sweep]'s, trained only where the journal lacked them (16
+   recovered, 15 trained), tenant 1's bit-equal to a solo engine run of
+   its game, no reconstruction kernel launched. Then [service] (c)'s
+   GTG-Shapley job (no profiler) routed to the survivor, K1's counts from
+   0: its scores bit-equal to [slice]'s, K1 launched as often as in
+   [service] (c) and K1-bf16 not, K1 against its plain version on the
+   job's stream. (b) `load_gen.run_load` on the card: 64 jobs of Titanic
+   games (2 and 3 partners, seeds 0-2, 1 epoch), tiers 0-2, under
+   chaos@rate0.05:seed7, two worker threads, with MPLC_TORCH_METRICS_PORT
+   set: every accepted job terminal, none stuck, sheds classified, every
+   completed table bit-equal to a solo engine on the card, /metrics
+   (scraped over HTTP) counting the harness's completed jobs; outcomes,
+   jobs/s, coalitions/s and each tier's p50/p99 end-to-end and queue-wait
+   seconds printed. (c) `load_gen.run_router` with 16 jobs (Titanic games
+   of 4 and 5 partners) on 2 shard processes (`python3 -m
+   mplc_tpu_torch.load_gen --router-shard`, each its own CUDA context on
+   the card) and shardkill@shard0:sec3: shard 0 SIGKILLed 3 s in, once it
+   holds a job in flight whose values its WAL holds; jobs failed over,
+   one carrying v(S) from shard 0's WAL; every job completed and
+   bit-equal to a solo run on the card; `FleetCollector` over the state folder sees 2
+   shards, 1 fresh; `/fleet/metrics` answers 200; each shard's peak memory
+   on the card printed. Each part's seconds and K1's launches by width
+   are printed.
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -376,8 +406,10 @@ from mplc_tpu_torch.data.datasets import (Dataset, load_cifar10, load_mnist,  # 
 from mplc_tpu_torch.obs import (analyze_trace, chrome_trace, devcost, flight,  # noqa: E402
                                 metrics, numerics, report, trace)
 from mplc_tpu_torch.obs import export as obs_export  # noqa: E402
-from mplc_tpu_torch.service import (JobShed, ServiceOverloaded, SweepJournal,  # noqa: E402
-                                    SweepService)
+from mplc_tpu_torch.service import (FleetRouter, JobShed, ServiceOverloaded,  # noqa: E402
+                                    SweepJournal, SweepService)
+from mplc_tpu_torch import load_gen  # noqa: E402
+from mplc_tpu_torch.parallel import fleet  # noqa: E402
 from mplc_tpu_torch.mpl import dropout  # noqa: E402
 from mplc_tpu_torch.mpl import approaches  # noqa: E402
 from mplc_tpu_torch.mpl.engine import MplTrainer, upload  # noqa: E402
@@ -1552,7 +1584,8 @@ def phase_variants() -> None:
                               "v(S) differ")
 
     for approach in ("seq-pure", "seq-with-final-agg"):
-        s = mnist_scenario([], approach=approach)
+        # 1 epoch of bench config 1's 2: cut for the script's time limit
+        s = mnist_scenario([], approach=approach, epoch_count=1)
         s.instantiate_scenario_partners()
         s.split_data()
         mpl = s.multi_partner_learning_approach(s)
@@ -1968,7 +2001,8 @@ def card_vs_cpu_fit(tag: str, dataset, train_rows: int, test_rows: int) -> float
 
 def cifar_slots_vs_masks(sweep: dict) -> float:
     """(e): the first 16 multi-partner coalitions in one batch, on slots
-    (3 wide) and masked, under the deterministic reduce: bit-equal v(S)."""
+    (3 wide) and masked, under the deterministic reduce, 1 epoch of the
+    sweep's 2 (cut for the script's time limit): bit-equal v(S)."""
     eng = sweep["scenario"]._charac_engine
     P = CIFAR_PARTNERS
     subsets = [s for s in powerset_order(P) if 1 < len(s) <= 3][:16]
@@ -1980,7 +2014,7 @@ def cifar_slots_vs_masks(sweep: dict) -> float:
         gens = [eng.coalition_generator(s) for s in subsets]
         state = tr.init_state(gens, P, DEVICE)
         coal = torch.from_numpy(eng._coalition_arrays(subsets, slots)).to(DEVICE)
-        tr.epoch_chunk(state, eng.stacked, eng.val, coal, gens, cfg.epoch_count)
+        tr.epoch_chunk(state, eng.stacked, eng.val, coal, gens, 1)
         values.append(tr.finalize(state, eng.test)[1].cpu().numpy())
     wall = time.perf_counter() - t0
     masked, slotted = values
@@ -4070,7 +4104,217 @@ def phase_service(sl, sweep: dict, card) -> dict:
     print(f"[service] K1 launches {launches} by width {json.dumps(widths)} "
           f"((c) the GTG job, (d) the live jobs)")
     print(f"[service] all parts passed in {time.perf_counter() - t0:.2f} s")
-    return {"launches": launches, "widths": widths}
+    return {"launches": launches, "widths": widths, "gtg_launches": c["launches"]}
+
+
+# [router]: the routed front of the service. (a) [service] (a)'s two tenants
+# behind a FleetRouter over two inline journaled shards, tenant 0's shard
+# killed after one pump, then [service] (c)'s GTG job routed to the
+# survivor; (b) the load harness on the card (bench config 7's shape at 64
+# jobs); (c) two shard processes on the card (bench config 11's plan; its
+# eight 2-3 partner games end on the card before the kill at 3 s, so the
+# games are larger and twice as many, and shard 0 still works at the kill)
+ROUTER_LOAD = dict(jobs=64, partner_shapes=(2, 3), game_seeds=(0, 1, 2), tiers=(0, 1, 2),
+                   chaos_plan="chaos@rate0.05:seed7", workers=2, threaded=True, epochs=1)
+ROUTER_PROCESSES = dict(jobs=16, shards=2, partner_shapes=(4, 5),
+                        fault_plan="shardkill@shard0:sec3")
+
+
+def router_failover(sweep: dict, service: dict, sl, work: Path, card) -> dict:
+    """(a) [service] (a)'s tenants on two inline journaled shards behind one
+    FleetRouter, tenant 0's shard killed after the first pump: tenant 0's
+    31 v(S) bit-equal to [sweep]'s, trained only where its journal lacked
+    them; tenant 1's bit-equal to a solo engine. Then [service] (c)'s GTG
+    job routed to the survivor: [slice]'s scores, [service] (c)'s K1
+    launches, K1 against its plain version on its stream."""
+    P = SWEEP_PARTNERS
+    subsets = powerset_order(P)
+    want0 = np.array([sweep["scenario"]._charac_engine.charac_fct_values[s] for s in subsets])
+    t0 = time.perf_counter()
+    solo1 = CharacteristicEngine(prepared(mnist_scenario(["Shapley values"], P, seed=1)))
+    want1 = solo1.evaluate(subsets)
+    solo_s = time.perf_counter() - t0
+    del solo1
+    metrics.reset()
+    k1_reset()
+    t0 = time.perf_counter()
+    shards = {sid: _KeepStream(journal_path=work / f"router_{sid}.jsonl", start=False)
+              for sid in ("s0", "s1")}
+    router = FleetRouter(shards=shards, backoff_sec=0.0)
+    try:
+        handles = [router.submit(prepared(mnist_scenario(["Shapley values"], P, seed=seed)),
+                                 tenant=f"tenant{i}", job_id=f"mnist{i}")
+                   for i, seed in enumerate(SERVICE_SEEDS)]
+        placed = [h.shard_id for h in handles]
+        check(placed == ["s0", "s1"], f"(a) the tenants were placed on {placed}")
+        router.pump()
+        first = len(handles[0]._inner._stream)
+        check(first == shards["s0"]._slice, f"(a) tenant 0's first quantum harvested {first}")
+        router.kill_shard("s0")
+        killed_s = time.perf_counter() - t0
+        router.run_until_idle(timeout=600)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        h0, h1 = handles
+        check(h0.status == h1.status == "completed", f"(a) {h0.status}, {h1.status}")
+        check(h0.failed_over and h0.shard_id == "s1" and not h1.failed_over,
+              "(a) tenant 0 did not fail over alone to s1")
+        v0 = np.array([h0.values()[s] for s in subsets])
+        v1 = np.array([h1.values()[s] for s in subsets])
+        trained0 = sum(b["coalitions"] for b in h0._inner.engine.batch_log)
+        check(v0.tobytes() == want0.tobytes(), "(a) tenant 0's v(S) differ from [sweep]'s")
+        check(h0._inner.recovered_values == first and trained0 == len(subsets) - first,
+              f"(a) tenant 0 recovered {h0._inner.recovered_values} values and trained "
+              f"{trained0}")
+        check(v1.tobytes() == want1.tobytes(), "(a) tenant 1's v(S) differ from its solo run")
+        check(recon_kernel.launches == recon_kernel.launches_bf16 == 0,
+              "(a) the routed sweeps launched a reconstruction kernel")
+        stats = dict(router.stats)
+        check(stats["failovers"] == 1 and stats["repins"] == 1 and stats["routed"] == 2,
+              f"(a) router totals {stats}")
+        print(f"[router] (a) 2 tenants x {len(subsets)} coalitions on 2 inline shards: "
+              f"{sweep_s:.2f} s ({killed_s:.2f} s to the kill); tenant 0 recovered "
+              f"{h0._inner.recovered_values} values from s0's WAL and trained {trained0} on s1, "
+              f"its v(S) bit-equal to [sweep]'s; tenant 1 bit-equal to its solo run "
+              f"({solo_s:.2f} s); router {json.dumps(stats)}")
+        sc = prepared(mnist_scenario(["GTG-Shapley"]))
+        k1_reset()
+        t1 = time.perf_counter()
+        job = router.submit(sc, method="GTG-Shapley", tenant="main")
+        router.run_until_idle(timeout=600)
+        torch.cuda.synchronize()
+        gtg_s = time.perf_counter() - t1
+        launches, bf16, widths = k1_counts()
+    finally:
+        router.close()
+        for svc in shards.values():
+            svc.shutdown(drain=False)
+    check(job.status == "completed" and job.shard_id == "s1",
+          f"(a) the GTG job is {job.status} on {job.shard_id}")
+    check(np.asarray(job.result(1.0)).tobytes() == np.asarray(sl["gtg"]).tobytes(),
+          "(a) the routed GTG job's scores differ from [slice]'s")
+    check(launches == service["gtg_launches"] and bf16 == 0,
+          f"(a) the routed GTG job launched K1 {launches} times, K1-bf16 {bf16} "
+          f"([service] (c): {service['gtg_launches']}, 0)")
+    recon = job._inner._kept_recon
+    job._inner._kept_recon = None
+    sub = powerset_order(PARTNERS)[:15] + [()]
+    masks = torch.from_numpy(recon.engine._coalition_arrays(sub)).to(DEVICE)
+    wn2 = recon_kernel.normalized_round_weights(masks, recon._weights).reshape(len(sub), -1)
+    entry = kernel_entry(recon_kernel.KERNEL, wn2.contiguous(), recon._d2, recon._init,
+                         launches, card, timed=False)
+    print(f"[router] (a) GTG-Shapley job routed to the survivor: {gtg_s:.2f} s, K1 launches "
+          f"{launches} by width {json.dumps(widths)}, scores bit-equal to [slice]'s; K1 "
+          f"against its plain version on the job's stream {entry['shape']}: max abs err "
+          f"{entry['max_abs_err']:.3g}")
+    return {"launches": launches, "widths": widths,
+            "seconds": time.perf_counter() - t0 + solo_s}
+
+
+def router_load() -> dict:
+    """(b) The load harness on the card: bench config 7's shape at 64 jobs,
+    chaos, two workers, threaded; /metrics scraped over HTTP."""
+    metrics.reset()
+    t0 = time.perf_counter()
+    with knob(constants.METRICS_PORT_ENV, str(free_port())):
+        try:
+            rep = load_gen.run_load(timeout_sec=600, device=DEVICE, **ROUTER_LOAD)
+        finally:
+            obs_export.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    inv, sat = rep["invariant"], rep["saturation"]
+    scrape = rep["metrics_scrape"] or {}
+    tiers = {t: {"e2e_p50": r["e2e_s"]["p50"], "e2e_p99": r["e2e_s"]["p99"],
+                 "queue_wait_p50": r["queue_wait_s"]["p50"],
+                 "queue_wait_p99": r["queue_wait_s"]["p99"], "completed": r["completed"]}
+             for t, r in rep["per_tier"].items()}
+    print(f"[router] (b) load harness, {ROUTER_LOAD['jobs']} jobs, "
+          f"{ROUTER_LOAD['chaos_plan']}, {ROUTER_LOAD['workers']} workers: {wall:.2f} s "
+          f"(run {rep['wallclock_s']:.2f} s); outcomes {json.dumps(rep['outcomes'])}; "
+          f"{sat['completed_jobs_per_s']:.3f} jobs/s, {sat['completed_coalitions_per_s']:.2f} "
+          f"coalitions/s; overload backoffs {sat['overload_backoffs']}; faults injected "
+          f"{rep['service_report'].get('resilience', {}).get('faults_injected')}")
+    print(f"[router] (b) per tier (seconds) {json.dumps(tiers)}")
+    check(inv["holds"], f"(b) the load invariant fails: {json.dumps(inv)}")
+    check(inv["accepted"] == ROUTER_LOAD["jobs"] and inv["completed_games_checked"] > 0,
+          f"(b) accepted {inv['accepted']}, games checked {inv['completed_games_checked']}")
+    check(scrape.get("mplc_service_jobs_completed") == rep["outcomes"].get("completed"),
+          f"(b) /metrics says {scrape.get('mplc_service_jobs_completed')} jobs completed, "
+          f"the harness {rep['outcomes'].get('completed')}")
+    return {"seconds": wall}
+
+
+def router_processes() -> dict:
+    """(c) Two shard processes on the card behind a FleetRouter that finds
+    them through the state folder, shard 0 SIGKILLed 3 s in, once it holds
+    work in progress: the router invariant with jobs failed over, one of
+    them carrying values from shard 0's WAL, the fleet collector over the
+    state folder (2 shards, 1 fresh), /fleet/metrics at 200, each shard's
+    peak memory."""
+    from mplc_tpu_torch.obs import fleet_view
+
+    def after(router, state_dir) -> dict:
+        snap = fleet_view.FleetCollector(state_dir=state_dir, stale_sec=2.0).collect()
+        srv = obs_export.start(free_port())
+        try:
+            status, text = http(f"http://127.0.0.1:{srv.port}/fleet/metrics", "")
+        finally:
+            obs_export.stop()
+        rows = fleet.cluster_view(state_dir, include_metrics=True)["shards"]
+        peaks = {sid: ((row.get("metrics") or {}).get("gauges") or {}).get(
+            "engine.device_mem_high_water_bytes") for sid, row in rows.items()}
+        return {"shard_count": snap["shard_count"], "fresh_shards": snap["fresh_shards"],
+                "merged_sources": snap["merged_sources"], "fleet_metrics_status": status,
+                "fleet_series": sum(1 for ln in text.splitlines()
+                                    if ln.startswith("mplc_fleet_")),
+                "peak_bytes": peaks}
+
+    t0 = time.perf_counter()
+    rep = load_gen.run_router(device=DEVICE, timeout_sec=300, on_routed=after,
+                              **ROUTER_PROCESSES)
+    wall = time.perf_counter() - t0
+    inv, seen = rep["invariant"], rep.get("on_routed") or {}
+    failed_over = [j["job"] for j in rep.get("jobs", []) if j["failed_over"]]
+    print(f"[router] (c) {ROUTER_PROCESSES['jobs']} jobs on {ROUTER_PROCESSES['shards']} "
+          f"shard processes, {ROUTER_PROCESSES['fault_plan']}: {wall:.2f} s (start-up "
+          f"{rep.get('startup_s', 0):.2f} s, routed run {rep.get('wallclock_s', 0):.2f} s); "
+          f"outcomes {json.dumps(rep.get('outcomes'))}; router {json.dumps(rep.get('router'))}; "
+          f"shard 0 killed at t+{inv['kills_fired_sec'][0]} s; failed-over jobs "
+          f"{failed_over}, {inv['values_recovered_from_wal']} v(S) recovered from shard 0's "
+          f"WAL; exit codes {json.dumps(rep['exit_codes'])}")
+    print(f"[router] (c) fleet collector {json.dumps({k: v for k, v in seen.items() if k != 'peak_bytes'})}; "
+          f"peak memory on the card by shard (MiB) " + json.dumps(
+              {sid: (round(b / 2 ** 20, 1) if b else None)
+               for sid, b in seen.get("peak_bytes", {}).items()}))
+    check(inv["holds"] and inv["failovers"] >= 1 and inv["stuck"] == 0,
+          f"(c) the router invariant fails: {json.dumps(inv)}")
+    check(failed_over and inv["values_recovered_from_wal"] >= 1,
+          f"(c) no job failed over with values from shard 0's WAL: {json.dumps(inv)}")
+    check(inv["completed_games_checked"] > 0 and rep["outcomes"].get("completed")
+          == ROUTER_PROCESSES["jobs"], f"(c) outcomes {rep['outcomes']}")
+    check(rep["exit_codes"].get("s0") == -9, f"(c) shard 0 exited {rep['exit_codes']}")
+    check(seen.get("shard_count") == 2 and seen.get("fresh_shards") == 1,
+          f"(c) the fleet collector saw {seen}")
+    check(seen.get("fleet_metrics_status") == 200 and seen.get("fleet_series", 0) > 0,
+          f"(c) /fleet/metrics answered {seen.get('fleet_metrics_status')}")
+    return {"seconds": wall}
+
+
+def phase_router(sl, sweep: dict, service: dict, card) -> dict:
+    """The fleet router, the load harness and the fleet collector, (a)-(c),
+    reusing the process's warm state."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mplc_router_") as work:
+        a = router_failover(sweep, service, sl, Path(work), card)
+    b = router_load()
+    c = router_processes()
+    print(f"[router] seconds (a) {a['seconds']:.2f}, (b) {b['seconds']:.2f}, "
+          f"(c) {c['seconds']:.2f}")
+    print(f"[router] K1 launches {a['launches']} by width {json.dumps(a['widths'])} "
+          f"((a) the routed GTG job)")
+    print(f"[router] all parts passed in {time.perf_counter() - t0:.2f} s")
+    return {"launches": a["launches"], "widths": a["widths"]}
 
 
 def main() -> int:
@@ -4127,6 +4371,7 @@ def main() -> int:
     paths["devcost"] = rung_free("devcost", phase_devcost, sl, sweep, ledger_dir, card)
     paths["live"] = rung_free("live", phase_live, sl, card)
     paths["service"] = rung_free("service", phase_service, sl, sweep, card)
+    paths["router"] = rung_free("router", phase_router, sl, sweep, paths["service"], card)
     for e in kernels:
         B = e["shape"]["B"]
         if not e["name"].startswith(recon_kernel.KERNEL_BF16):

@@ -475,3 +475,38 @@ METRICS_TOKEN_ENV = "MPLC_TORCH_METRICS_TOKEN"
 FLEET_STATE_DIR_ENV = "MPLC_TORCH_FLEET_STATE_DIR"
 FLEET_SHARD_ID_ENV = "MPLC_TORCH_FLEET_SHARD_ID"
 FLEET_STALE_SEC_ENV = "MPLC_TORCH_FLEET_STALE_SEC"
+#   MPLC_TORCH_FLEET_PEERS      comma-separated host:port /varz endpoints
+#                               the fleet collector (obs/fleet_view.py)
+#                               scrapes with the operator's token
+FLEET_PEERS_ENV = "MPLC_TORCH_FLEET_PEERS"
+
+# The fleet router (service/router.py), the redirect-acting front over N
+# service shards, the JAX package's knobs and defaults, read when a
+# FleetRouter is built (MPLC_TORCH_ROUTER_SERVE when a request arrives):
+#   MPLC_TORCH_ROUTER_BUDGET           submit attempts a job gets (8), the
+#                                      first and every resubmission after a
+#                                      ServiceOverloaded or JobShed; past
+#                                      it the job fails classified
+#                                      (RoutedJobFailed)
+#   MPLC_TORCH_ROUTER_BACKOFF_SEC      base of the capped exponential
+#                                      backoff between resubmissions
+#                                      (0.05): attempt k waits
+#                                      max(retry_after hint,
+#                                      min(base * 2^(k-1), 32 * base))
+#   MPLC_TORCH_ROUTER_REPIN_OVERLOADS  overloads in a row from a tenant's
+#                                      pinned shard before the router
+#                                      re-pins it elsewhere (3), a
+#                                      journaled event
+#   MPLC_TORCH_ROUTER_FAULT_PLAN       the router's fault plan
+#                                      (faults.py): shardkill@shard1:sec5
+#   MPLC_TORCH_ROUTER_SERVE            "1" gives the telemetry server the
+#                                      routed-submission routes a
+#                                      ShardServer answers (POST
+#                                      /router/submit, GET /router/job).
+#                                      Off by default: a mutating HTTP
+#                                      surface is the operator's decision
+ROUTER_BUDGET_ENV = "MPLC_TORCH_ROUTER_BUDGET"
+ROUTER_BACKOFF_ENV = "MPLC_TORCH_ROUTER_BACKOFF_SEC"
+ROUTER_REPIN_OVERLOADS_ENV = "MPLC_TORCH_ROUTER_REPIN_OVERLOADS"
+ROUTER_FAULT_PLAN_ENV = "MPLC_TORCH_ROUTER_FAULT_PLAN"
+ROUTER_SERVE_ENV = "MPLC_TORCH_ROUTER_SERVE"

@@ -1,6 +1,6 @@
 """Deterministic fault injection and the error classifier (a copy of
-`mplc_tpu/faults.py`'s batch-fault, partner-fault and service-fault
-parts, on torch's errors).
+`mplc_tpu/faults.py`'s batch-fault, partner-fault, service-fault and
+router-fault parts, on torch's errors).
 
 The batch-fault plan (`MPLC_TORCH_FAULT_PLAN`) turns the three families of
 failure a long sweep dies to into injectable, deterministic events, so
@@ -94,7 +94,8 @@ import warnings
 
 import torch
 
-from .constants import FAULT_PLAN_ENV, PARTNER_FAULT_PLAN_ENV, SERVICE_FAULT_PLAN_ENV
+from .constants import (FAULT_PLAN_ENV, PARTNER_FAULT_PLAN_ENV, ROUTER_FAULT_PLAN_ENV,
+                        SERVICE_FAULT_PLAN_ENV)
 
 
 class InjectedTransient(RuntimeError):
@@ -542,3 +543,51 @@ def merge_service_entries(*entries) -> "dict | None":
 
 def service_fault_plan_from_env() -> dict:
     return parse_service_fault_plan(os.environ.get(SERVICE_FAULT_PLAN_ENV))
+
+
+# The router fault plan (`MPLC_TORCH_ROUTER_FAULT_PLAN`) injects into a
+# fleet router's routing table, as the service plan injects into one
+# scheduler:
+#
+#   shardkill@shard1:sec5   kill the named shard 5 seconds into the run
+#                           (the router abandons the shard without a
+#                           clean shutdown: its state file goes stale, its
+#                           journal keeps the incomplete jobs, and failover
+#                           must resubmit them elsewhere)
+#
+# The shard name matches a routing-table shard id exactly, or `shard<N>`
+# addresses the N-th shard (0-based) of the router's table, so one plan
+# works against generated `pid<...>` shard ids too. Times count from the
+# FleetRouter's construction.
+
+_ROUTER_ENTRY_RE = re.compile(
+    r"^(shardkill)@([A-Za-z0-9_.-]+):sec([0-9]+(?:\.[0-9]+)?)$")
+
+
+def parse_router_fault_plan(spec: str | None) -> list:
+    """`[{"kind": "shardkill", "shard": str, "at_sec": float}, ...]`
+    sorted by fire time, from the router-plan grammar above. A malformed
+    entry warns and is dropped (a typo in a chaos plan must never crash a
+    routed run); an empty or unset spec is the empty plan."""
+    plan: list = []
+    if not spec:
+        return plan
+    for raw in spec.split(","):
+        entry = raw.strip()
+        if not entry:
+            continue
+        m = _ROUTER_ENTRY_RE.match(entry)
+        if m is None:
+            warnings.warn(
+                f"{ROUTER_FAULT_PLAN_ENV}: ignoring malformed entry "
+                f"{entry!r} (expected shardkill@<shard>:sec<F>)",
+                stacklevel=2)
+            continue
+        plan.append({"kind": m.group(1), "shard": m.group(2),
+                     "at_sec": float(m.group(3))})
+    plan.sort(key=lambda e: e["at_sec"])
+    return plan
+
+
+def router_fault_plan_from_env() -> list:
+    return parse_router_fault_plan(os.environ.get(ROUTER_FAULT_PLAN_ENV))

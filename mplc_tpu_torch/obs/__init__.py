@@ -13,8 +13,10 @@ beyond the stdlib and add no device sync to the paths they instrument.
 Tracing writes JSONL when `MPLC_TORCH_TRACE_FILE` is set (a bounded
 in-memory ring for the flight recorder is always on); `report.sweep_report`
 turns collected records into the prep/dispatch/harvest split, the memo hit
-rate, padding waste and per-bucket throughput. The JAX package's
-aggregated fleet view (`obs/fleet_view.py`) is ROADMAP.md queue 1 item 10.
+rate, padding waste and per-bucket throughput. `fleet_view` merges every
+shard's metrics into one cluster snapshot (/fleet/metrics, /fleet/varz);
+its merged fleet timeline comes with the fleet sweep, ROADMAP.md queue 1
+item 10.
 """
 
 from . import chrome_trace, export, flight, metrics, report, trace

@@ -30,14 +30,18 @@ with these routes:
   POST /live/<tenant>/round
              one live round fed to the tenant's resident game (only with
              `MPLC_TORCH_LIVE_INGEST=1`).
-  /router/submit, /router/job
-             the routed-submission surface, answered by a registered
-             router sink; 404 while none is registered (the fleet router
-             that registers one is ROADMAP.md queue 1 item 9b).
+  POST /router/submit, GET /router/job
+             the routed-submission surface of a fleet router's shard
+             (`service/router.py` ShardServer): only with
+             `MPLC_TORCH_ROUTER_SERVE=1` and a registered sink, 404
+             otherwise.
   /fleet/metrics, /fleet/varz
-             the aggregated cluster view needs the fleet collector
-             (`obs/fleet_view.py`, ROADMAP.md queue 1 item 10); until the
-             port has it these answer 404 with a body that says so.
+             the aggregated cluster view (`obs/fleet_view.py`): every
+             shard's metrics the collector reaches (HTTP peers, the
+             published state folder) merged exactly, served with the same
+             credentials as above (the Prometheus text operator-only, the
+             JSON view redacted row by row for a tenant); 404 with no
+             collector configured, 503 when it fails.
 
 With the env var UNSET nothing happens: no socket, no thread — the
 instrumented paths cost exactly what they cost before. A plain port
@@ -99,6 +103,13 @@ METRICS_TOKEN_ENV = constants.METRICS_TOKEN_ENV
 # routes above.
 LIVE_INGEST_ENV = constants.LIVE_INGEST_ENV
 
+# Routed submission (the fleet router's HTTP peer surface): when set to
+# "1", the server grows `POST /router/submit` and `GET /router/job?id=`,
+# answered by the registered ShardServer sink. Off by default for the same
+# reason as live ingestion: a mutating HTTP surface is the operator's
+# decision, never a side effect of registering a sink.
+ROUTER_SERVE_ENV = constants.ROUTER_SERVE_ENV
+
 _lock = threading.Lock()
 _server: "TelemetryServer | None" = None
 _health_providers: dict = {}
@@ -135,12 +146,12 @@ def register_live_ingest(name: str, fn) -> None:
 
 
 def register_router(name: str, fn) -> None:
-    """Register a routed-submission sink (the fleet router's ShardServer,
-    ROADMAP.md queue 1 item 9b):
+    """Register a routed-submission sink (service/router.py ShardServer):
     `fn(op, payload)` handles `op="submit"` (one routed job wire
     document -> ack) and `op="job"` (`{"job": id}` -> status document).
     Same WeakMethod auto-unregister contract as the other registries;
-    the /router/* routes only exist while a sink is registered."""
+    the /router/* routes only exist with `MPLC_TORCH_ROUTER_SERVE=1` and
+    a sink registered."""
     with _lock:
         _router_sinks[name] = fn
 
@@ -196,11 +207,6 @@ def live_ingest(tenant: str, doc: dict) -> dict:
                       "SweepService running in this process?)")
 
 
-def _router_registered() -> bool:
-    with _lock:
-        return bool(_router_sinks)
-
-
 def router_dispatch(op: str, payload) -> dict:
     """Dispatch one routed-submission operation to the registered
     ShardServer sinks. Same contract shape as `live_ingest`: a sink
@@ -226,6 +232,16 @@ def router_dispatch(op: str, payload) -> dict:
         raise last
     raise LookupError("no routed-submission sink registered (is a "
                       "ShardServer running in this process?)")
+
+
+def _router_served() -> bool:
+    """The /router/* routes exist only when the operator asked for them
+    (`MPLC_TORCH_ROUTER_SERVE=1`) and a ShardServer sink is registered to
+    answer them; otherwise both answer 404, so probes learn nothing."""
+    if os.environ.get(ROUTER_SERVE_ENV) != "1":
+        return False
+    with _lock:
+        return bool(_router_sinks)
 
 
 def health_view() -> tuple[bool, dict]:
@@ -624,17 +640,45 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             self._reply(200, json.dumps(doc, default=str).encode(),
                         "application/json")
         elif path in ("/fleet/varz", "/fleet/metrics"):
-            # the aggregated cluster view needs the fleet collector
-            # (obs/fleet_view.py), which the port does not have yet
-            self._reply(404, b"the aggregated fleet view (/fleet/metrics, "
-                        b"/fleet/varz) needs the fleet collector, which this "
-                        b"package does not have yet\n", "text/plain")
+            # the aggregated cluster view (obs/fleet_view.py): the same
+            # credentials as the per-process routes. Prometheus text is
+            # operator-only, the JSON view serves tenants with every
+            # aggregated row under the redaction walk
+            role, viewer = self._auth_role(query)
+            if role == "denied" or (path == "/fleet/metrics"
+                                    and role not in ("open", "operator")):
+                return self._deny()
+            from . import fleet_view
+            coll = fleet_view.get_or_create_collector()
+            if coll is None:
+                return self._reply(
+                    404, b"no fleet collector configured (set "
+                    b"MPLC_TORCH_FLEET_PEERS or MPLC_TORCH_FLEET_STATE_DIR, "
+                    b"or install one via fleet_view.set_collector)\n",
+                    "text/plain")
+            try:
+                if path == "/fleet/metrics":
+                    merged = coll.collect().get("merged") or {}
+                    body = fleet_view.fleet_metrics_text(merged).encode()
+                    self._reply(200, body, "text/plain; version=0.0.4")
+                else:
+                    doc = coll.fleet_varz()
+                    if role == "tenant":
+                        doc = redact_varz(
+                            doc, viewer,
+                            key=os.environ.get(METRICS_TOKEN_ENV))
+                    self._reply(200,
+                                json.dumps(doc, default=str).encode(),
+                                "application/json")
+            except Exception as e:  # a collector failure is a 503, not a 500
+                self._reply(503, json.dumps(
+                    {"error": str(e)[:500]}).encode(), "application/json")
         elif path == "/router/job":
             # routed-job polling (the fleet router's result surface);
             # gated like the submit route — the pair only exists
             # together. Tenant-credentialed viewers may only read their
             # OWN jobs: the v(S) table is the tenant's game data.
-            if not _router_registered():
+            if not _router_served():
                 return self._reply(404, b"not found\n", "text/plain")
             role, viewer = self._auth_role(query)
             if role == "denied":
@@ -724,8 +768,9 @@ class _Handler(http.server.BaseHTTPRequestHandler):
     def do_POST(self) -> None:  # noqa: N802 — BaseHTTPRequestHandler API
         path, _, query = self.path.partition("?")
         if path == "/router/submit":
-            if not _router_registered():
-                # the mutating route doesn't exist without its sink
+            if not _router_served():
+                # same opt-in rule as live ingestion below: the mutating
+                # route doesn't exist unless the operator asked for it
                 return self._reply(404, b"not found\n", "text/plain")
             return self._router_submit()
         m = _LIVE_ROUND_RE.match(path)

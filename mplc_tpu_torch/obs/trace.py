@@ -140,6 +140,25 @@ SPAN_REGISTRY = {
     "service.auth_reject": "submit-path credential check failed (attrs: "
                            "tenant): a synchronous auth error, never a "
                            "quarantine",
+    "router.submit": "one job routed end to end by the fleet router "
+                     "(attrs: tenant/job/shard/attempts/route_s)",
+    "router.redirect": "one overload or shed redirect followed (attrs: "
+                       "tenant/job/from/to/attempt/retry_after_sec)",
+    "router.repin": "a tenant's sticky shard pin deliberately broken "
+                    "(attrs: tenant/from/to/reason=death|overload)",
+    "router.failover": "a dead shard drained from the routing table and "
+                       "its journaled incomplete jobs resubmitted "
+                       "(attrs: shard/jobs/resubmitted)",
+    "router.exhausted": "a job's routing budget ran out: the failure "
+                        "surfaced classified as RoutedJobFailed (attrs: "
+                        "tenant/job/attempts/budget)",
+    "router.fault": "a router fault-plan entry fired (attrs: kind/shard/"
+                    "at_sec)",
+    "fleet.collect": "one FleetCollector pass assembling the cluster "
+                     "snapshot (attrs: sources)",
+    "fleet.scrape": "one shard read (HTTP /varz, published state or a "
+                    "result file) by the fleet collector (attrs: shard/"
+                    "source/ok)",
     "flight.dump": "flight-recorder postmortem written (attrs: reason/"
                    "path/records)",
 }

@@ -3,16 +3,14 @@ fault-isolated multi-tenant sweep scheduling with a device-pinned worker
 pool and journaled crash recovery (scheduler.py), SLO-driven admission
 control, priority tiers and load shedding (admission.py), cross-tenant
 program packing bookkeeping (packer.py) and the checksummed write-ahead
-journal (journal.py) that the service and the live tier's games ride.
-
-Not yet ported (ROADMAP.md queue 1 item 9b): the fleet router of
-`mplc_tpu/service/router.py` — `FleetRouter`, `RoutedJobFailed`,
-`ShardUnavailable`, `InProcShard`, `HttpShard` and `ShardServer` — and
-the router fault plan."""
+journal (journal.py) that the service and the live tier's games ride,
+and the fleet router (router.py): the redirect-acting, tenant-sticky
+front over N service shards, with failover by journal replay."""
 
 from .admission import AdmissionController, TierQueue
 from .journal import JournalCorruptError, SweepJournal
 from .packer import CrossTenantPacker
+from .router import FleetRouter, RoutedJobFailed
 from .scheduler import (JobCancelled, JobQuarantined, JobShed,
                         ServiceAuthError, ServiceClosed, ServiceError,
                         ServiceOverloaded, ServiceRejected, SweepJob,
@@ -21,10 +19,12 @@ from .scheduler import (JobCancelled, JobQuarantined, JobShed,
 __all__ = [
     "AdmissionController",
     "CrossTenantPacker",
+    "FleetRouter",
     "JobCancelled",
     "JobQuarantined",
     "JobShed",
     "JournalCorruptError",
+    "RoutedJobFailed",
     "ServiceAuthError",
     "ServiceClosed",
     "ServiceError",

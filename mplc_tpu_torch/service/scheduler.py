@@ -1,6 +1,6 @@
 """Sweep-as-a-service: the multi-tenant scheduler (port of
-`mplc_tpu/service/scheduler.py`, one process: the fleet router is
-ROADMAP.md queue 1 item 9b).
+`mplc_tpu/service/scheduler.py`; the fleet router in front of N of them
+is service/router.py).
 
 A `SweepService` is a long-lived process-level engine front end: tenants
 submit `Scenario` + method jobs onto a bounded queue and get a `SweepJob`
@@ -568,6 +568,10 @@ class SweepService:
         # history (quarantining a torn tail), then appends to it
         self._journal = None
         self._journal_broken = False
+        # abandon() fences the WAL under this lock: no harvest of a quantum
+        # still running past the workers' join reaches it afterwards
+        self._journal_fence = threading.Lock()
+        self._journal_fenced = False
         # terminal jobs retained for handle lookups, FIFO-bounded so a
         # long-lived service's _jobs map can't grow without bound (the
         # caller's own handle keeps an evicted job alive)
@@ -1375,10 +1379,14 @@ class SweepService:
         running jobs stay non-terminal and the WAL on disk is exactly
         what a process death would leave, which is what a fleet router's
         failover replays. The currently-running quantum cannot be
-        preempted (it finishes, journaling its harvest — deterministic,
-        so a survivor's re-run of it is bit-identical); `timeout` bounds
-        the per-thread join. Idempotent; a no-op for inline
-        (start=False) services, which have no threads to stop."""
+        preempted: it finishes, journaling its harvest if it ends within
+        `timeout` (the per-thread join). A batch still on the card after
+        that (a long quantum) harvests nothing into the WAL, which is
+        fenced before abandon() returns, so the journal a router replays
+        is final, as a dead process's is. Either way a survivor's re-run
+        of its coalitions is bit-identical. Idempotent; an inline
+        (start=False) service has no threads to stop, and is only closed
+        and its journal fenced."""
         with self._lock:
             self._abandoned = True
             self._closed = True
@@ -1388,6 +1396,8 @@ class SweepService:
                     and w.thread is not threading.current_thread():
                 w.thread.join(timeout)
         self._workers = []
+        with self._journal_fence:
+            self._journal_fenced = True
 
     def shutdown(self, drain: bool = True,
                  timeout: "float | None" = None) -> None:
@@ -1481,8 +1491,8 @@ class SweepService:
             }
         # the full metrics snapshot rides along (shared log2 buckets):
         # this is what makes the published state dir a SERVERLESS fleet
-        # metrics source — the JAX package's FleetCollector (and the
-        # port's, ROADMAP.md queue 1 item 10) merges these per-shard
+        # metrics source — the FleetCollector (obs/fleet_view.py, in
+        # either package) merges these per-shard
         # snapshots into cluster-true per-tenant SLO quantiles without any
         # shard exposing an HTTP port
         payload["metrics"] = obs_metrics.snapshot()
@@ -1851,17 +1861,18 @@ class SweepService:
         their handles. (submit() is the synchronous path and propagates
         instead: an unacknowledged durability contract is the caller's to
         handle.)"""
-        if self._journal is None or self._journal_broken:
-            return
-        try:
-            self._journal.append_many(list(recs))
-        except OSError as e:
-            self._journal_broken = True
-            obs_trace.event("service.journal_broken", error=str(e)[:200])
-            logger.error(
-                "service: WAL append failed (%s) — journaling DISABLED; "
-                "crash recovery no longer covers work from this point on",
-                e)
+        with self._journal_fence:
+            if self._journal is None or self._journal_broken or self._journal_fenced:
+                return
+            try:
+                self._journal.append_many(list(recs))
+            except OSError as e:
+                self._journal_broken = True
+                obs_trace.event("service.journal_broken", error=str(e)[:200])
+                logger.error(
+                    "service: WAL append failed (%s) — journaling DISABLED; "
+                    "crash recovery no longer covers work from this point on",
+                    e)
 
     def _journal_new_values(self, job: SweepJob) -> None:
         """Append every not-yet-journaled `(tenant, subset, value)` to the

@@ -3,9 +3,11 @@ thread:
 
 - every subpackage's `__all__` equals the JAX package's, less the names
   that have no counterpart by design (the optax helpers
-  `adam_like_keras` and `rmsprop_like_keras`, `ops.aggregation.broadcast`)
-  and `obs.export`, the live endpoints that come with the port's service
-  (ROADMAP.md queue 1 item 9); every listed name imports;
+  `adam_like_keras` and `rmsprop_like_keras`, `ops.aggregation.broadcast`);
+  every listed name imports; `service` exports `FleetRouter` and
+  `RoutedJobFailed`, and the router's and the fleet collector's modules
+  (`service.router`, `obs.fleet_view`) have the JAX modules' public
+  names, less the fleet timeline that comes with the fleet sweep;
 - `import mplc_tpu_torch` loads `constants` and `obs`, as `import
   mplc_tpu` does, and no torch;
 - after a 2-partner Titanic Shapley run in both packages (the port fed
@@ -48,7 +50,6 @@ ROOT = Path(__file__).resolve().parents[1]
 NOT_PORTED = {
     "models": {"adam_like_keras", "rmsprop_like_keras"},   # optax helpers
     "ops": {"broadcast"},          # aggregate reshapes its weights itself
-    "service": {"FleetRouter", "RoutedJobFailed"},   # the fleet router: queue 1 item 9b
 }
 SUBPACKAGES = ("contrib", "data", "models", "mpl", "ops", "obs", "live", "service")
 
@@ -63,6 +64,33 @@ def test_subpackage_exports_match_jax(sub):
         assert getattr(tmod, name) is not None, name
     # every left-out name exists on the JAX side (the list stays honest)
     assert NOT_PORTED.get(sub, set()) <= set(jmod.__all__)
+
+
+# public names of the JAX modules a port module leaves out, and why
+MODULE_NOT_PORTED = {
+    # the merged fleet timeline reads a fleet sweep's output: ROADMAP.md
+    # queue 1 item 10, with the fleet sweep
+    "obs.fleet_view": {"merge_fleet_traces"},
+    "service.router": set(),
+}
+
+
+def _module_api(mod) -> set:
+    return {n for n, v in vars(mod).items()
+            if not n.startswith("_") and callable(v)
+            and getattr(v, "__module__", None) == mod.__name__}
+
+
+@pytest.mark.parametrize("name", sorted(MODULE_NOT_PORTED))
+def test_router_and_fleet_view_modules_match_jax(name):
+    jmod = importlib.import_module(f"mplc_tpu.{name}")
+    tmod = importlib.import_module(f"mplc_tpu_torch.{name}")
+    assert _module_api(tmod) == _module_api(jmod) - MODULE_NOT_PORTED[name]
+    assert MODULE_NOT_PORTED[name] <= _module_api(jmod)
+    from mplc_tpu_torch import service
+    assert service.FleetRouter is importlib.import_module(
+        "mplc_tpu_torch.service.router").FleetRouter
+    assert issubclass(service.RoutedJobFailed, service.ServiceError)
 
 
 def test_package_import_loads_constants_and_obs():

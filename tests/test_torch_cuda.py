@@ -5,7 +5,8 @@ passes against the CPU, fp32 reproducibility (the IMDB model's embedding
 gradient too), the CLI's Titanic grid against the CPU's, and the
 retrain-free path traced and profiled on the card, every model's
 gradients at every step width (the gradient-call width rule), the live
-tier, and the sweep service's jobs against the solo engine and K1.
+tier, the sweep service's jobs against the solo engine and K1, and routed
+jobs failed over between two shards on the card against the solo engine.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -707,6 +708,39 @@ def test_titanic_service_job_on_the_card_is_bit_equal_to_the_solo_engine(cuda, m
             got = np.array([job.values[s] for s in subsets])
             assert got.tobytes() == solo[seed].tobytes(), (workers, seed)
             assert job.device_seconds > 0
+
+
+def test_routed_titanic_jobs_fail_over_on_the_card_bit_equal_to_solo(cuda, tmp_path,
+                                                                     monkeypatch):
+    """Two inline journaled shards on the card behind a FleetRouter: the
+    shard holding both tenants' first quanta is killed after one pump, its
+    jobs fail over to the survivor seeded from its WAL, and every table is
+    bit-equal to the solo engine on the card."""
+    from mplc_tpu_torch.contrib.engine import CharacteristicEngine
+    from mplc_tpu_torch.service import FleetRouter, SweepService
+    monkeypatch.setenv("MPLC_TORCH_COALITIONS_PER_DEVICE", "2")
+    subsets = powerset_order(4)
+    solo = {seed: CharacteristicEngine(_live_titanic_seed("cuda", seed)).evaluate(subsets)
+            for seed in (0, 1)}
+    shards = {sid: SweepService(start=False, slice_coalitions=3,
+                                journal_path=str(tmp_path / f"{sid}.wal"))
+              for sid in ("s0", "s1")}
+    router = FleetRouter(shards=shards, backoff_sec=0.0)
+    router._pins.update({"t0": "s0", "t1": "s0"})
+    jobs = {seed: router.submit(_live_titanic_seed("cuda", seed), tenant=f"t{seed}")
+            for seed in (0, 1)}
+    router.pump()
+    router.kill_shard("s0")
+    router.run_until_idle(timeout=600)
+    assert router.stats["failovers"] == 1
+    for seed, h in jobs.items():
+        assert h.status == "completed" and h.failed_over and h.shard_id == "s1"
+        got = np.array([h.values()[s] for s in subsets])
+        assert got.tobytes() == solo[seed].tobytes(), seed
+    assert jobs[0]._inner.recovered_values == 3
+    router.close()
+    for svc in shards.values():
+        svc.shutdown(drain=False)
 
 
 def test_live_query_job_launches_k1_and_equals_exact_reconstructed(cuda):

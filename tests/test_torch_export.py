@@ -7,8 +7,10 @@ service's postmortems, after tests/test_export.py, on the CPU:
 - with MPLC_TORCH_METRICS_PORT set, a service serves /metrics, /varz and
   /healthz on loopback (503 on a worker stall); without it no thread or
   socket exists; bearer tokens gate /metrics and /varz and a tenant's
-  credential sees its own rows only; /fleet/* answer 404 (the port has no
-  fleet collector yet) and /router/* 404 while no router sink is registered;
+  credential sees its own rows only; /fleet/* answer 404 while no fleet
+  collector is configured; /router/* answer 404 unless
+  MPLC_TORCH_ROUTER_SERVE=1 and a router sink is registered, as in the JAX
+  package (a registered sink alone opens no mutating route);
 - a quarantined job and a corrupt journal each leave a flight-recorder
   postmortem; the report's slo row; a profiled job's torch.profiler trace.
 """
@@ -163,14 +165,17 @@ def test_service_serves_endpoints_when_port_set(monkeypatch):
         prov = health["providers"][svc._provider_key]
         assert prov["journal"] == "disabled" and prov["worker_alive"] is True
         assert _get(base + "/nope")[0] == 404 and _get(base + "/")[0] == 200
-        # no fleet collector in the port yet; no router without its knob
+        # no fleet collector configured; no router without its knob
         status, body = _get(base + "/fleet/varz")
         assert status == 404 and "fleet collector" in body
         assert _get(base + "/fleet/metrics")[0] == 404
         assert _get(base + "/router/job?id=x")[0] == 404
-        # a registered router sink answers the route
+        # a registered router sink answers the route once the operator
+        # opens it with MPLC_TORCH_ROUTER_SERVE=1
         export.register_router("r", lambda op, doc: {"job": doc["job"], "tenant": "t"})
         try:
+            assert _get(base + "/router/job?id=x")[0] == 404
+            monkeypatch.setenv("MPLC_TORCH_ROUTER_SERVE", "1")
             status, body = _get(base + "/router/job?id=x")
             assert status == 200 and json.loads(body)["job"] == "x"
         finally:
@@ -178,6 +183,65 @@ def test_service_serves_endpoints_when_port_set(monkeypatch):
     finally:
         svc.shutdown()
     assert svc._provider_key not in export.health_view()[1]["providers"]
+
+
+def _post(url, doc, token=None):
+    req = urllib.request.Request(url, data=json.dumps(doc).encode(), method="POST")
+    if token is not None:
+        req.add_header("Authorization", f"Bearer {token}")
+    try:
+        resp = urllib.request.urlopen(req, timeout=10)
+        return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+@pytest.mark.parametrize("serve,sink", [(None, True), ("0", True), ("1", False), ("1", True)])
+def test_router_routes_need_the_serve_knob_and_a_sink(monkeypatch, serve, sink):
+    """POST /router/submit and GET /router/job exist only with
+    MPLC_TORCH_ROUTER_SERVE=1 and a registered ShardServer sink: a sink
+    alone (the variable unset or not "1") gives 404, as the JAX export's
+    MPLC_TPU_ROUTER_SERVE gate does; with both the routes serve."""
+    from mplc_tpu_torch.service.router import ShardServer
+    if serve is not None:
+        monkeypatch.setenv("MPLC_TORCH_ROUTER_SERVE", serve)
+    srv = export.start(0)
+    base = f"http://127.0.0.1:{srv.port}"
+    svc = SweepService(start=False)
+    server = ShardServer(svc, lambda spec: scenario(0)) if sink else None
+    try:
+        status, body = _post(base + "/router/submit", {"tenant": "A", "job_id": "j1"})
+        job_status, job_body = _get(base + "/router/job?id=j1")
+        if serve == "1" and sink:
+            assert status == 200 and json.loads(body) == {"job": "j1", "tenant": "A"}
+            assert job_status == 200 and json.loads(job_body)["status"] == "queued"
+            assert _get(base + "/router/job?id=nope")[0] == 404
+            assert _post(base + "/router/submit", [1])[0] == 400
+        else:
+            assert (status, job_status) == (404, 404) and "j1" not in svc._jobs
+    finally:
+        if server is not None:
+            server.close()
+        svc.shutdown(drain=False)
+
+
+def test_router_gate_answers_as_the_jax_export(monkeypatch):
+    """A registered sink with the serve variable unset: 404 in both
+    packages; set: both serve the submission."""
+    from mplc_tpu.obs import export as jexp
+    for pkg, mod in (("MPLC_TORCH_", export), ("MPLC_TPU_", jexp)):
+        mod.register_router("r", lambda op, doc: {"job": "j", "tenant": "t"})
+        srv = mod.start(0)
+        base = f"http://127.0.0.1:{srv.port}"
+        try:
+            monkeypatch.delenv(pkg + "ROUTER_SERVE", raising=False)
+            closed = (_post(base + "/router/submit", {})[0], _get(base + "/router/job?id=j")[0])
+            monkeypatch.setenv(pkg + "ROUTER_SERVE", "1")
+            opened = (_post(base + "/router/submit", {})[0], _get(base + "/router/job?id=j")[0])
+        finally:
+            mod.unregister("r")
+            mod.stop()
+        assert (closed, opened) == ((404, 404), (200, 200)), pkg
 
 
 def test_healthz_flips_on_worker_stall(monkeypatch):

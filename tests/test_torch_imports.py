@@ -33,7 +33,8 @@ def test_port_files_found():
                    "obs/trace.py", "obs/report.py", "obs/chrome_trace.py",
                    "obs/metrics.py", "obs/flight.py", "obs/analyze_trace.py",
                    "obs/export.py", "parallel/fleet.py", "service/admission.py",
-                   "service/packer.py", "service/scheduler.py"):
+                   "service/packer.py", "service/scheduler.py", "service/router.py",
+                   "obs/fleet_view.py", "load_gen.py"):
         assert REPO / "mplc_tpu_torch" / module in FILES, module
 
 
@@ -47,3 +48,24 @@ def test_knobs_use_the_port_prefix():
     for path in FILES:
         names = set(re.findall(r"MPLC_[A-Z0-9_]+", path.read_text()))
         assert all(n.startswith("MPLC_TORCH_") for n in names), (path, names)
+
+
+def test_router_and_fleet_knobs_are_the_ports():
+    """The router's and the fleet collector's knobs, named in the modules
+    that read them, each with the JAX knob's name under the port's prefix."""
+    from mplc_tpu_torch import constants
+    want = {"ROUTER_BUDGET_ENV": "MPLC_TORCH_ROUTER_BUDGET",
+            "ROUTER_BACKOFF_ENV": "MPLC_TORCH_ROUTER_BACKOFF_SEC",
+            "ROUTER_REPIN_OVERLOADS_ENV": "MPLC_TORCH_ROUTER_REPIN_OVERLOADS",
+            "ROUTER_FAULT_PLAN_ENV": "MPLC_TORCH_ROUTER_FAULT_PLAN",
+            "ROUTER_SERVE_ENV": "MPLC_TORCH_ROUTER_SERVE",
+            "FLEET_PEERS_ENV": "MPLC_TORCH_FLEET_PEERS"}
+    assert {k: getattr(constants, k) for k in want} == want
+    port = REPO / "mplc_tpu_torch"
+    for module, knobs in (("service/router.py", ("ROUTER_BUDGET_ENV", "ROUTER_BACKOFF_ENV",
+                                                 "ROUTER_REPIN_OVERLOADS_ENV")),
+                          ("faults.py", ("ROUTER_FAULT_PLAN_ENV",)),
+                          ("obs/export.py", ("ROUTER_SERVE_ENV",)),
+                          ("obs/fleet_view.py", ("FLEET_PEERS_ENV",))):
+        text = (port / module).read_text()
+        assert all(k in text for k in knobs), module
