@@ -360,6 +360,36 @@ Phases, each of which fails the script (non-zero exit, no result line):
    shards, 1 fresh; `/fleet/metrics` answers 200; each shard's peak memory
    on the card printed. Each part's seconds and K1's launches by width
    are printed.
+26. fleet: the fleet sweep (mplc_tpu_torch/parallel/fleet.py), K1's and
+   K1-bf16's counts reset just before and required at 0 after (the sweep
+   retrains every coalition). (a) The MNIST CNN at full width on the
+   slice's data, bench config 9's fleet spec (5 partners, 2 epochs,
+   minibatch 10, gup 8, the deterministic reduce, pinned widths), 31
+   coalitions: one shard in process on the card, then 2 worker processes
+   at once on the card, each its own CUDA context, the bank's manifest in
+   a temporary MPLC_TORCH_COMPILE_CACHE_DIR; `verify_against` the 1-shard
+   ledger passes (zero ulp, tau-b 1.0, 31 of 31), the merged v(S) are
+   bit-equal, every shard ran the full sweep's widths and found its
+   programs in the manifest; `cache_merged.json` loaded by a fresh engine
+   on the card answers all 31 v(S) without training, its exact Shapley
+   values bit-equal to the reference's. Each shard's set-up, warm-up and
+   sweep seconds, programs, manifest hits and widths, and the critical
+   path `max(per_shard_sweep_s)` at W = 1 and 2 beside the card's name and
+   power limit (contention on one card, not scaling). (b) Titanic, 3
+   shards in process, shard 1 under MPLC_TORCH_FAULT_PLAN=
+   transient@batch1,oom@batch2 (backoff 0): verified against a 1-shard
+   Titanic ledger, shard 1's counters showing the retry and the cap
+   halving. (c) `python3 -m mplc_tpu_torch.parallel.fleet --selfcheck
+   --shards 2 --obs-dir <dir>` in a process of its own on the card: exit
+   0, `ok: true`, 2 tracks, 2 flow links and 2 snapshot rows; the port's
+   FleetCollector over the run's results holds both shards, fresh. (d)
+   Titanic, 2 worker processes on the card, shard 1 under crash@batch1,
+   in a process of its own (`--fleet-killed`): `FleetError`, exactly one
+   `incident_*` folder (reason shard_failure, failed shards [1], the
+   `fleet_worker_crash` flight dump copied in, a trace tail, no ledger
+   digest, shard 0 fresh in the cluster block, `fleet.incidents` counted)
+   and the folder's merged timeline has a track. (c) and (d) run beside
+   (a) and (b); each part's seconds are printed.
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -377,10 +407,12 @@ import dataclasses
 import json
 import logging
 import os
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -397,7 +429,8 @@ from mplc_tpu_torch.contrib.engine import CharacteristicEngine  # noqa: E402
 from mplc_tpu_torch.contrib.planner import estimate_eval_seconds, plan_query  # noqa: E402
 from mplc_tpu_torch.contrib.reconstruct import (ReconstructionEvaluator,  # noqa: E402
                                                 record_updates)
-from mplc_tpu_torch.contrib.shapley import powerset_order  # noqa: E402
+from mplc_tpu_torch.contrib.shapley import (powerset_order,  # noqa: E402
+                                            shapley_from_characteristic)
 from mplc_tpu_torch import constants, faults  # noqa: E402
 from mplc_tpu_torch.live import LiveGame, hierarchy, residency  # noqa: E402
 from mplc_tpu_torch.live.game import _encode_tree as encode_tree  # noqa: E402
@@ -4317,7 +4350,320 @@ def phase_router(sl, sweep: dict, service: dict, card) -> dict:
     return {"launches": a["launches"], "widths": a["widths"]}
 
 
+# The fleet phase: one sweep cut into coalition slices across worker
+# processes (mplc_tpu_torch/parallel/fleet.py). (a) is the MNIST CNN at full
+# width on [sweep]'s data (scale and noise set through the loader's knobs,
+# which the workers inherit) and training: bench config 9's fleet spec
+# (bench.py:1557-1560: minibatch 10, gup 8) at 5 partners, 2 epochs. At the
+# spec's default minibatch 2 and gup 3 a step holds 667 rows, the
+# autotuned cap drops to 1 coalition a batch and the 1-shard sweep takes
+# 189 s measured on one H100
+FLEET_MNIST = dict(dataset="mnist", partners=5, epochs=2, minibatch_count=10,
+                   gradient_updates_per_pass=8, deterministic=True, pin_widths=True)
+FLEET_FAULT_PLAN = "transient@batch1,oom@batch2"
+FLEET_CRASH_PLAN = "crash@batch1"
+
+
+def fleet_data_knobs():
+    """The synthetic MNIST of the slice (SCALE, NOISE) through the loader's
+    knobs, in this process and in every worker it starts."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(knob(constants.SYNTH_SCALE_ENV, str(SCALE)))
+    stack.enter_context(knob(constants.SYNTH_NOISE_ENV, str(NOISE)))
+    return stack
+
+
+def fleet_shard_lines(tag: str, res) -> None:
+    for rep in res.shard_reports:
+        print(f"[fleet] {tag} shard {rep['shard']}/{rep['shards']} on {rep['device']}: "
+              f"{len(rep['subsets'])} coalitions, setup {rep['setup_s']:.2f} s, warm-up "
+              f"{rep['warmup_s']:.4f} s, sweep {rep['sweep_s']:.2f} s; programs planned "
+              f"{rep['programs_planned']}, manifest hits {rep['manifest_hits']}, pinned "
+              f"widths {rep['widths']}; counters {json.dumps(rep['counters'])}")
+
+
+def fleet_mnist(work: Path, smi: str) -> dict:
+    """(a) The MNIST CNN's 31-coalition sweep: the 1-shard run in process on
+    the card, then 2 worker processes at once on the card, merged and held
+    to it (zero ulp, tau-b 1.0, 31 of 31); the merged cache answers every
+    v(S) on a fresh engine without training, its exact Shapley values
+    bit-equal to the reference's."""
+    spec = fleet.FleetSpec(**FLEET_MNIST)
+    subsets = spec.all_subsets()
+    t0 = time.perf_counter()
+    with fleet_data_knobs(), knob(constants.COMPILE_CACHE_DIR_ENV, str(work / "bank")):
+        ref = fleet.run_fleet(spec, 1, str(work / "mnist_w1"), inproc=True, device=DEVICE)
+        ref_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        got = fleet.run_fleet(spec, 2, str(work / "mnist_w2"), device=DEVICE,
+                              verify_against=ref.ledger, timeout=600)
+        w2_s = time.perf_counter() - t1
+        d = got.diff
+        print(f"[fleet] (a) MNIST CNN, {spec.partners} partners, {len(subsets)} coalitions: "
+              f"1 shard in process {ref_s:.2f} s (coordinator {ref.wallclock_s:.2f} s), 2 "
+              f"worker processes {w2_s:.2f} s (coordinator {got.wallclock_s:.2f} s); merged "
+              f"ledger against the 1-shard run: comparable {d['comparable']}, drift "
+              f"{d['drift']}, max ulp {d['ulp']['max']}, tau-b {d['kendall_tau']}, covered "
+              f"{d['common']}/{len(subsets)}")
+        fleet_shard_lines("(a) W=1", ref)
+        fleet_shard_lines("(a) W=2", got)
+        check(d["comparable"] and not d["drift"] and d["ulp"]["max"] == 0
+              and d["kendall_tau"] == 1.0 and d["common"] == len(subsets),
+              f"(a) the 2-shard merge differs from the 1-shard run: {json.dumps(d)}")
+        want = np.array([ref.values[s] for s in subsets])
+        check(np.array([got.values[s] for s in subsets]).tobytes() == want.tobytes(),
+              "(a) the merged v(S) are not bit-equal to the 1-shard run's")
+        check(all(r["device"].startswith(DEVICE) for r in ref.shard_reports + got.shard_reports),
+              "(a) a shard ran off the card: "
+              f"{[r['device'] for r in ref.shard_reports + got.shard_reports]}")
+        check(sorted(len(r["subsets"]) for r in got.shard_reports) == [15, 16],
+              f"(a) the slices hold {[len(r['subsets']) for r in got.shard_reports]} coalitions")
+        check(all(r["widths"] == ref.shard_reports[0]["widths"] for r in got.shard_reports),
+              "(a) a shard ran other widths than the full sweep's plan")
+        check(all(r["manifest_hits"] == r["programs_planned"] > 0 for r in got.shard_reports),
+              "(a) a shard found the 1-shard run's programs missing from the bank manifest")
+        # the merged cache on a fresh engine on the card
+        t1 = time.perf_counter()
+        with knob(constants.DETERMINISTIC_REDUCE_ENV, "1"):
+            eng = CharacteristicEngine(spec.build_scenario(DEVICE))
+        eng.load_cache(str(work / "mnist_w2" / "cache_merged.json"))
+        calls = eng.first_charac_fct_calls_count
+        answered = eng.evaluate(subsets)
+        cache_s = time.perf_counter() - t1
+    check(eng.first_charac_fct_calls_count == calls and not eng.batch_log
+          and eng._batch_ordinal == 0, "(a) the merged cache left coalitions to train")
+    check(answered.tobytes() == want.tobytes(), "(a) the merged cache's v(S) differ")
+    sv = shapley_from_characteristic(spec.partners, eng.charac_fct_values)
+    sv_ref = shapley_from_characteristic(spec.partners, {(): 0.0, **ref.values})
+    check(sv.tobytes() == sv_ref.tobytes(),
+          "(a) the merged cache's exact Shapley values differ from the reference's")
+    w1, w2 = max(ref.per_shard_sweep_s), max(got.per_shard_sweep_s)
+    print(f"[fleet] (a) merged cache on a fresh engine: {len(subsets)} v(S) answered, none "
+          f"trained, in {cache_s:.2f} s; exact Shapley {np.round(sv, 4).tolist()} bit-equal "
+          f"to the reference's")
+    print(f"[fleet] (a) critical path max(per_shard_sweep_s): W=1 {w1:.3f} s, W=2 {w2:.3f} s "
+          f"({[round(x, 3) for x in got.per_shard_sweep_s]}); both shards share one card, so "
+          f"this is contention, not scaling; {smi}")
+    return {"seconds": time.perf_counter() - t0, "w1_sweep_s": w1, "w2_sweep_s": w2}
+
+
+def fleet_faults(work: Path) -> dict:
+    """(b) Titanic, in process on the card, W = 3, shard 1 under
+    transient@batch1,oom@batch2 (backoff 0): verified against a 1-shard
+    Titanic ledger, shard 1's counters showing the retry and the halving."""
+    spec = fleet.FleetSpec()
+    t0 = time.perf_counter()
+    ref = fleet.run_fleet(spec, 1, str(work / "titanic_w1"), inproc=True, device=DEVICE)
+    metrics.reset()
+    got = fleet.run_fleet(
+        spec, 3, str(work / "titanic_w3"), inproc=True, device=DEVICE,
+        per_shard_env={1: {constants.FAULT_PLAN_ENV: FLEET_FAULT_PLAN,
+                           constants.RETRY_BACKOFF_ENV: "0"}},
+        verify_against=ref.ledger)
+    wall = time.perf_counter() - t0
+    # in process the shards share one registry: each report's snapshot is
+    # cumulative, so shard 1's rungs are its snapshot less shard 0's
+    snaps = [r["metrics"]["counters"] for r in got.shard_reports]
+    rungs = {k: snaps[1].get(k, 0) - snaps[0].get(k, 0)
+             for k in ("engine.retries", "engine.cap_halvings", "engine.faults_injected")}
+    print(f"[fleet] (b) Titanic, 3 shards in process, shard 1 under {FLEET_FAULT_PLAN}: "
+          f"{wall:.2f} s; drift {got.diff['drift']}, max ulp {got.diff['ulp']['max']}, tau-b "
+          f"{got.diff['kendall_tau']}, covered {got.diff['common']}; shard 1's rungs "
+          f"{json.dumps(rungs)}, slices {[len(r['subsets']) for r in got.shard_reports]}")
+    check(got.values == ref.values and not got.diff["drift"], "(b) the merge differs")
+    check(rungs["engine.retries"] >= 1 and rungs["engine.cap_halvings"] >= 1,
+          f"(b) shard 1 shows no retry or no cap halving: {rungs}")
+    check(snaps[0].get("engine.retries", 0) == 0, "(b) shard 0 retried")
+    return {"seconds": wall}
+
+
+def fleet_side(work: Path, tag: str, args: list) -> dict:
+    """A part of [fleet] started in a process of its own (a session of its
+    own, so that it stops with its workers), to run beside the others: a
+    thread reads its output and notes when it ended, so the part's
+    seconds are its own."""
+    log = open(work / f"{tag}.log", "w")
+    proc = subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE, stderr=log,
+                            text=True, cwd=str(Path(__file__).resolve().parent),
+                            env=fleet.worker_env(), start_new_session=True)
+    run = {"tag": tag, "proc": proc, "log": log, "t0": time.perf_counter()}
+
+    def wait() -> None:
+        run["out"] = proc.communicate()[0]
+        run["t1"] = time.perf_counter()
+
+    run["waiter"] = threading.Thread(target=wait, daemon=True)
+    run["waiter"].start()
+    return run
+
+
+def fleet_side_stop(run: dict, timeout: float = 0.0) -> None:
+    """Wait up to `timeout` seconds for a side process, then kill its
+    session (it and its workers)."""
+    run["waiter"].join(timeout)
+    if run["waiter"].is_alive():
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(run["proc"].pid, signal.SIGKILL)
+        run["waiter"].join()
+    run["log"].close()
+
+
+def fleet_side_end(run: dict, work: Path) -> tuple:
+    """(exit code, stdout lines, seconds) of a side process, waited for."""
+    fleet_side_stop(run, timeout=600)
+    lines = (run.get("out") or "").strip().splitlines()
+    if run["proc"].returncode != 0:
+        print(f"[fleet] {run['tag']} stderr tail: "
+              f"{(work / (run['tag'] + '.log')).read_text()[-1500:]}")
+    return run["proc"].returncode, lines, run["t1"] - run["t0"]
+
+
+def fleet_selfcheck(run: dict, work: Path) -> dict:
+    """(c) `python3 -m mplc_tpu_torch.parallel.fleet --selfcheck --shards 2
+    --obs-dir <dir>` on the card, beside (a), (b) and (d): exit 0 and `ok:
+    true`, one track, one flow link and one snapshot row a shard, the
+    port's FleetCollector over the run's results (the snapshot the
+    selfcheck wrote) holding both shards, fresh."""
+    rc, lines, wall = fleet_side_end(run, work)
+    obs_dir = work / "selfcheck_obs"
+    last = (lines or ["{}"])[-1]
+    doc = json.loads(last) if last.startswith("{") else {}
+    obs = doc.get("obs") or {}
+    print(f"[fleet] (c) selfcheck --shards 2 on the card: exit {rc} in {wall:.2f} s; {last}")
+    check(rc == 0 and doc.get("ok") is True, f"(c) the selfcheck failed: exit {rc}, {last[:400]}")
+    check(obs.get("shard_tracks") == obs.get("flow_links") == obs.get("snapshot_shards") == 2,
+          f"(c) the selfcheck's timeline and snapshot: {json.dumps(obs)}")
+    check(all(d.startswith(DEVICE) for d in doc.get("devices", [])) and doc.get("devices"),
+          f"(c) the selfcheck's shards ran on {doc.get('devices')}")
+    with open(obs_dir / "fleet_varz.json") as f:
+        snap = json.load(f)
+    check(set(snap["shards"]) == {"shard0", "shard1"} and snap["fresh_shards"] == 2
+          and snap["merged_sources"] == 2,
+          f"(c) the fleet collector read {sorted(snap['shards'])}, fresh "
+          f"{snap['fresh_shards']}, merged {snap['merged_sources']}")
+    with open(obs_dir / "fleet_trace.json") as f:
+        names = {e["args"]["name"] for e in json.load(f)["traceEvents"]
+                 if e["ph"] == "M" and e["name"] == "process_name"}
+    check(names == {"fleet coordinator", "shard 0", "shard 1"},
+          f"(c) the merged timeline's processes: {sorted(names)}")
+    return {"seconds": wall}
+
+
+def fleet_killed_side(run: dict, work: Path) -> dict:
+    """(d) collected from its own process (`--fleet-killed`), which made its
+    checks: its lines printed here, exit 0."""
+    rc, lines, wall = fleet_side_end(run, work)
+    for line in lines[:-1]:
+        print(line)
+    check(rc == 0 and bool(lines) and lines[-1].startswith("{"),
+          f"(d) the killed-shard run failed: exit {rc}, {(lines or [''])[-1][:400]}")
+    return {"seconds": wall, "run_s": json.loads(lines[-1])["seconds"]}
+
+
+def fleet_killed(work: Path) -> dict:
+    """(d) Titanic, 2 worker processes on the card, shard 1 under
+    crash@batch1: FleetError, exactly one incident bundle (reason
+    shard_failure, failed shard 1, its fleet_worker_crash flight dump
+    copied in, a trace tail, no ledger digest, shard 0 fresh in the cluster
+    block), and the folder's merged timeline still has a track."""
+    from mplc_tpu_torch.obs import fleet_view
+    out = work / "killed"
+    before = metrics.counter("fleet.incidents").value
+    t0 = time.perf_counter()
+    try:
+        fleet.run_fleet(fleet.FleetSpec(), 2, str(out), device=DEVICE, timeout=600,
+                        per_shard_env={1: {constants.FAULT_PLAN_ENV: FLEET_CRASH_PLAN}})
+        raised = None
+    except fleet.FleetError as e:
+        raised = e
+    wall = time.perf_counter() - t0
+    check(raised is not None, "(d) a killed shard did not fail the fleet run")
+    incidents = sorted(p for p in os.listdir(out) if p.startswith("incident_"))
+    check(len(incidents) == 1, f"(d) {len(incidents)} incident bundles: {incidents}")
+    inc = out / incidents[0]
+    with open(inc / "incident.json") as f:
+        bundle = json.load(f)
+    art = bundle["shard_artifacts"].get("1") or {}
+    dumps = art.get("flight_dumps") or []
+    reasons = []
+    for name in dumps:
+        with open(inc / name) as f:
+            reasons.append(json.load(f)["reason"])
+    cluster = (bundle.get("cluster") or {}).get("shards") or {}
+    merged = fleet_view.merge_fleet_traces(str(out))
+    print(f"[fleet] (d) Titanic, 2 worker processes, shard 1 under {FLEET_CRASH_PLAN}: "
+          f"FleetError in {wall:.2f} s ({str(raised)[:120]!r}...); incident {incidents[0]}: "
+          f"reason {bundle['reason']}, failed {bundle['failed_shards']}, flight dumps "
+          f"{reasons}, trace tail {art.get('trace_tail_records')} records, ledger digest "
+          f"{art.get('ledger_digest')}, cluster shards "
+          f"{ {k: v.get('fresh') for k, v in cluster.items()} }; merged timeline "
+          f"{merged['shard_tracks']} tracks")
+    check(bundle["reason"] == "shard_failure" and bundle["failed_shards"] == [1],
+          f"(d) the bundle says {bundle['reason']}, {bundle['failed_shards']}")
+    check("fleet_worker_crash" in reasons and all((inc / n).exists() for n in dumps),
+          f"(d) the bundle holds no fleet_worker_crash dump: {reasons}")
+    check(art.get("trace_tail") and (inc / art["trace_tail"]).exists()
+          and art.get("trace_tail_records", 0) > 0, "(d) the bundle holds no trace tail")
+    check(art.get("ledger_digest") is None, "(d) the crashed shard has a ledger digest")
+    check((cluster.get("shard0") or {}).get("fresh") is True,
+          f"(d) shard 0 is not fresh in the cluster block: {cluster.get('shard0')}")
+    check(metrics.counter("fleet.incidents").value == before + 1,
+          "(d) the incident was not counted")
+    check(merged["shard_tracks"] >= 1, "(d) the failed run's timeline has no track")
+    return {"seconds": wall}
+
+
+def phase_fleet(card, smi: str) -> dict:
+    """The fleet sweep, (a)-(d); (c) and (d) run in processes of their own
+    beside (a) and (b). No reconstruction kernel launches in this
+    process."""
+    t0 = time.perf_counter()
+    k1_reset()
+    with tempfile.TemporaryDirectory(prefix="mplc_fleet_") as tmp:
+        work = Path(tmp)
+        sides = [fleet_side(work, "selfcheck", [
+                     "-m", "mplc_tpu_torch.parallel.fleet", "--selfcheck", "--shards", "2",
+                     "--obs-dir", str(work / "selfcheck_obs"), "--device", DEVICE]),
+                 fleet_side(work, "killed", [str(Path(__file__).resolve()),
+                                             "--fleet-killed", str(work), DEVICE])]
+        try:
+            a = fleet_mnist(work, smi)
+            b = fleet_faults(work)
+            c = fleet_selfcheck(sides[0], work)
+            d = fleet_killed_side(sides[1], work)
+        finally:
+            # the side processes and their workers stop with the phase
+            for run in sides:
+                if run["log"].closed is False:
+                    fleet_side_stop(run)
+    launches, bf16, widths = k1_counts()
+    print(f"[fleet] seconds (a) {a['seconds']:.2f}, (b) {b['seconds']:.2f}, (c) "
+          f"{c['seconds']:.2f} and (d) {d['seconds']:.2f} ({d['run_s']:.2f} in run_fleet), "
+          f"each in a process of its own beside (a) and (b); K1 launches {launches}, "
+          f"K1-bf16 {bf16} in this process on {card}")
+    check(launches == bf16 == 0, "the fleet sweep launched a reconstruction kernel")
+    print(f"[fleet] all parts passed in {time.perf_counter() - t0:.2f} s")
+    return {"launches": launches, "widths": widths, "launches_bf16": bf16}
+
+
+def fleet_killed_child(work: str, device: str) -> int:
+    """[fleet] (d)'s own process (`--fleet-killed WORK DEVICE`): its lines,
+    then one JSON line; exit 1 when a check fails."""
+    global DEVICE
+    DEVICE = device
+    try:
+        res = fleet_killed(Path(work))
+    except PhaseFailed as e:
+        print(f"[fleet] (d) FAILED: {e}")
+        return 1
+    print(json.dumps(res))
+    return 0
+
+
 def main() -> int:
+    if "--fleet-killed" in sys.argv[1:]:
+        i = sys.argv.index("--fleet-killed")
+        return fleet_killed_child(*sys.argv[i + 1:i + 3])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -4372,6 +4718,7 @@ def main() -> int:
     paths["live"] = rung_free("live", phase_live, sl, card)
     paths["service"] = rung_free("service", phase_service, sl, sweep, card)
     paths["router"] = rung_free("router", phase_router, sl, sweep, paths["service"], card)
+    paths["fleet"] = rung_free("fleet", phase_fleet, card, smi)
     for e in kernels:
         B = e["shape"]["B"]
         if not e["name"].startswith(recon_kernel.KERNEL_BF16):

@@ -468,13 +468,30 @@ METRICS_TOKEN_ENV = "MPLC_TORCH_METRICS_TOKEN"
 #                               redirect hint of ServiceOverloaded, the
 #                               /healthz and /varz fleet blocks). Unset:
 #                               the single-process behavior
-#   MPLC_TORCH_FLEET_SHARD_ID   this process's name there (pid<pid>)
+#   MPLC_TORCH_FLEET_SHARD_ID   this process's name there (pid<pid>); also
+#                               stamped as `fleet_shard` on every trace
+#                               record while a fleet run id is set
 #   MPLC_TORCH_FLEET_STALE_SEC  a shard whose state file is older than this
 #                               (30 s) is stale: out of the live set and
 #                               never the least-loaded redirect
 FLEET_STATE_DIR_ENV = "MPLC_TORCH_FLEET_STATE_DIR"
 FLEET_SHARD_ID_ENV = "MPLC_TORCH_FLEET_SHARD_ID"
 FLEET_STALE_SEC_ENV = "MPLC_TORCH_FLEET_STALE_SEC"
+# The fleet sweep's trace context (parallel/fleet.py sets both in every
+# shard's environment; obs/trace.py reads them a record), sidecars that
+# change no number:
+#   MPLC_TORCH_FLEET_RUN_ID     the run id the coordinator mints, stamped
+#                               as `fleet_run` on every span and event
+#                               record, so W per-shard trace streams
+#                               correlate by construction
+#                               (obs/fleet_view.merge_fleet_traces)
+#   MPLC_TORCH_FLEET_COORD_TS   the coordinator's clock when it started a
+#                               shard; the worker echoes it in its result
+#                               beside its own start and end readings, the
+#                               handshake that rebases its trace onto the
+#                               coordinator's clock (the midpoint rule)
+FLEET_RUN_ID_ENV = "MPLC_TORCH_FLEET_RUN_ID"
+FLEET_COORD_TS_ENV = "MPLC_TORCH_FLEET_COORD_TS"
 #   MPLC_TORCH_FLEET_PEERS      comma-separated host:port /varz endpoints
 #                               the fleet collector (obs/fleet_view.py)
 #                               scrapes with the operator's token

@@ -161,11 +161,18 @@ class ProgramBank:
     def _acquire(self, key: str, entry: dict, cost_fn) -> dict:
         """The entry under `key`, recorded (with `cost_fn()`'s FLOPs, and
         into the manifest) when the key is new; a `bank.hits` count when
-        it is not."""
+        it is not. A program recorded without a cost (a fleet shard's
+        warm-up acquires its planned programs before any batch has counted
+        its FLOPs) takes the first cost a later acquire brings."""
         with _LOCK:
             found = _PROGRAMS.get(key)
         if found is not None:
             obs_metrics.counter("bank.hits").inc()
+            if found.get("cost") is None:
+                flops = cost_fn()
+                if flops:
+                    found["cost"] = {"flops": float(flops)}
+                    self._record_manifest(key, found["cost"])
             return found
         flops = cost_fn()
         entry = {**entry, "cost": {"flops": float(flops)} if flops else None}

@@ -80,8 +80,13 @@ runs. None of it changes a v(S).
 The program bank (contrib/bank.py, `program_bank`; None under
 MPLC_TORCH_PROGRAM_BANK=0): every batch off the CPU rung acquires its
 (slots, width) program, which records the program's key and the batch's
-counted FLOPs and nothing else, so the bank never changes a v(S). The 2-D mode's
-singles path and its ladder exhaustion are ROADMAP.md queue 1 item 10.
+counted FLOPs and nothing else, so the bank never changes a v(S).
+
+Fleet shards (parallel/fleet.py): `pin_fleet_widths` pins every bucket's
+width to a full sweep's plan, so a shard that evaluates a slice runs the
+full sweep's shapes. The JAX engine's 2-D mode (its partner-sharded
+pipeline, the singles path and the ladder's end there) is the second half
+of ROADMAP.md queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -237,6 +242,8 @@ class CharacteristicEngine:
     _batch_ordinal = 0
     _cap_halvings = 0
     _cpu_degraded = False
+    # {(pipe, slot_count): width} of a fleet shard (`pin_fleet_widths`)
+    _fleet_widths: dict | None = None
     # nor does it meter, fence, audit or ledger
     device_meter = None
     numerics_ledger = None
@@ -679,13 +686,25 @@ class CharacteristicEngine:
             "peak_in_use_bytes": obs_metrics.gauge("engine.device_mem_high_water_bytes").value,
         }
 
-    def _planned_width(self, n_jobs: int, slot_count: int | None) -> int:
-        """The bucket width of a call of `n_jobs` jobs: one width for the
-        whole call (the tail pads up to it), recomputed only when the OOM
-        ladder moves. The JAX engine's fleet width pinning waits for the
-        port's fleet (ROADMAP.md queue 1 item 10)."""
+    def _planned_width(self, n_jobs: int, slot_count: int | None, pipe) -> int:
+        """The bucket width of a call of `n_jobs` jobs on `pipe`: one width
+        for the whole call (the tail pads up to it), recomputed only when
+        the OOM ladder moves. The dispatch loop, `sweep_plan` and the
+        packer all read it, so planned and executed widths never part.
+
+        A fleet shard (parallel/fleet.py, `pin_fleet_widths`) runs each
+        (pipe, slot_count) bucket at the full sweep's planned width even
+        when its slice is smaller, so every shard runs the full sweep's
+        programs and evaluates at the full sweep's shapes. The pin never
+        shrinks a width, and the OOM ladder ignores it: a degraded cap
+        re-buckets at the degraded width, not the plan's."""
         cap = self._device_batch_cap(slot_count)
-        return _bucket_size(min(n_jobs, cap), 1, cap)
+        width = _bucket_size(min(n_jobs, cap), 1, cap)
+        if self._fleet_widths and not self._cap_halvings:
+            pinned = self._fleet_widths.get((pipe, slot_count))
+            if pinned:
+                return max(width, pinned)
+        return width
 
     # ------------------------------------------------------------------
     # the fault ladder
@@ -848,7 +867,7 @@ class CharacteristicEngine:
         # slots included (what the device ran)
         passes_per_mb = 1 if single else slot_count or self.partners_count
         n_jobs = len(subsets) * K
-        b = self._planned_width(n_jobs, slot_count)
+        b = self._planned_width(n_jobs, slot_count, pipe)
         halvings_seen = self._cap_halvings
         with obs_trace.span("engine.prep", coalitions=n_jobs, width=b,
                             slot_count=slot_count):
@@ -866,7 +885,7 @@ class CharacteristicEngine:
                 # the ladder moved (here or in a harvest's recovery): the
                 # remaining jobs re-bucket at the degraded cap
                 halvings_seen = self._cap_halvings
-                b = self._planned_width(n_jobs, slot_count)
+                b = self._planned_width(n_jobs, slot_count, pipe)
             group, meta, dispatch = self._batch_job(pipe, slot_count, i, b, ctx)
             try:
                 fetch = self._retry_transient(dispatch, "dispatch", meta["ordinal"])
@@ -1162,14 +1181,14 @@ class CharacteristicEngine:
         plan = []
         if singles:
             plan.append((self.single_pipe, None,
-                         self._planned_width(len(singles) * K, None)))
+                         self._planned_width(len(singles) * K, None, self.single_pipe)))
         if multis and self._use_slots:
             for width, group in self._slot_buckets(multis):
-                plan.append((self._slot_pipe(width), width,
-                             self._planned_width(len(group) * K, width)))
+                pipe = self._slot_pipe(width)
+                plan.append((pipe, width, self._planned_width(len(group) * K, width, pipe)))
         elif multis:
             plan.append((self.multi_pipe, None,
-                         self._planned_width(len(multis) * K, None)))
+                         self._planned_width(len(multis) * K, None, self.multi_pipe)))
         return plan
 
     def sweep_plan(self, subsets) -> list:
@@ -1185,6 +1204,21 @@ class CharacteristicEngine:
         singles = [k for k in keys if lens[k] == 1]
         multis = [k for k in keys if lens[k] > 1]
         return self._bucket_plan(singles, multis)
+
+    def pin_fleet_widths(self, subsets) -> dict:
+        """Pin this engine's bucket widths to the plan of a full sweep over
+        `subsets` (`sweep_plan`): a fleet shard evaluating only a slice
+        then runs each bucket at the full sweep's width (`_planned_width`).
+        Returns {slot_count or None: width} for the shard's report; {} (and
+        no pin) once the CPU rung is taken, which has no device plan.
+
+        The JAX engine's pin is a no-op where it runs fedavg on its 2-D
+        partner-sharded pipeline, its route under the deterministic reduce;
+        the port runs those sweeps masked (1-D batches), so here the pin
+        applies. It changes batch shapes only."""
+        plan = self.sweep_plan(subsets)
+        self._fleet_widths = {(pipe, slot): width for pipe, slot, width in plan} or None
+        return {slot: width for _pipe, slot, width in plan}
 
     # ------------------------------------------------------------------
     # the coalition cache: a long sweep is resumable because v(S) is

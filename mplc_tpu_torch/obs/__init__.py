@@ -14,9 +14,8 @@ Tracing writes JSONL when `MPLC_TORCH_TRACE_FILE` is set (a bounded
 in-memory ring for the flight recorder is always on); `report.sweep_report`
 turns collected records into the prep/dispatch/harvest split, the memo hit
 rate, padding waste and per-bucket throughput. `fleet_view` merges every
-shard's metrics into one cluster snapshot (/fleet/metrics, /fleet/varz);
-its merged fleet timeline comes with the fleet sweep, ROADMAP.md queue 1
-item 10.
+shard's metrics into one cluster snapshot (/fleet/metrics, /fleet/varz)
+and a fleet sweep's shard traces into one timeline (`merge_fleet_traces`).
 """
 
 from . import chrome_trace, export, flight, metrics, report, trace

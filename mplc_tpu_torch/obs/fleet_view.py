@@ -19,10 +19,15 @@ at bucket granularity, not an average of per-shard quantiles.
 `obs/export.py` serves the result as /fleet/metrics and /fleet/varz, with
 the tenant redaction applied to every aggregated row.
 
+`merge_fleet_traces` turns a fleet sweep's output folder
+(parallel/fleet.py) into ONE Perfetto timeline: the coordinator's span
+stream on pid 1, each shard's stream rebased onto the coordinator's clock
+(`_clock_offset`, the midpoint rule) on pid 10 + I, and a flow arrow from
+each `fleet.shard` dispatch to that shard's `fleet.shard_run` root span
+(`python3 -m mplc_tpu_torch.fleet_trace_merge OUT_DIR` writes it).
+
 Everything here reads: nothing changes a computed number, and a missing
-source is an error row, never an exception into the caller. The JAX
-module's merged Perfetto timeline (`merge_fleet_traces`) comes with the
-fleet sweep, ROADMAP.md queue 1 item 10.
+source is an error row, never an exception into the caller.
 """
 
 from __future__ import annotations
@@ -328,3 +333,147 @@ def fleet_metrics_text(merged: dict) -> str:
             lines.append(f"{n}_count{export._label_str(la)} {int(h.get('count') or 0)}")
         emit(key, "histogram", hist)
     return "\n".join(lines) + "\n"
+
+
+# -- the merged Perfetto timeline ----------------------------------------------
+
+def _clock_offset(manifest: dict, result: "dict | None", shard: int) -> float:
+    """Seconds to ADD to a shard's timestamps to land them on the
+    coordinator's clock: the midpoint rule over the handshake's four
+    readings, the coordinator's spawn (s) and done-seen (d) times and the
+    worker's start (ws) and end (we):
+
+        offset = ((s - ws) + (d - we)) / 2
+
+    With no skew, the spawn-to-start and end-to-done-seen latencies enter
+    with opposite signs and cancel to their asymmetry; a skew appears in
+    both terms and survives intact. One-sided (`s - ws`) when the run has
+    no done-seen time (a dead shard), 0 with no handshake at all."""
+    clock = (result or {}).get("clock") or {}
+    spawn = (manifest.get("spawn_ts") or {}).get(str(shard))
+    if spawn is None:
+        spawn = clock.get("coord_spawn_ts")
+    done = (manifest.get("done_seen_ts") or {}).get(str(shard))
+    ws = clock.get("worker_start_ts")
+    we = clock.get("worker_end_ts")
+    if spawn is not None and ws is not None:
+        if done is not None and we is not None:
+            return ((spawn - ws) + (done - we)) / 2.0
+        return float(spawn) - float(ws)
+    return 0.0
+
+
+def merge_fleet_traces(out_dir: str) -> dict:
+    """One Chrome trace-event document of a fleet folder: the coordinator's
+    stream (trace_coordinator.jsonl) on pid 1, each shard's
+    (trace_shardI.jsonl) rebased onto the coordinator's clock on pid
+    10 + I, each a process with its `process_name` row, and a flow pair
+    from every `fleet.shard` dispatch event to that shard's
+    `fleet.shard_run` root span. The coordinator's records stamped with a
+    `fleet_shard` are left out (the shard files hold them).
+
+    Returns {trace, shard_tracks, flow_links, offsets, records,
+    torn_lines}; `trace` loads in https://ui.perfetto.dev."""
+    from . import chrome_trace
+    manifest = _read_json(os.path.join(out_dir, "fleet_trace_manifest.json")) or {}
+    torn_total = 0
+    coord_path = os.path.join(out_dir, "trace_coordinator.jsonl")
+    coord_records: list = []
+    if os.path.exists(coord_path):
+        coord_records, torn = chrome_trace.read_jsonl(coord_path)
+        torn_total += torn
+        coord_records = [r for r in coord_records if "fleet_shard" not in r]
+    shard_streams: dict = {}
+    offsets: dict = {}
+    try:
+        names = sorted(os.listdir(out_dir))
+    except OSError:
+        names = []
+    for name in names:
+        m = re.fullmatch(r"trace_shard(\d+)\.jsonl", name)
+        if not m:
+            continue
+        i = int(m.group(1))
+        records, torn = chrome_trace.read_jsonl(os.path.join(out_dir, name))
+        torn_total += torn
+        result = _read_json(os.path.join(out_dir, f"result_shard{i}.json"))
+        off = _clock_offset(manifest, result, i)
+        offsets[str(i)] = off
+        for r in records:
+            r["ts"] = float(r.get("ts") or 0.0) + off
+        shard_streams[i] = records
+
+    every = coord_records + [r for recs in shard_streams.values() for r in recs]
+    t0 = min((float(r.get("ts") or 0.0) for r in every), default=0.0)
+    events: list = []
+    # (tid, ts_us, dur_us) of each pid's first fleet.shard_run root span,
+    # and every coordinator fleet.shard dispatch event, for the flow links
+    roots: dict = {}
+    dispatches: list = []
+
+    def add_stream(records, pid, label):
+        tids = []
+        for rec in records:
+            tid = int(rec.get("thread") or 0)
+            if tid not in tids:
+                tids.append(tid)
+            ts_us = (float(rec.get("ts") or 0.0) - t0) * 1e6
+            dur_us = max(float(rec.get("dur") or 0.0) * 1e6, 1.0)
+            name = rec.get("name", "?")
+            attrs = rec.get("attrs") or {}
+            events.append({
+                "name": name, "cat": name.split(".", 1)[0], "ph": "X",
+                "ts": ts_us, "dur": dur_us, "pid": pid, "tid": tid,
+                "args": {**attrs, "span_id": rec.get("id"),
+                         "fleet_run": rec.get("fleet_run"),
+                         "fleet_shard": rec.get("fleet_shard")},
+            })
+            if name == "fleet.shard_run":
+                roots.setdefault(pid, (tid, ts_us, dur_us))   # a re-run re-roots
+            elif name == "fleet.shard" and pid == 1:
+                dispatches.append((attrs.get("shard"), tid, ts_us, dur_us))
+        for i, tid in enumerate(tids):
+            events.append({"name": "thread_name", "ph": "M", "ts": 0, "pid": pid,
+                           "tid": tid, "args": {"name": f"thread-{tid}"}})
+            events.append({"name": "thread_sort_index", "ph": "M", "ts": 0, "pid": pid,
+                           "tid": tid, "args": {"sort_index": i}})
+        events.append({"name": "process_name", "ph": "M", "ts": 0, "pid": pid, "tid": 0,
+                       "args": {"name": label}})
+        events.append({"name": "process_sort_index", "ph": "M", "ts": 0, "pid": pid,
+                       "tid": 0, "args": {"sort_index": pid}})
+
+    add_stream(coord_records, 1, "fleet coordinator")
+    for i in sorted(shard_streams):
+        add_stream(shard_streams[i], 10 + i, f"shard {i}")
+
+    flow_links = 0
+    for shard, tid, ts_us, dur_us in dispatches:
+        try:
+            pid = 10 + int(shard)
+        except (TypeError, ValueError):
+            continue
+        root = roots.get(pid)
+        if root is None:
+            continue
+        rtid, rts, rdur = root
+        flow_links += 1
+        events.append({"name": "fleet.dispatch", "cat": "flow", "ph": "s",
+                       "id": flow_links, "ts": ts_us + min(0.5, dur_us / 2),
+                       "pid": 1, "tid": tid})
+        events.append({"name": "fleet.dispatch", "cat": "flow", "ph": "f", "bp": "e",
+                       "id": flow_links, "ts": rts + min(0.5, rdur / 2),
+                       "pid": pid, "tid": rtid})
+
+    trace = {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+        "otherData": {"source": "mplc_tpu_torch fleet trace merge",
+                      "run_id": manifest.get("run_id"),
+                      "shards": len(shard_streams),
+                      "records": len(every),
+                      "clock_offsets_s": offsets,
+                      "flows": flow_links,
+                      "torn_lines": torn_total},
+    }
+    return {"trace": trace, "shard_tracks": len(shard_streams), "flow_links": flow_links,
+            "offsets": offsets, "records": len(every), "torn_lines": torn_total}

@@ -37,8 +37,12 @@ never tears the last line (a hard kill can; `obs/chrome_trace.py` tolerates
 it). The same hook converts the trace to Chrome trace-event JSON when
 `MPLC_TORCH_CHROME_TRACE_FILE` names an output path.
 
-The JAX package also stamps each record with a fleet run and shard id; the
-port has no fleet yet (ROADMAP.md, queue 1 item 10).
+Fleet trace context: while `MPLC_TORCH_FLEET_RUN_ID` is set, every record
+carries it as `fleet_run`, and `MPLC_TORCH_FLEET_SHARD_ID`, when set too, as
+`fleet_shard` (parallel/fleet.py sets both in each shard's environment).
+Both are read a record, so the in-process fleet path's environment overlay
+stamps its shards' records correctly; `obs/fleet_view.merge_fleet_traces`
+correlates the W shard streams of one run by them.
 """
 
 from __future__ import annotations
@@ -63,6 +67,9 @@ _collectors: list[list] = []
 TRACE_FILE_ENV = "MPLC_TORCH_TRACE_FILE"
 CHROME_TRACE_FILE_ENV = "MPLC_TORCH_CHROME_TRACE_FILE"
 FLIGHT_SIZE_ENV = "MPLC_TORCH_FLIGHT_RECORDER_SIZE"
+# the fleet trace context (constants.FLEET_RUN_ID_ENV, FLEET_SHARD_ID_ENV)
+FLEET_RUN_ID_ENV = "MPLC_TORCH_FLEET_RUN_ID"
+FLEET_TRACE_SHARD_ENV = "MPLC_TORCH_FLEET_SHARD_ID"
 
 
 # Every literal name passed to span()/start_span()/event() in the port and
@@ -154,6 +161,19 @@ SPAN_REGISTRY = {
                         "tenant/job/attempts/budget)",
     "router.fault": "a router fault-plan entry fired (attrs: kind/shard/"
                     "at_sec)",
+    "fleet.sweep": "one coordinated fleet sweep: start the shards, then "
+                   "merge (attrs: shards/inproc/devices_per_shard)",
+    "fleet.shard": "one fleet shard completed (attrs: shard/shards/"
+                   "wallclock_s/coalitions)",
+    "fleet.merge": "per-shard ledgers/memos merged into one sweep "
+                   "(attrs: shards/coalitions/verified/wallclock_s)",
+    "fleet.shard_run": "root span of one fleet worker's shard execution "
+                       "(attrs: shard/shards/run), the flow-link target "
+                       "of the coordinator's fleet.shard event in the "
+                       "merged Perfetto timeline",
+    "fleet.incident": "fleet incident bundle written on a shard failure or "
+                      "a merge refusal (attrs: run/reason/failed_shards/"
+                      "path)",
     "fleet.collect": "one FleetCollector pass assembling the cluster "
                      "snapshot (attrs: sources)",
     "fleet.scrape": "one shard read (HTTP /varz, published state or a "
@@ -228,6 +248,14 @@ def _sink_file():
 
 
 def _emit(record: dict) -> None:
+    # the fleet trace context, read a record (the in-process fleet path
+    # sets it through an environment overlay)
+    run = os.environ.get(FLEET_RUN_ID_ENV)
+    if run:
+        record["fleet_run"] = run
+        shard = os.environ.get(FLEET_TRACE_SHARD_ENV)
+        if shard:
+            record["fleet_shard"] = shard
     # the flight ring sees every record, sink or not (deque.append is
     # atomic; maxlen bounds it)
     _flight_ring.append(record)
@@ -353,11 +381,13 @@ class collect:
         return self.records
 
     def __exit__(self, *exc) -> bool:
+        # removed by identity: two nested collectors hold equal lists (both
+        # saw the same records), and `list.remove` would take the outer one
         with _lock:
-            try:
-                _collectors.remove(self.records)
-            except ValueError:
-                pass
+            for i, c in enumerate(_collectors):
+                if c is self.records:
+                    del _collectors[i]
+                    break
         return False
 
 

@@ -5,9 +5,11 @@ thread:
   that have no counterpart by design (the optax helpers
   `adam_like_keras` and `rmsprop_like_keras`, `ops.aggregation.broadcast`);
   every listed name imports; `service` exports `FleetRouter` and
-  `RoutedJobFailed`, and the router's and the fleet collector's modules
-  (`service.router`, `obs.fleet_view`) have the JAX modules' public
-  names, less the fleet timeline that comes with the fleet sweep;
+  `RoutedJobFailed`, and the router's, the fleet collector's and the
+  fleet sweep's modules (`service.router`, `obs.fleet_view`,
+  `parallel.fleet`) have the JAX modules' public names; `parallel`
+  exports none of the JAX package's mesh names, which come with the 2-D
+  slice;
 - `import mplc_tpu_torch` loads `constants` and `obs`, as `import
   mplc_tpu` does, and no torch;
 - after a 2-partner Titanic Shapley run in both packages (the port fed
@@ -68,10 +70,9 @@ def test_subpackage_exports_match_jax(sub):
 
 # public names of the JAX modules a port module leaves out, and why
 MODULE_NOT_PORTED = {
-    # the merged fleet timeline reads a fleet sweep's output: ROADMAP.md
-    # queue 1 item 10, with the fleet sweep
-    "obs.fleet_view": {"merge_fleet_traces"},
+    "obs.fleet_view": set(),
     "service.router": set(),
+    "parallel.fleet": set(),
 }
 
 
@@ -91,6 +92,19 @@ def test_router_and_fleet_view_modules_match_jax(name):
     assert service.FleetRouter is importlib.import_module(
         "mplc_tpu_torch.service.router").FleetRouter
     assert issubclass(service.RoutedJobFailed, service.ServiceError)
+
+
+def test_parallel_exports_wait_for_the_mesh():
+    """`mplc_tpu.parallel` exports the mesh and the partner-sharded
+    trainer, the 2-D slice's; the port's `parallel` exports nothing yet and
+    reaches the fleet as `parallel.fleet`, as the JAX package does."""
+    from mplc_tpu_torch import parallel
+    jmod = importlib.import_module("mplc_tpu.parallel")
+    assert parallel.__all__ == [] and "fleet" not in jmod.__all__
+    assert set(jmod.__all__) == {"CoalitionSharding", "coalition_sharding", "make_mesh",
+                                 "make_2d_mesh", "make_multihost_mesh",
+                                 "PartnerShardedTrainer"}
+    assert importlib.import_module("mplc_tpu_torch.parallel.fleet").run_fleet
 
 
 def test_package_import_loads_constants_and_obs():

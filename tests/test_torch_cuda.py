@@ -5,8 +5,9 @@ passes against the CPU, fp32 reproducibility (the IMDB model's embedding
 gradient too), the CLI's Titanic grid against the CPU's, and the
 retrain-free path traced and profiled on the card, every model's
 gradients at every step width (the gradient-call width rule), the live
-tier, the sweep service's jobs against the solo engine and K1, and routed
-jobs failed over between two shards on the card against the solo engine.
+tier, the sweep service's jobs against the solo engine and K1, routed
+jobs failed over between two shards on the card against the solo engine,
+and a fleet sweep's two worker processes on the card against one shard.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on a machine that has only the port's dependencies:
@@ -774,3 +775,20 @@ def _live_titanic_seed(device, seed, partners=4):
     sc.instantiate_scenario_partners()
     sc.split_data()
     return sc
+
+
+def test_fleet_worker_processes_on_the_card_verify_against_one_shard(cuda, tmp_path):
+    """The fleet sweep on the card: the Titanic spec's 7 coalitions run as
+    one shard in process, then as two worker processes at once, each its
+    own CUDA context; the merged ledger verifies against the 1-shard one
+    (zero ulp, tau-b 1.0, 7 of 7) and the merged v(S) are bit-equal."""
+    from mplc_tpu_torch.parallel import fleet
+    spec = fleet.FleetSpec()
+    ref = fleet.run_fleet(spec, 1, str(tmp_path / "w1"), inproc=True)
+    got = fleet.run_fleet(spec, 2, str(tmp_path / "w2"), verify_against=ref.ledger,
+                          timeout=600)
+    assert got.diff["ulp"]["max"] == 0 and got.diff["kendall_tau"] == 1.0
+    assert got.diff["common"] == len(spec.all_subsets()) == 7
+    assert got.values == ref.values
+    assert all(r["device"].startswith("cuda") for r in got.shard_reports)
+    assert all((tmp_path / "w2" / f".shard{i}.done").exists() for i in range(2))
