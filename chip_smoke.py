@@ -229,7 +229,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
    training at 5 partners, cut to 1 epoch, whose 31 coalitions are swept
    here first), 8
    coalitions of the 5-partner sweep, every bucket's, requested on fresh
-   engines 1, 2 and 3 at a time (batch widths 1, 2 and 4), then every
+   engines 1 and 3 at a time (batch widths 1, 2 and 4: a request of 3
+   splits a bucket of 2 into 2 and a bucket of 4 into 3 and 1), then every
    coalition after a resume from a cache of the first 20 (the remaining
    11 train at their own widths): every v(S) bit-equal to the full
    sweep's;
@@ -390,6 +391,19 @@ Phases, each of which fails the script (non-zero exit, no result line):
    digest, shard 0 fresh in the cluster block, `fleet.incidents` counted)
    and the folder's merged timeline has a track. (c) and (d) run beside
    (a) and (b); each part's seconds are printed.
+27. mesh: the several-card paths on the one card (parallel/mesh.py,
+   the engine's 2-D pipeline): a real NCCL world of one rank formed in
+   this process (`init_process_group("nccl")` on a free loopback port,
+   destroyed at the end), then, under MPLC_TORCH_DETERMINISTIC_REDUCE=1, 8
+   coalitions of bench config 1's game (the MNIST CNN at full width, 10
+   partners, 1 epoch) through MPLC_TORCH_PARTNER_SHARDS=1 on the 2-D
+   pipeline, whose aggregations run NCCL collectives over the mesh row,
+   and through the 1-D masked route: the v(S) bit-equal, the ledger meta
+   naming each layout, no reconstruction kernel launched. The seconds of
+   each route and the collectives a round are printed beside the card's
+   name and power limit. NCCL refuses two ranks on one card, so several
+   ranks need several cards: `python3 -m mplc_tpu_torch.parallel.launch
+   --nproc 4 --selfcheck` on four.
 
 fp32 runs on the card are deterministic (`utils.resolve_device`): the
 stages phase's recording of the grand coalition must be bit-equal to the
@@ -3028,13 +3042,14 @@ def rung_free(tag: str, fn, *args):
 # WIDTH_RESUMED coalitions (the remainder trains at its own widths)
 WIDTH_SAMPLE = [(0,), (4,), (0, 1), (1, 3), (0, 2, 4), (2, 3, 4), (0, 1, 2, 3),
                 (0, 1, 2, 3, 4)]
-WIDTH_REQUESTS = (1, 2, 3)
+# (requests of 2, once run as well, made widths that 1 and 3 already make)
+WIDTH_REQUESTS = (1, 3)
 WIDTH_RESUMED = 20
 
 
 def width_requests(tag: str, sc, full: dict) -> dict:
     """Each sample coalition of the game `sc` (a prepared scenario),
-    requested on a fresh engine in requests of 1, 2 and 3 coalitions of
+    requested on a fresh engine in requests of WIDTH_REQUESTS coalitions of
     one bucket, and every coalition after a resume from a cache of the
     first WIDTH_RESUMED: each must be bit-equal to `full` (the full
     sweep's values). Returns {request: seconds}."""
@@ -4646,6 +4661,77 @@ def phase_fleet(card, smi: str) -> dict:
     return {"launches": launches, "widths": widths, "launches_bf16": bf16}
 
 
+MESH_COALITIONS = 8
+
+
+def mesh_route(sc: Scenario, subsets: list, shards: "str | None") -> dict:
+    """One engine's sweep of `subsets` under the deterministic reduce, on
+    the 2-D pipeline (`shards` "1") or the 1-D masked route (None), as the
+    several-card self-check measures it (`parallel.launch.measure`), with
+    the engine's 2-D pipeline."""
+    from mplc_tpu_torch.parallel import launch
+    with knob(constants.DETERMINISTIC_REDUCE_ENV, "1"), \
+            knob(constants.PARTNER_SHARDS_ENV, shards or ""):
+        eng = CharacteristicEngine(sc)
+    res = launch.measure(eng, subsets)
+    res["values"] = np.asarray(res["values"])
+    res["pipe"] = eng._pipe2d
+    return res
+
+
+def phase_mesh(card, smi: str) -> dict:
+    """The 2-D pipeline at one partner shard in a real NCCL world of one
+    rank against the 1-D masked route, bit for bit (see the module
+    docstring); K1's and K1-bf16's counts reset just before and required
+    at 0 after."""
+    import torch.distributed as dist
+    from mplc_tpu_torch.parallel import launch, mesh
+    t0 = time.perf_counter()
+    k1_reset()
+    check(not dist.is_initialized(), "[mesh] a process group was formed before the phase")
+    backend = "nccl" if torch.device(DEVICE).type == "cuda" else "gloo"
+    with knob("NCCL_SOCKET_IFNAME", os.environ.get("NCCL_SOCKET_IFNAME", "lo")):
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}",
+                                rank=0, world_size=1, **({"device_id": torch.device(
+                                    "cuda", torch.cuda.current_device())}
+                                    if backend == "nccl" else {}))
+    try:
+        init_s = time.perf_counter() - t0
+        check(dist.get_backend() == backend and mesh.world_size() == 1,
+              f"[mesh] the world is {dist.get_backend()} of {mesh.world_size()}")
+        sc = prepared(mnist_scenario([], epoch_count=1))
+        subsets = launch.selfcheck_subsets(PARTNERS, MESH_COALITIONS)
+        masked = mesh_route(sc, subsets, None)
+        two_d = mesh_route(sc, subsets, "1")
+    finally:
+        mesh.destroy_world()
+    pipe = two_d["pipe"]
+    launches, bf16, widths = k1_counts()
+    same = two_d["values"].tobytes() == masked["values"].tobytes()
+    for tag, r in (("1-D masked route", masked), ("2-D pipeline, 1 partner shard", two_d)):
+        print(f"[mesh] MNIST CNN, {PARTNERS} partners, {len(subsets)} coalitions, 1 epoch, "
+              f"deterministic reduce, {tag}: {r['seconds']:.2f} s, batches {r['batches']}; "
+              f"ledger meta {r['meta']}; mesh collectives {r['collectives']}, "
+              f"{r['collectives_per_round']:.2f} a round over {r['rounds']} rounds; {smi}")
+    print(f"[mesh] {backend} world of 1 formed in {init_s:.2f} s; v(S) "
+          f"{np.round(masked['values'], 4).tolist()}; 2-D bit-equal to 1-D: {same}; K1 "
+          f"launches {launches}, K1-bf16 {bf16}; on {card}")
+    check(pipe is not None and pipe.part_shards == 1 and pipe.coal_devices == 1,
+          "[mesh] MPLC_TORCH_PARTNER_SHARDS=1 did not take the 2-D pipeline")
+    check(two_d["meta"]["topology"] == "2d" and masked["meta"]["topology"] == "1d",
+          f"[mesh] ledger meta {two_d['meta']}, {masked['meta']}")
+    check(two_d["rounds"] > 0
+          and two_d["collectives"].get("all_gather", 0) >= 2 * two_d["rounds"],
+          f"[mesh] the 2-D pipeline issued {two_d['collectives']} over {two_d['rounds']} rounds")
+    check(not masked["collectives"], f"[mesh] the 1-D route issued {masked['collectives']}")
+    check(same, "[mesh] the 2-D pipeline's v(S) differ from the 1-D masked route's")
+    check(float(masked["values"].max() - masked["values"].min()) > 1e-3,
+          "[mesh] the values do not discriminate")
+    check(launches == bf16 == 0, "[mesh] a reconstruction kernel launched")
+    print(f"[mesh] all parts passed in {time.perf_counter() - t0:.2f} s")
+    return {"launches": launches, "widths": widths, "launches_bf16": bf16}
+
+
 def fleet_killed_child(work: str, device: str) -> int:
     """[fleet] (d)'s own process (`--fleet-killed WORK DEVICE`): its lines,
     then one JSON line; exit 1 when a check fails."""
@@ -4719,6 +4805,7 @@ def main() -> int:
     paths["service"] = rung_free("service", phase_service, sl, sweep, card)
     paths["router"] = rung_free("router", phase_router, sl, sweep, paths["service"], card)
     paths["fleet"] = rung_free("fleet", phase_fleet, card, smi)
+    paths["mesh"] = rung_free("mesh", phase_mesh, card, smi)
     for e in kernels:
         B = e["shape"]["B"]
         if not e["name"].startswith(recon_kernel.KERNEL_BF16):

@@ -316,6 +316,38 @@ def seed_ensemble() -> int:
     return _env_positive_int(SEED_ENSEMBLE_ENV, 1)
 
 
+# The 2-D [coal, part] mode (contrib/engine.py, parallel/): p splits every
+# fedavg or lflip coalition's partners over p ranks of a row of the
+# launcher's world, the coalitions over its world_size / p rows. Read when
+# a CharacteristicEngine is built; it wins over the Scenario's
+# `partner_shards`, and a value below 1 (or not an integer) raises. Set to
+# 1 under the deterministic reduce it runs the 2-D pipeline with whole
+# partner rows (the JAX package's route there; unset, the port keeps its
+# 1-D masked route, which gives the same bits).
+PARTNER_SHARDS_ENV = "MPLC_TORCH_PARTNER_SHARDS"
+
+
+def partner_shards(default: int) -> tuple[int, bool]:
+    """(the shard count, whether the environment set it): the knob when
+    set, else `default` (the Scenario's value)."""
+    raw = os.environ.get(PARTNER_SHARDS_ENV, "").strip()
+    if not raw:
+        return int(default), False
+    try:
+        value = int(raw)
+    except ValueError:
+        value = 0
+    if value < 1:
+        raise ValueError(f"{PARTNER_SHARDS_ENV} must be an integer >= 1, got {raw!r}")
+    return value, True
+
+
+# Every process group of the launcher's world (parallel/mesh.py) waits at
+# most this long in one collective: a rank that died or diverged fails its
+# peers instead of hanging them. Not a knob.
+PROCESS_GROUP_TIMEOUT_SEC = 300
+
+
 # Device cost (obs/devcost.py), read when a CharacteristicEngine is built:
 #   MPLC_TORCH_DEVICE_FENCE_RATE  fraction of the engine's batches that run
 #                                 fenced: CUDA events around the batch's

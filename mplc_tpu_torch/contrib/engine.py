@@ -84,9 +84,36 @@ counted FLOPs and nothing else, so the bank never changes a v(S).
 
 Fleet shards (parallel/fleet.py): `pin_fleet_widths` pins every bucket's
 width to a full sweep's plan, so a shard that evaluates a slice runs the
-full sweep's shapes. The JAX engine's 2-D mode (its partner-sharded
-pipeline, the singles path and the ladder's end there) is the second half
-of ROADMAP.md queue 1 item 10.
+full sweep's shapes.
+
+Several ranks (parallel/mesh.py; a launcher's world, one process a card):
+every rank builds the same engine and runs the same sweep. At a world
+above 1 each batch's coalitions spread over the ranks (the JAX engine's
+1-D coalition sharding, `_sharding`), each rank training an equal block of
+rows, and the harvest gathers the blocks, so every rank's memo holds every
+value. With `MPLC_TORCH_PARTNER_SHARDS` (or the Scenario's
+`partner_shards`) above 1, fedavg and lflip multis train on the 2-D
+[coal, part] mesh (`Batched2DTrainerPipeline`: each coalition's partners
+split over a mesh row, each round's aggregation reduced over it) and
+singletons on partner slices (`SlicedSinglesPipeline`); slots are off
+there. Every batch's dispatch and harvest failure is agreed across the
+world (`parallel.mesh.agreed`) before any rank goes on, and on the 2-D
+pipeline over its mesh row at every round, so an OOM on one rank, at the
+dispatch or inside a training, steps every rank's ladder and no rank
+waits in a collective its peers left (a failure inside a collective
+itself ends in the group's timeout); on the 2-D mesh and over several
+ranks the ladder has no CPU rung. The ranks plan every bucket at the
+least of their caps, each measured in its own card's memory.
+
+One choice differs from the JAX engine: under the deterministic reduce
+that engine routes fedavg and lflip through its 2-D pipeline at one
+partner shard; the port keeps its 1-D masked route there (the route its
+card gates hold bit-equal), and takes the 2-D pipeline at one shard only
+when `MPLC_TORCH_PARTNER_SHARDS=1` asks for it. Both give the same bits
+(tests/test_torch_sharding.py), so the choice changes no value. The 2-D
+mode's singletons run through the one batch loop (`_run_batch` on
+`SlicedSinglesPipeline`), whose OOM rung re-buckets in the loop, where
+the JAX engine has a second loop that recovers by recursion.
 """
 
 from __future__ import annotations
@@ -108,7 +135,9 @@ from .. import constants, faults
 from ..data.partition import StackedPartners
 from ..mpl.approaches import stage_eval_set
 from ..mpl.engine import SLOT_APPROACHES, MplTrainer, TrainConfig, upload
-from ..mpl.engine import call_flops
+from ..mpl.engine import call_flops, host_coalitions
+from ..parallel import mesh as par
+from ..parallel.partner_shard import slice_stacked, slice_streams, whole_streams
 from ..obs import devcost
 from ..obs import metrics as obs_metrics
 from ..obs import numerics as obs_numerics
@@ -163,6 +192,10 @@ class BatchedTrainerPipeline:
     """init -> epoch chunk -> finalize over a batch of coalitions, one
     trainer (the JAX package's vmapped pipeline)."""
 
+    # the mesh row whose collectives the training runs (the 2-D pipeline),
+    # whose agreement points a failure inside it reports to; None: none
+    row = None
+
     def __init__(self, trainer: MplTrainer, partners_count: int):
         self.trainer = trainer
         self.partners_count = partners_count
@@ -202,6 +235,78 @@ class BatchedTrainerPipeline:
         """`dispatch_async`, its results read to the host."""
         return self.dispatch_async(coal, generators, stacked, val, test,
                                    init_params, streams_all)()
+
+
+class Batched2DTrainerPipeline(BatchedTrainerPipeline):
+    """Coalition-batched training on a 2-D [coal, part] mesh: each rank
+    trains its block of a batch's coalitions (the engine hands it its rows)
+    over its block of the partners, and each round's aggregation reduces
+    over its mesh row (`TrainConfig.partner_axis`, ops/aggregation.py). A
+    run's every draw comes from its generator in the unsharded trainer's
+    order (its initial params, then every epoch's draws over all partners,
+    `MplTrainer.draw_streams`) and is cut to the rank's partners, so the
+    values are the 1-D masked route's, bit for bit under the deterministic
+    reduce. Masked only: slots rebind partners to slots per coalition.
+    `finalize` evaluates the aggregated params, the same on every rank of
+    a row; the engine gathers the scores over the `coal` axis. Each round's
+    aggregation is preceded by an agreement point over the row
+    (`AxisGroup.agree`), so a rank that fails inside a training (an OOM in
+    a forward pass) tells its row before any peer waits for it in a
+    collective (`parallel.mesh.agreed`)."""
+
+    def __init__(self, trainer: MplTrainer, partners_count: int, mesh):
+        super().__init__(trainer, partners_count)
+        self.mesh = mesh
+        self.coal_devices = mesh.shape["coal"]
+        self.part_shards = mesh.shape["part"]
+        self.local_partners = partners_count // self.part_shards
+        self.coal = mesh.axis("coal")
+        self.row = trainer.cfg.partner_axis
+        lo = trainer.cfg.partner_axis.index * self.local_partners
+        self._block = (lo, lo + self.local_partners)
+
+    def dispatch_async(self, coal, generators, stacked, val, test, init_params=None,
+                       streams_all=None, coal_host=None, call_log=None):
+        tr = self.trainer
+        lo, hi = self._block
+        tr.call_log = call_log
+        try:
+            # drawn whole, in the unsharded trainer's order: params, streams
+            state = tr.init_state(generators, self.local_partners, coal.device, init_params)
+            streams_all = whole_streams(tr, generators, stacked, coal.shape[0],
+                                        tr.cfg.epoch_count, streams_all)
+            tr.epoch_chunk(state, slice_stacked(stacked, lo, hi), val, coal[:, lo:hi], None,
+                           tr.cfg.epoch_count, slice_streams(streams_all, lo, hi),
+                           None if coal_host is None else torch.as_tensor(coal_host)[:, lo:hi])
+            _, accs = tr.finalize(state, test)
+        finally:
+            tr.call_log = None
+        epochs = state.nb_epochs_done
+        return lambda: (accs.cpu().numpy(), epochs.cpu().numpy())
+
+
+class SlicedSinglesPipeline(BatchedTrainerPipeline):
+    """The 2-D mode's singletons: a one-partner coalition reads only its
+    partner's rows, so each batch trains on a slice of just the partners
+    its rows need, the mask the identity (row j owns slice row j), instead
+    of every partner a rank. The single trainer's draws are a run's own and
+    read its partner's validity row only, so the slice trains as the full
+    data does. No collective runs inside."""
+
+    def __init__(self, trainer: MplTrainer, mesh):
+        super().__init__(trainer, 1)
+        self.coal_devices = mesh.shape["coal"]
+        self.coal = mesh.axis("coal")
+
+    def dispatch_async(self, coal, generators, stacked, val, test, init_params=None,
+                       streams_all=None, coal_host=None, call_log=None):
+        ids = torch.argmax(host_coalitions(coal, coal_host), dim=1)
+        sliced = StackedPartners(*(None if t is None else t[ids.to(t.device)]
+                                   for t in stacked))
+        B = coal.shape[0]
+        return BatchedTrainerPipeline(self.trainer, B).dispatch_async(
+            torch.eye(B, device=coal.device), generators, sliced, val, test, init_params,
+            streams_all, torch.eye(B), call_log)
 
 
 def device_memory_bytes(device) -> int:
@@ -253,6 +358,12 @@ class CharacteristicEngine:
     # callable(done_in_group, remaining_in_call, slot_count), called after
     # every harvested batch (the sweep service's per-batch hook)
     progress = None
+    # one rank, no mesh (`_setup_world`)
+    _world = 1
+    _pipe2d = None
+    _singles2d = None
+    _sharding = None
+    _coal = None
 
     def __init__(self, scenario, seed_ensemble: int | None = None):
         self.scenario = scenario
@@ -340,6 +451,7 @@ class CharacteristicEngine:
         self._slot_merge = (not self._slot_pow2 and os.environ.get(
             constants.SLOT_MERGE_ENV) not in ("0", "exact"))
         self._slot_pipes: dict[int, BatchedTrainerPipeline] = {}
+        self._setup_world(scenario, det_masked)
         # the bucketing mode that runs, recorded on the scenario
         scenario.slot_bucketing = (
             "masked" if not self._use_slots
@@ -423,6 +535,48 @@ class CharacteristicEngine:
         # compiles, which the port has none of)
         self.program_bank = ProgramBank(self) if bank_enabled() else None
 
+    def _setup_world(self, scenario, det_masked: bool) -> None:
+        """The engine's layout over the launcher's world (parallel/mesh.py):
+        the 2-D [coal, part] pipeline when `MPLC_TORCH_PARTNER_SHARDS` or
+        the Scenario's `partner_shards` asks for partner shards above 1
+        (or the knob asks for 1 under the deterministic reduce), with the
+        JAX engine's checks and messages; else, at a world above 1, the 1-D
+        coalition sharding over the world. The shard count that runs is
+        written back to the scenario (results.csv records it)."""
+        approach = self._multi_cfg.approach
+        self._world = par.world_size()
+        part, from_env = constants.partner_shards(getattr(scenario, "partner_shards", 1) or 1)
+        scenario.partner_shards = part
+        self._pipe2d = None
+        self._singles2d = None
+        if part > 1 or (from_env and det_masked):
+            if self.seed_ensemble > 1:
+                raise ValueError(
+                    "seed-ensemble sweeps (seed_ensemble > 1) are not supported in the 2-D "
+                    "partner-sharded mode")
+            if approach not in ("fedavg", "lflip"):
+                raise ValueError(f"{constants.PARTNER_SHARDS_ENV} requires a partner-parallel "
+                                 f"approach (fedavg/lflip), got {approach!r}")
+            if self.partners_count % part or self._world % part:
+                raise ValueError(
+                    f"{constants.PARTNER_SHARDS_ENV}={part} must divide both the partner "
+                    f"count ({self.partners_count}) and the device count ({self._world})")
+            mesh = par.make_2d_mesh(self._world // part, part)
+            cfg2d = dataclasses.replace(self._multi_cfg, partner_axis=mesh.axis("part"))
+            self._pipe2d = Batched2DTrainerPipeline(MplTrainer(self.model, cfg2d),
+                                                    self.partners_count, mesh)
+            self._singles2d = SlicedSinglesPipeline(self.single_pipe.trainer, mesh)
+            self._use_slots = False
+            self._sharding = None
+        else:
+            self._sharding = par.coalition_sharding()
+        self._coal = (self._sharding.mesh.axis("coal") if self._sharding is not None
+                      else None)
+
+    def _coal_axis(self, pipe):
+        """The `coal` line a pipe's batches spread over (None: one rank)."""
+        return getattr(pipe, "coal", None) or self._coal
+
     def _fingerprint_digest(self) -> str:
         """The ledger's engine fingerprint: sha256 of the cache fingerprint
         (`_fingerprint`, JSON with sorted keys), 16 hex digits, as the JAX
@@ -431,11 +585,13 @@ class CharacteristicEngine:
                               .encode()).hexdigest()[:16]
 
     def _ledger_meta(self) -> dict:
-        """The float path every ledger entry shares (the JAX engine's keys;
-        the port has one topology, 1-D, on one device's partners)."""
-        cuda = torch.device(self.device).type == "cuda"
-        return {"topology": "1d", "part_shards": 1,
-                "n_devices": torch.cuda.device_count() if cuda else 1,
+        """The float path every ledger entry shares (the JAX engine's keys):
+        the topology that ran ("2d" on the partner-sharded pipeline), its
+        partner shard count and the ranks the engine spreads over."""
+        two_d = self._pipe2d is not None
+        return {"topology": "2d" if two_d else "1d",
+                "part_shards": self._pipe2d.part_shards if two_d else 1,
+                "n_devices": self._world,
                 "reduction_mode": ("deterministic" if self._multi_cfg.deterministic_reduce
                                    else "default"),
                 "precision": self._multi_cfg.precision,
@@ -692,14 +848,31 @@ class CharacteristicEngine:
         the OOM ladder moves. The dispatch loop, `sweep_plan` and the
         packer all read it, so planned and executed widths never part.
 
+        Over several ranks the width is a power-of-two multiple of the
+        ranks the batch spreads over (the world in 1-D, the mesh's coal axis
+        in 2-D, where the cap counts a rank's partners), each rank training
+        an equal block of rows, and the cap is the least of the ranks' caps
+        (`parallel.mesh.agreed_min`: each rank's autotune reads its own
+        card's free memory), so every rank buckets at one width. That is
+        a collective: over several ranks every rank calls this together,
+        as `evaluate` and `sweep_plan` do.
+
         A fleet shard (parallel/fleet.py, `pin_fleet_widths`) runs each
         (pipe, slot_count) bucket at the full sweep's planned width even
         when its slice is smaller, so every shard runs the full sweep's
         programs and evaluates at the full sweep's shapes. The pin never
         shrinks a width, and the OOM ladder ignores it: a degraded cap
         re-buckets at the degraded width, not the plan's."""
-        cap = self._device_batch_cap(slot_count)
-        width = _bucket_size(min(n_jobs, cap), 1, cap)
+        if pipe is not None and getattr(pipe, "coal_devices", None):
+            # the 2-D mesh: the coalitions spread over its coal axis, each
+            # rank holding a batch's models for its block of the partners
+            # (the singles: one partner a coalition)
+            local = getattr(pipe, "local_partners", 1)
+            cap = par.agreed_min(self._device_batch_cap(local))
+            return _bucket_size(min(n_jobs, pipe.coal_devices * cap), pipe.coal_devices, cap)
+        n_dev = self._sharding.num_devices if self._sharding is not None else 1
+        cap = par.agreed_min(self._device_batch_cap(slot_count))
+        width = _bucket_size(min(n_jobs, n_dev * cap), n_dev, cap)
         if self._fleet_widths and not self._cap_halvings:
             pinned = self._fleet_widths.get((pipe, slot_count))
             if pinned:
@@ -731,14 +904,25 @@ class CharacteristicEngine:
         the same batch (`meta["redispatch"]`, the same streams) and fetches
         again, up to the retry budget. The fault plan's harvest boundary
         sits here. The re-dispatch runs inside the try: a re-dispatch that
-        fails transiently consumes a retry instead of escaping."""
+        fails transiently consumes a retry instead of escaping. Over
+        several ranks the harvest's failure is agreed (`parallel.mesh.agreed`)
+        and each rank's block of results is gathered over the batch's coal
+        axis (`meta["coal"]`)."""
         attempt = 0
         while True:
             try:
                 if fetch is None:
                     fetch = meta["redispatch"]()
-                self._faults.check("harvest", meta.get("ordinal", 0))
-                return fetch()
+
+                def harvest(fetch=fetch):
+                    self._faults.check("harvest", meta.get("ordinal", 0))
+                    return fetch()
+                coal = meta.get("coal")
+                if coal is None:
+                    return harvest()
+                # every rank's block, in row order: every memo holds the batch
+                return tuple(coal.all_gather(torch.from_numpy(a), tag="scores").numpy()
+                             for a in par.agreed(harvest))
             except Exception as e:
                 if (not faults.is_transient(e) or meta.get("redispatch") is None
                         or attempt >= self._max_retries):
@@ -764,8 +948,10 @@ class CharacteristicEngine:
         """One rung down the OOM ladder: halve the cap (every later
         `_device_batch_cap` sees it). Past MPLC_TORCH_MAX_CAP_HALVINGS
         rungs the ladder ends: a CUDA engine raises `_ladder_exhausted`'s
-        error (the port moves no work off the card), a CPU engine routes
-        everything still missing through its CPU rung. Values already
+        error (the port moves no work off the card), and so does an engine
+        on the 2-D mesh (mode "2d") or spread over several ranks, which
+        have no CPU rung; a CPU engine of one rank routes everything still
+        missing through its CPU rung. Values already
         harvested stay in the memo. The caller has released the failed
         batch's tensors (`_release`); what a reference cycle still holds is
         collected, the caching allocator releases its free blocks
@@ -784,7 +970,10 @@ class CharacteristicEngine:
             logger.warning("device OOM: halving the coalition cap (halving %d of %d) and "
                            "re-bucketing the remaining subsets (%s)",
                            self._cap_halvings, self._max_cap_halvings, err)
-        elif not on_cpu:
+        elif self._pipe2d is not None:
+            # the partner-sharded programs need the mesh: no CPU rung
+            raise self._ladder_exhausted(err, "2d") from err
+        elif not on_cpu or self._world > 1:
             raise self._ladder_exhausted(err, "1d") from err
         else:
             self._cpu_degraded = True
@@ -796,9 +985,9 @@ class CharacteristicEngine:
     def _ladder_exhausted(self, err: BaseException,
                           mode: str = "2d") -> faults.LadderExhaustedError:
         """The classified terminal error of a sweep whose cap halvings ran
-        out on the card (`_degrade_cap`, mode "1d"; the JAX package's 2-D
-        partner-sharded mode, "2d", comes with that mode, ROADMAP.md queue
-        1 item 10): counts `engine.ladder_exhausted`, emits an
+        out where no CPU rung exists (`_degrade_cap`): mode "1d" on the
+        card or over several ranks, "2d" on the partner-sharded pipeline
+        and its singles path. Counts `engine.ladder_exhausted`, emits an
         `engine.degrade` event (action `ladder_exhausted`), writes a
         flight-recorder dump and returns the error, permanent for the
         classifier. Raise it `from err`."""
@@ -809,10 +998,13 @@ class CharacteristicEngine:
         postmortem = obs_flight.dump("ladder_exhausted", extra={
             "halvings": self._cap_halvings, "error": str(err)[:500]})
         return faults.LadderExhaustedError(
-            f"device OOM persisted through {self._max_cap_halvings} cap halvings and the "
-            "card's work never moves to the CPU: the sweep cannot make progress at any "
-            f"cap. Remedies: lower {constants.COALITIONS_PER_DEVICE_ENV} or "
-            f"MPLC_TORCH_EVAL_CHUNK. Last device error: {str(err)[:200]}"
+            f"device OOM persisted through {self._max_cap_halvings} cap halvings and "
+            + ("the 2-D partner-sharded mode has no CPU rung (its programs need the mesh)"
+               if mode == "2d" else "the card's work never moves to the CPU")
+            + ": the sweep cannot make progress at any cap. Remedies: lower "
+            + constants.COALITIONS_PER_DEVICE_ENV
+            + (f" or {constants.PARTNER_SHARDS_ENV}" if mode == "2d" else "")
+            + f" or MPLC_TORCH_EVAL_CHUNK. Last device error: {str(err)[:200]}"
             + (f" Postmortem flight record: {postmortem}" if postmortem else ""),
             halvings=self._cap_halvings, mode=mode, postmortem_path=postmortem)
 
@@ -861,7 +1053,7 @@ class CharacteristicEngine:
         `LadderExhaustedError` and a CPU engine runs the rest on its CPU
         rung (`_run_groups_cpu`)."""
         K = self.seed_ensemble
-        single = pipe is self.single_pipe
+        single = pipe in (self.single_pipe, self._singles2d)
         per_partner = self._epoch_samples_single if single else self._epoch_samples_multi
         # partner passes a coalition-minibatch runs on this pipe, padded
         # slots included (what the device ran)
@@ -909,7 +1101,9 @@ class CharacteristicEngine:
         so a retry that reused them would train other streams) and returns
         the batch's harvest thunk. A fence ordinal's dispatch is fenced
         (`_fence_start`); the dispatch logs the trainer's calls, whose
-        FLOPs ride `meta["flops"]` (not on the CPU rung)."""
+        FLOPs ride `meta["flops"]` (not on the CPU rung). Over several
+        ranks the dispatch trains this rank's block of the rows (its
+        FLOPs and fence are this rank's) and its failure is agreed."""
         K = self.seed_ensemble
         jobs = ctx["jobs"]
         group = jobs[i:i + b]
@@ -929,24 +1123,40 @@ class CharacteristicEngine:
         fence = not degraded and devcost.should_fence(self._batch_ordinal,
                                                       self._fence_interval)
 
+        # over several ranks each trains its block of the rows, and the
+        # harvest gathers the blocks over this coal line
+        coal = None if degraded else self._coal_axis(pipe)
+        meta["coal"] = coal
+        rows = sel if coal is None else np.split(sel, coal.size)[coal.index]
+
+        def train():
+            keys = [ctx["eff"][j] for j in rows // K]
+            generators, init_params, streams = self._batch_start(
+                keys, ctx["single"], [int(j) for j in rows % K])
+            coal_host = torch.from_numpy(ctx["coal_all"][rows // K])
+            calls = None if degraded else []
+            if fence:
+                self._fence_start(meta)
+            fetch = pipe.dispatch_async(upload(coal_host, self.device), generators,
+                                        self.stacked, self.val, self.test, init_params,
+                                        streams, coal_host, calls)
+            if fence:
+                self._fence_stop(meta)
+            if calls:
+                meta["flops"] = call_flops(self.model, calls, self.stacked.x)
+            return fetch
+
         def dispatch(ordinal=self._batch_ordinal):
             with obs_trace.span("engine.dispatch", **attrs):
-                self._faults.check("dispatch", ordinal)
-                keys = [ctx["eff"][j] for j in sel // K]
-                generators, init_params, streams = self._batch_start(
-                    keys, ctx["single"], [int(j) for j in sel % K])
-                coal_host = torch.from_numpy(ctx["coal_all"][sel // K])
-                calls = None if degraded else []
-                if fence:
-                    self._fence_start(meta)
-                fetch = pipe.dispatch_async(upload(coal_host, self.device), generators,
-                                            self.stacked, self.val, self.test, init_params,
-                                            streams, coal_host, calls)
-                if fence:
-                    self._fence_stop(meta)
-                if calls:
-                    meta["flops"] = call_flops(self.model, calls, self.stacked.x)
-                return fetch
+                def checked_train():
+                    self._faults.check("dispatch", ordinal)
+                    return train()
+                if coal is None:
+                    return checked_train()
+                # over several ranks the dispatch's failure is agreed before
+                # any rank goes on; on the 2-D pipeline over its row first,
+                # at the agreement point where the row's peers wait
+                return par.agreed(checked_train, pipe.row)
 
         meta["redispatch"] = dispatch
         return group, meta, dispatch
@@ -1034,7 +1244,8 @@ class CharacteristicEngine:
                             coalitions=n):
             accs, epochs = self._fetch_with_retry(fetch, meta)
         self._maybe_fence(meta)
-        if self.program_bank is not None and not meta.get("degraded"):
+        if self.program_bank is not None and not meta.get("degraded") \
+                and self._pipe2d is None:
             self.program_bank.acquire(meta["pipe"], slot_count, meta["width"],
                                       flops=meta.get("flops"))
         # the float path of this batch's ledger entries (cleared after, so
@@ -1143,8 +1354,10 @@ class CharacteristicEngine:
             singles = [k for k in missing if lens[k] == 1]
             multis = [k for k in missing if lens[k] > 1]
             if singles:
-                self._run_batch(singles, self.single_pipe)
-            if multis and self._use_slots:
+                self._run_batch(singles, self._singles2d or self.single_pipe)
+            if multis and self._pipe2d is not None:
+                self._run_batch(multis, self._pipe2d)
+            elif multis and self._use_slots:
                 for width, group in self._slot_buckets(multis):
                     self._run_batch(group, self._slot_pipe(width), slot_count=width)
             elif multis:
@@ -1174,8 +1387,9 @@ class CharacteristicEngine:
         call whose missing coalitions are `singles` and `multis` (routed by
         effective size): the singles' batch, then each slot bucket (widths
         ascending) or the masked batch, each at its `_planned_width`. Empty
-        once the CPU rung is taken, whose batches are no device program."""
-        if self._cpu_degraded:
+        once the CPU rung is taken, whose batches are no device program, and
+        on the 2-D mesh, which plans no 1-D buckets (the JAX engine's rule)."""
+        if self._cpu_degraded or self._pipe2d is not None:
             return []
         K = self.seed_ensemble
         plan = []
@@ -1214,8 +1428,9 @@ class CharacteristicEngine:
 
         The JAX engine's pin is a no-op where it runs fedavg on its 2-D
         partner-sharded pipeline, its route under the deterministic reduce;
-        the port runs those sweeps masked (1-D batches), so here the pin
-        applies. It changes batch shapes only."""
+        the port runs those sweeps masked (1-D batches) unless the 2-D mode
+        is asked for, so here the pin applies. On the 2-D mesh there is no
+        plan and no pin. It changes batch shapes only."""
         plan = self.sweep_plan(subsets)
         self._fleet_widths = {(pipe, slot): width for pipe, slot, width in plan} or None
         return {slot: width for _pipe, slot, width in plan}

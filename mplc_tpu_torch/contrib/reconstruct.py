@@ -74,8 +74,8 @@ from .engine import _bucket_size, _memo_counters, _release
 def _check_not_2d(engine) -> None:
     """Fail fast: update recording and the 2-D coalition x partner mode are
     mutually exclusive (the recorded [rounds, partners, ...] stack needs
-    the whole partner axis on one device). `Scenario` already refuses
-    `partner_shards > 1`; this guards an engine built around it."""
+    the whole partner axis on one rank): an engine whose scenario runs
+    `partner_shards > 1` (the 2-D mode, contrib/engine.py) cannot record."""
     if int(getattr(engine.scenario, "partner_shards", 1) or 1) > 1:
         raise ValueError(
             "update recording (retrain-free GTG-Shapley/SVARM, the live tier) is "

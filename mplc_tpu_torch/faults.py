@@ -81,9 +81,13 @@ keeps the first entry; entries for partner ids outside the scenario warn
 and are dropped (`clip_partner_plan`).
 
 The service fault plan (`MPLC_TORCH_SERVICE_FAULT_PLAN`) addresses the
-sweep service's jobs by submission ordinal (grammar below). The JAX
-module's router plan waits for the port's fleet router (ROADMAP.md queue
-1 item 9b).
+sweep service's jobs by submission ordinal, and the router's
+(`MPLC_TORCH_ROUTER_FAULT_PLAN`, `shardkill@shard1:sec5`) kills a fleet
+router's shards (service/router.py); grammars below. Over several ranks
+(parallel/mesh.py) each rank reads its own batch plan, and the engine
+agrees every batch's failure across the ranks, so a fault injected on
+one rank takes every rank down the same rung, as a real OOM inside a
+partner-sharded training does (at its mesh row's next agreement point).
 """
 
 from __future__ import annotations

@@ -182,6 +182,13 @@ class TrainConfig:
     # step widths vary with the batch; False (the fit, the recording): a
     # step's models in one call
     fixed_call_width: bool = False
+    # the partner axis sharded over a mesh row (parallel/mesh.py
+    # `AxisGroup`, the JAX package's axis name; None: unsharded): the
+    # trainer's partners are this rank's block of the row's, its random
+    # draws come in whole (`PartnerShardedTrainer` slices them), and each
+    # round's aggregation reduces over the row (ops/aggregation.py).
+    # fedavg and lflip, masked, without partner faults or recording
+    partner_axis: object = None
 
     def __post_init__(self):
         if self.deterministic_reduce is None:
@@ -223,6 +230,21 @@ class TrainConfig:
             if self.slot_count is not None:
                 raise ValueError("update recording runs the masked fedavg path; "
                                  "slot execution is not supported")
+        if self.partner_axis is not None:
+            if self.approach not in ("fedavg", "lflip"):
+                raise ValueError("partner-axis sharding requires a partner-parallel "
+                                 f"approach (fedavg/lflip), got '{self.approach}'")
+            if self.faulted:
+                raise ValueError("partner-level faults and partner-axis sharding are "
+                                 "mutually exclusive")
+            if self.slot_count is not None:
+                raise ValueError("slot execution and partner-axis sharding are "
+                                 "mutually exclusive")
+            if self.record_updates:
+                raise ValueError(
+                    "update recording is not supported with partner-axis sharding (the "
+                    "2-D coalition x partner mode): the recorded [rounds, partners, ...] "
+                    "update stack needs the whole partner axis on one rank")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -565,6 +587,18 @@ class MplTrainer:
         return EpochStreams(*(_stream_map(lambda t, d=d: upload(t.to(d), dev), f)
                               for f, d in zip(streams, dtypes)))
 
+    def draw_streams(self, generators, mask: torch.Tensor, n_epochs: int) -> EpochStreams:
+        """`n_epochs` epochs of every run's draws, taken from the generators
+        in the order the epochs would take them, on the CPU with an epoch
+        axis after B (`epoch_chunk`'s `streams_all`): a chunk fed these
+        trains as one that draws its own. `mask` is what `_draws` gets."""
+        cpu = torch.device("cpu")
+        epochs = [self._draws(generators, mask, None, cpu) for _ in range(n_epochs)]
+        return EpochStreams(*(None if f[0] is None else
+                              tuple(torch.stack(ms, 1) for ms in zip(*f))
+                              if isinstance(f[0], tuple) else torch.stack(f, 1)
+                              for f in zip(*epochs)))
+
     def _step_masks(self, draws: EpochStreams, rows: int, coords: tuple, pick):
         """The keep masks of a run's steps, one per dropout layer (() for a
         model without): drawn from the epoch keys at `coords`
@@ -771,7 +805,13 @@ class MplTrainer:
         0 from its drop epoch on (`_drop_active`), a straggler's pass starts
         from `state.stale` row delay - 1 (the buffer is pushed after every
         aggregation), and a round with no survivor keeps the global params.
-        The recorded delta stays local params - round-start global params."""
+        The recorded delta stays local params - round-start global params.
+
+        Partner-sharded (`cfg.partner_axis`): `stacked`, `coal` and the
+        injected `streams` hold this rank's block of the row's partners;
+        the dropout masks are keyed by global partner id and each round's
+        aggregation reduces over the row, after an agreement point over it
+        (`AxisGroup.agree`)."""
         cfg = self.cfg
         B, W = coal.shape
         P = stacked.x.shape[0]
@@ -785,6 +825,13 @@ class MplTrainer:
             pids, act, used = self._slot_binding(coal)
         if cfg.partner_drop_epochs is not None:
             act = act * self._drop_active(e, dev)[pids]
+        # the global partner ids (partner-sharded: this rank's block of the
+        # row's), which key the dropout masks
+        gpids = pids if cfg.partner_axis is None else pids + cfg.partner_axis.index * P
+        if cfg.partner_axis is not None and streams is None:
+            raise ValueError("a partner-sharded trainer takes its draws whole, sliced to "
+                             "its partners (parallel/partner_shard.py), not from its "
+                             "generators")
         runs = torch.arange(B, device=dev)[:, None]
         stale = state.stale
         if stale is not None:
@@ -804,7 +851,7 @@ class MplTrainer:
 
         def step_drop(mb_i: int, g: int):
             masks = self._step_masks(
-                draws, sb_cap * cfg.step_width_mult, (1, mb_i, pids) + lflip_tag + (g,),
+                draws, sb_cap * cfg.step_width_mult, (1, mb_i, gpids) + lflip_tag + (g,),
                 lambda m: m[:, mb_i][runs, pids][:, :, g])
             return tuple(flat(m) for m in masks)
         rows = pids[:, :, None]
@@ -858,8 +905,13 @@ class MplTrainer:
                                .expand(B, 4, P))
             _write(view, torch.where(hit.any(1)[:, None, :], src, view), frozen)
             new_params = _tree_map(lambda t: t.reshape((B, W) + t.shape[1:]), new_flat)
+            if cfg.partner_axis is not None:
+                # the row's agreement point: a peer's failure in this round
+                # raises here, before its aggregation's collectives
+                cfg.partner_axis.agree()
             w = aggregation_weights(cfg.aggregator, act, sizes, torch.nan_to_num(pva),
-                                    deterministic=cfg.deterministic_reduce)
+                                    deterministic=cfg.deterministic_reduce,
+                                    group=cfg.partner_axis)
             if cfg.record_updates:
                 r_idx = e * cfg.minibatch_count + mb_i
                 for g, d in new_params.items():
@@ -867,7 +919,8 @@ class MplTrainer:
                         _write(state.upd_h[g][k][:, r_idx], t - params[g][k][:, None],
                                frozen)
                 _write(state.w_h[:, r_idx], w, frozen)
-            agg = aggregate(new_params, w, deterministic=cfg.deterministic_reduce)
+            agg = aggregate(new_params, w, deterministic=cfg.deterministic_reduce,
+                            group=cfg.partner_axis)
             if cfg.faulted:
                 agg = _keep_frozen(act.sum(1) == 0, params, agg)
             if stale is not None:

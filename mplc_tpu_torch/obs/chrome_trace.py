@@ -18,8 +18,8 @@ the Chrome trace-event format (the JSON object form, `{"traceEvents":
     recovered: `engine.retry` / `engine.fault` to the next `engine.batch`
     of the same ordinal on the same thread, `engine.degrade` to the next
     batch on the thread, `service.job_fault` to the job's next
-    `service.slice`. The port emits all but the last (the service is
-    ROADMAP.md queue 1 item 9); the converter keeps the JAX package's
+    `service.slice`. The port emits all four (`service.job_fault` from
+    the sweep service's scheduler); the converter keeps the JAX package's
     rules so that it reads either package's trace the same way.
 
 `read_jsonl` tolerates torn lines (a process killed mid-append), counting

@@ -5,10 +5,10 @@ The spans an operator needs after a failure are those of the run nobody
 was tracing on purpose, so `obs/trace.py` keeps a bounded ring of the most
 recent records (`MPLC_TORCH_FLIGHT_RECORDER_SIZE`, default 512) whatever
 the sinks, and `dump()` writes it with a full metrics snapshot to one JSON
-file. In the JAX package three terminal failures call it: a quarantined
-service job, an exhausted out-of-memory ladder and a corrupt service
-journal. Each trigger comes to the port with the module that raises it
-(ROADMAP.md, queue 1 items 6, 8 and 9).
+file. Three terminal failures call it, as in the JAX package: a
+quarantined service job (service/scheduler.py), an exhausted
+out-of-memory ladder (contrib/engine.py `_ladder_exhausted`, the 2-D
+mode's included) and a corrupt service journal (service/journal.py).
 
 File format (one JSON object):
 

@@ -8,11 +8,11 @@ on equal records (tests/test_torch_report.py). The resilience row reads the
 port's fault-ladder events (`engine.retry`, `engine.degrade`,
 `engine.fault`, the `degraded="cpu"` batches) as it reads the JAX
 engine's (tests/test_torch_ladder.py holds the two rows equal on one game
-and plan). The rows whose events the port does not emit yet (program
-bank, device fences, service, live, router, numerics; ROADMAP.md queue 1
-items 7-10) are derived here all the same and stay absent or zero on the
-port's streams, as they do on a JAX stream without those events. Paths
-below name the JAX package's modules.
+and plan). The program bank, device fence, service, live, router and
+numerics rows read the events the port's modules emit under the JAX
+names (PRs 16-19); a row whose events a run did not emit stays absent or
+zero, as it does on a JAX stream without them. Paths below name the JAX
+package's modules.
 
 `sweep_report(records)` consumes the span/event records collected during a
 run (`obs.trace.collect()`, or a parsed JSONL trace file) and derives the

@@ -16,6 +16,16 @@ slots and the same coalition trained masked over P rows aggregate to the
 same bits. The JAX package's `fusion_fence` has no counterpart here: it
 stops XLA from fusing the weighting multiply into the fold's adds, and
 eager PyTorch materializes every product before the next add anyway.
+
+Partner-sharded (`group`, an `AxisGroup` of parallel/mesh.py, the JAX
+package's `axis_name`): the partner axis of the weights and parameters is
+this rank's block of a mesh row, and the reduction spans the row. The
+default reduce sums locally, then all-reduces the partial sums (all
+leaves in one buffer). The deterministic one all-gathers the raw weights,
+and every leaf's weighted terms (again one buffer), into global partner
+order and folds them: the collective moves bytes and does no arithmetic,
+so the result is bit-equal to the unsharded fold. A group of one rank
+with no world formed returns its input, the unsharded computation.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ def ordered_fold(terms: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 def aggregation_weights(kind: str, coalition_mask: torch.Tensor,
                         sizes: torch.Tensor, last_scores: torch.Tensor,
-                        deterministic: bool = False) -> torch.Tensor:
+                        deterministic: bool = False, group=None) -> torch.Tensor:
     """The normalized weight vector w[P] for one aggregation step (one row
     per coalition for masks [B, P]).
 
@@ -46,6 +56,8 @@ def aggregation_weights(kind: str, coalition_mask: torch.Tensor,
     [B, K]); sizes: like the mask, or [P], sample counts (data-volume);
     last_scores: like the mask, last-round val accuracy (local-score).
     deterministic: the normalizer is the raw weights' `ordered_fold`.
+    group: the partner axis's mesh row when it is sharded (the normalizer
+    then spans the row's partners; the returned weights are this rank's).
     """
     if kind == "uniform":
         raw = coalition_mask
@@ -57,22 +69,48 @@ def aggregation_weights(kind: str, coalition_mask: torch.Tensor,
         raise KeyError(f"aggregation approach '{kind}' is not a valid approach. "
                        f"Supported: {AGGREGATOR_NAMES}")
     if deterministic:
-        total = ordered_fold(raw, dim=-1).unsqueeze(-1)
+        full = raw if group is None else group.all_gather(raw, dim=-1)
+        total = ordered_fold(full, dim=-1).unsqueeze(-1)
     else:
         total = torch.sum(raw, dim=-1, keepdim=True)
+        if group is not None:
+            total = group.all_reduce(total)
     return raw / torch.clamp(total, min=1e-12)
 
 
 def aggregate(stacked_params: dict, weights: torch.Tensor,
-              deterministic: bool = False) -> dict:
+              deterministic: bool = False, group=None) -> dict:
     """Weighted sum over the partner axis of every tensor of a stacked
     parameter dict ([P, ...] leaves with weights [P], or [B, P, ...] with
     weights [B, P]); `deterministic` folds each leaf's weighted terms with
-    `ordered_fold`."""
+    `ordered_fold`. With `group` the partner axis is this rank's block of
+    the row's partners, and one collective a call reduces every leaf over
+    the row (the module docstring)."""
     axis = weights.ndim - 1
 
-    def reduce(leaf):
-        terms = leaf * weights.reshape(weights.shape + (1,) * (leaf.ndim - weights.ndim))
-        return ordered_fold(terms, axis) if deterministic else torch.sum(terms, dim=axis)
-    return {g: {k: reduce(t) for k, t in d.items()}
-            for g, d in stacked_params.items()}
+    def terms(leaf):
+        return leaf * weights.reshape(weights.shape + (1,) * (leaf.ndim - weights.ndim))
+    if group is None:
+        return {g: {k: ordered_fold(terms(t), axis) if deterministic
+                    else torch.sum(terms(t), dim=axis) for k, t in d.items()}
+                for g, d in stacked_params.items()}
+    leaves = [(g, k, t) for g, d in stacked_params.items() for k, t in d.items()]
+    lead = weights.shape
+    if deterministic:
+        # every leaf's terms flattened into one [..., P_local, n] buffer,
+        # gathered into [..., P, n] and folded element by element: the
+        # same adds in the same order as each leaf's own fold
+        flat = torch.cat([terms(t).reshape(lead + (-1,)) for _, _, t in leaves], -1)
+        summed = ordered_fold(group.all_gather(flat, dim=axis), axis)
+    else:
+        flat = torch.cat([torch.sum(terms(t), dim=axis).reshape(lead[:-1] + (-1,))
+                          for _, _, t in leaves], -1)
+        summed = group.all_reduce(flat)
+    out: dict = {}
+    start = 0
+    for g, k, t in leaves:
+        shape = lead[:-1] + t.shape[len(lead):]
+        n = int(torch.Size(t.shape[len(lead):]).numel())
+        out.setdefault(g, {})[k] = summed[..., start:start + n].reshape(shape)
+        start += n
+    return out

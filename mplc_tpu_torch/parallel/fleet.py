@@ -44,11 +44,12 @@ Where the port differs from the JAX module:
   worker with no card and no `--device cpu` exits non-zero (`Scenario`
   raises through `utils.resolve_device`): no worker ever drops to the CPU.
   `threads` (`--threads N`) sets a worker's torch threads.
-- **One device a process.** The port's engine runs on one device a process
-  until the coalition mesh (ROADMAP.md queue 1 item 10, its second half)
-  lands, so `devices_per_shard` stays in the signatures but a value other
-  than None or 1 raises ValueError; `_local_device_count` reports the one
-  device a shard ran on without touching CUDA.
+- **One device a worker.** A worker process is one rank on one device;
+  a worker spanning several cards would be a world of ranks of its own
+  (parallel/mesh.py, ROADMAP.md queue 1 item 13), so `devices_per_shard`
+  stays in the signatures but a value other than None or 1 raises
+  ValueError; `_local_device_count` reports the one device a shard ran on
+  without touching CUDA.
 - **Worker environment.** `worker_env` passes the port's knobs only (no
   `JAX_*`, `XLA_*` or other packages' `MPLC_*` variables), strips the
   parent's telemetry outputs (its trace file, metrics port, Chrome trace,
@@ -132,9 +133,9 @@ class FleetMergeError(FleetError):
 def _check_devices_per_shard(devices: "int | None") -> None:
     if devices not in (None, 1):
         raise ValueError(
-            f"devices_per_shard={devices}: the port's engine runs on one device a "
-            "process; a shard over several devices needs the coalition mesh "
-            "(ROADMAP.md queue 1 item 10, its second half)")
+            f"devices_per_shard={devices}: a fleet worker runs on one device a "
+            "process; a shard over several devices would be a world of ranks of its "
+            "own (ROADMAP.md queue 1 item 13)")
 
 
 # ---------------------------------------------------------------------------

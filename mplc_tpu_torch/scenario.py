@@ -9,8 +9,10 @@ data split, batch sizes, data corruption, the grand-coalition training,
 then the configured contributivity methods; `to_dataframe()` gives the JAX
 package's rows and columns. It runs on CUDA unless `device=` names another
 device (the tests pass `device="cpu"`); see `utils.resolve_device`.
-`partner_shards` above 1 (the coalition x partner layout over several
-cards) is not ported and raises.
+`partner_shards` above 1 splits each fedavg or lflip coalition's partners
+over that many ranks of a launcher's world (the engine's 2-D mode,
+contrib/engine.py); at a world of 1 a value above 1 raises the engine's
+"must divide" ValueError when the sweep starts.
 
 `corrupted_datasets` takes every corruption of `data.partner.CORRUPTION_KINDS`;
 `data_corruption` then applies the partner fault plan's noisy and glabel
@@ -194,16 +196,15 @@ class Scenario:
         self.compute_dtype = compute_dtype
         # a coalition cache saved by an earlier run of the same game
         self.contributivity_cache_from = contributivity_cache_from
-        # the coalition x partner layout over several cards (ROADMAP.md
-        # queue 1 item 10) is not ported: a value above 1 must not run on
-        # one card in silence
+        # the partner shards of the engine's 2-D [coal, part] mode
+        # (contrib/engine.py): each fedavg or lflip coalition's partners
+        # split over that many ranks of the launcher's world, which it must
+        # divide, as the partner count must (the engine raises otherwise).
+        # MPLC_TORCH_PARTNER_SHARDS wins; the engine writes the value that
+        # runs back here, for to_dataframe
         self.partner_shards = 1 if partner_shards is None else int(partner_shards)
         if self.partner_shards < 1:
             raise ValueError(f"partner_shards must be >= 1, got {partner_shards}")
-        if self.partner_shards > 1:
-            raise NotImplementedError(
-                f"partner_shards={self.partner_shards}: sharding the partner axis over "
-                "several cards is not ported yet (ROADMAP.md queue 1 item 10)")
         # set by the CharacteristicEngine once it picks its execution mode
         self.slot_bucketing = None
 

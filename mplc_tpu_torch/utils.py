@@ -39,13 +39,20 @@ def resolve_device(device=None) -> torch.device:
     the fixed workspace (`CUBLAS_WORKSPACE_CONFIG=:4096:8`) its
     deterministic mode needs, which must be set before the process's first
     cuBLAS call.
+
+    In a world of several ranks (parallel/mesh.py, one process a card) an
+    unnumbered CUDA device is the rank's own card, cuda:LOCAL_RANK, and
+    every rank sets the modes above.
     """
+    from .parallel import mesh
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' (the CLI: --device cpu) "
                 "to run on the CPU")
+        if dev.index is None and mesh.world_size() > 1:
+            dev = torch.device("cuda", mesh.local_rank())
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"

@@ -8,8 +8,8 @@ thread:
   `RoutedJobFailed`, and the router's, the fleet collector's and the
   fleet sweep's modules (`service.router`, `obs.fleet_view`,
   `parallel.fleet`) have the JAX modules' public names; `parallel`
-  exports none of the JAX package's mesh names, which come with the 2-D
-  slice;
+  exports the JAX package's mesh names and `PartnerShardedTrainer`, and
+  reaches the fleet as `parallel.fleet`;
 - `import mplc_tpu_torch` loads `constants` and `obs`, as `import
   mplc_tpu` does, and no torch;
 - after a 2-partner Titanic Shapley run in both packages (the port fed
@@ -96,14 +96,20 @@ def test_router_and_fleet_view_modules_match_jax(name):
 
 def test_parallel_exports_wait_for_the_mesh():
     """`mplc_tpu.parallel` exports the mesh and the partner-sharded
-    trainer, the 2-D slice's; the port's `parallel` exports nothing yet and
-    reaches the fleet as `parallel.fleet`, as the JAX package does."""
+    trainer; the port's `parallel` exports the same names, each its own
+    module's, and reaches the fleet as `parallel.fleet`, as the JAX package
+    does."""
     from mplc_tpu_torch import parallel
     jmod = importlib.import_module("mplc_tpu.parallel")
-    assert parallel.__all__ == [] and "fleet" not in jmod.__all__
+    assert parallel.__all__ == jmod.__all__ and "fleet" not in jmod.__all__
     assert set(jmod.__all__) == {"CoalitionSharding", "coalition_sharding", "make_mesh",
                                  "make_2d_mesh", "make_multihost_mesh",
                                  "PartnerShardedTrainer"}
+    for name in parallel.__all__:
+        module = ("partner_shard" if name == "PartnerShardedTrainer" else "mesh")
+        assert getattr(parallel, name) is getattr(
+            importlib.import_module(f"mplc_tpu_torch.parallel.{module}"), name)
+        assert callable(getattr(parallel, name))
     assert importlib.import_module("mplc_tpu_torch.parallel.fleet").run_fleet
 
 

@@ -792,3 +792,53 @@ def test_fleet_worker_processes_on_the_card_verify_against_one_shard(cuda, tmp_p
     assert got.values == ref.values
     assert all(r["device"].startswith("cuda") for r in got.shard_reports)
     assert all((tmp_path / "w2" / f".shard{i}.done").exists() for i in range(2))
+
+
+def test_nccl_world_of_one_2d_pipeline_equals_the_1d_route(cuda, monkeypatch):
+    """A real NCCL world of one rank in this process: the 2-D pipeline at
+    one partner shard (MPLC_TORCH_PARTNER_SHARDS=1, its aggregations NCCL
+    all-gathers over the mesh row) gives the 1-D masked route's v(S) bit
+    for bit on the card, under the deterministic reduce (Titanic, 4
+    partners)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mplc_tpu_torch.contrib.engine import CharacteristicEngine
+    from mplc_tpu_torch.parallel import mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv(constants.DETERMINISTIC_REDUCE_ENV, "1")
+    monkeypatch.delenv(constants.PARTNER_SHARDS_ENV, raising=False)
+    subsets = powerset_order(4)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        masked = CharacteristicEngine(_live_titanic_seed("cuda", 0)).evaluate(subsets)
+        monkeypatch.setenv(constants.PARTNER_SHARDS_ENV, "1")
+        before = mesh.collectives()["all_gather"]
+        eng = CharacteristicEngine(_live_titanic_seed("cuda", 0))
+        two_d = eng.evaluate(subsets)
+        gathers = mesh.collectives()["all_gather"] - before
+    finally:
+        mesh.destroy_world()
+    assert eng._pipe2d is not None and eng._ledger_meta()["topology"] == "2d"
+    assert gathers > 0
+    assert two_d.tobytes() == masked.tobytes()
+
+
+def test_four_cards_run_the_several_card_selfcheck_on_titanic(cuda):
+    """On a host with 4 cards, `launch --selfcheck` on Titanic: the [2 x 2]
+    and [4 x 1] NCCL meshes bit-equal to one rank, the default reduce
+    within a test sample (on the game's seed and two more), an OOM inside
+    one rank's rounds ending every rank on the 2-D ladder, the service's 4
+    workers on 4 cards bit-equal to solo. NCCL refuses two ranks on one
+    card, so one card skips. On Titanic only: the MNIST game's default
+    reduce misses the one-sample bound (PERF.md), which this does not
+    hold."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices (NCCL refuses two ranks on one card)")
+    from mplc_tpu_torch.parallel import launch
+    assert launch.selfcheck(4, "cuda", "titanic", 600) == 0

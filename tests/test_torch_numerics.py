@@ -118,6 +118,39 @@ def test_port_ledger_diffed_by_jax_against_the_jax_engine(monkeypatch, tmp_path)
     assert port.engine_fingerprint == eng._fingerprint_digest()
 
 
+def test_ledger_meta_names_the_layout_that_ran(monkeypatch, tmp_path):
+    """The meta's topology, partner shards and devices are those the engine
+    spread over, as the JAX engine's are: the JAX engine at 2 partner
+    shards on the conftest's 8 devices says 2d / 2 / 8; the port's 2-D
+    pipeline at one shard on one rank says 2d / 1 / 1, its 1-D route 1d /
+    1 / 1, and a card engine does not count the host's other cards
+    (`torch.cuda.device_count`) as devices it ran on (the world of 4 is
+    tests/test_torch_sharding.py's)."""
+    from helpers import build_scenario
+    from mplc_tpu.contrib.engine import CharacteristicEngine as JEngine
+    from torch_dist_helpers import KNOBS, titanic_scenario
+    for k in KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("MPLC_TPU_DETERMINISTIC_REDUCE", "1")
+    monkeypatch.setenv("MPLC_TPU_PARTNER_SHARDS", "2")
+    monkeypatch.setenv("MPLC_TPU_NUMERICS_LEDGER", str(tmp_path / "jax.json"))
+    jeng = JEngine(build_scenario(partners_count=4, amounts_per_partner=[0.1, 0.2, 0.3, 0.4],
+                                  dataset_name="titanic", epoch_count=2, seed=9))
+    keys = ("topology", "part_shards", "n_devices")
+    assert [jeng.numerics_ledger.meta[k] for k in keys] == ["2d", 2, 8]
+    monkeypatch.setenv(constants.NUMERICS_LEDGER_ENV, str(tmp_path / "port.json"))
+    monkeypatch.setenv(constants.DETERMINISTIC_REDUCE_ENV, "1")
+    masked = CharacteristicEngine(titanic_scenario())
+    monkeypatch.setenv(constants.PARTNER_SHARDS_ENV, "1")
+    two_d = CharacteristicEngine(titanic_scenario())
+    assert [masked.numerics_ledger.meta[k] for k in keys] == ["1d", 1, 1]
+    assert [two_d.numerics_ledger.meta[k] for k in keys] == ["2d", 1, 1]
+    assert set(two_d.numerics_ledger.meta) == set(jeng.numerics_ledger.meta)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    masked.device = torch.device("cuda")
+    assert masked._ledger_meta()["n_devices"] == 1
+
+
 def test_folds_and_forensics_match_jax():
     rng = np.random.default_rng(7)
     for P in (2, 3, 4, 5, 6, 10):

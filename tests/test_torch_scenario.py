@@ -12,7 +12,9 @@ the same exception type or the same `aggregation_name` and
 (d) the rest of the constructor: an unknown keyword argument raises the
     JAX package's message; `dataset_proportion` and `is_quick_demo` give
     byte-equal arrays (small synthetic MNIST) and the same refusals; the
-    scenario's names; `partner_shards` above 1 refused; `compute_dtype=
+    scenario's names; `partner_shards` taken, an indivisible shard count
+    raising the JAX package's "must divide" when the engine is built, in
+    both packages; `compute_dtype=
     "bfloat16"` computing the model in bf16 under the fp32 precision mode
     in both packages.
 """
@@ -164,9 +166,22 @@ def test_names_ids_and_partner_shards():
                         sc.scenario_name)
     assert sc.short_scenario_name == "3 [0.2, 0.3, 0.5]"
     assert sc.partner_shards == 1 and not sc.save_folder.exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        Scenario(3, AMOUNTS, dataset=tdatasets.load_titanic(), is_dry_run=True,
-                 device="cpu", partner_shards=2)
+    # the 2-D mode: the Scenario takes the value; at a world of 1 the
+    # engine raises the JAX package's "must divide" (tests/test_torch_sharding.py)
+    sc2 = Scenario(3, AMOUNTS, dataset=tdatasets.load_titanic(), is_dry_run=True,
+                   device="cpu", partner_shards=3)
+    assert sc2.partner_shards == 3
+    sc2.instantiate_scenario_partners()
+    sc2.split_data(is_logging_enabled=False)
+    with pytest.raises(ValueError, match="must divide both the partner count"):
+        CharacteristicEngine(sc2)
+    from mplc_tpu.contrib.engine import CharacteristicEngine as JEngine
+    jsc = JScenario(3, AMOUNTS, dataset=jdatasets.load_titanic(), is_dry_run=True,
+                    partner_shards=3)
+    jsc.instantiate_scenario_partners()
+    jsc.split_data(is_logging_enabled=False)
+    with pytest.raises(ValueError, match="must divide both the partner count"):
+        JEngine(jsc)
     for build in (lambda: JScenario(3, AMOUNTS, dataset=jdatasets.load_titanic(),
                                     is_dry_run=True, partner_shards=0),
                   lambda: Scenario(3, AMOUNTS, dataset=tdatasets.load_titanic(),
