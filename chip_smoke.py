@@ -251,7 +251,14 @@ Phases, each of which fails the script (non-zero exit, no result line):
    as [precision]'s value pair, tau-b, the max |dv|, the coalitions past
    the bound and the worst eight printed (the JAX package's own bf16
    reconstruction parts from its fp32 past the bound too:
-   tests/bf16_recon_witness.py). (d)
+   tests/bf16_recon_witness.py). Then `python3 -m mplc_tpu_torch.drift_diff`
+   on those files, three processes at once: the two sweeps' ledgers with
+   `--gate` exit 0 (ZERO DRIFT); the plain sweep's against a copy of it
+   with one v(S) one ulp up exit 1 (DRIFT DETECTED); the main path's fp32
+   ledger against [slice bf16]'s exit 2, as the JAX script does, since
+   precision is in the engine fingerprint (other games, not drift), its
+   `--json` document reporting drift; each `--json` document equal to the
+   in-process `diff_ledgers`. (d)
    Under MPLC_TORCH_NUMERICS_AUDIT=1 at fence rate 1, the grand coalition
    requested (a batch of one on 5 slots): its v(S) bit-equal to the
    audit-off request, one audit, replayed at that batch's [1, 5] shape,
@@ -389,8 +396,13 @@ Phases, each of which fails the script (non-zero exit, no result line):
    `incident_*` folder (reason shard_failure, failed shards [1], the
    `fleet_worker_crash` flight dump copied in, a trace tail, no ledger
    digest, shard 0 fresh in the cluster block, `fleet.incidents` counted)
-   and the folder's merged timeline has a track. (c) and (d) run beside
-   (a) and (b); each part's seconds are printed.
+   and the folder's merged timeline has a track. (e) `python3 -m
+   mplc_tpu_torch.parallel.fleet --selfcheck --shards 2 --devices-per-shard
+   1` in a process of its own on the card: the 1-shard run on 1 device,
+   then both shards wrapped onto the one card (CUDA_VISIBLE_DEVICES of
+   each worker the card's id): exit 0, `ok: true`, and each worker's line
+   naming the card it saw. (c), (d) and (e) run beside (a) and (b); each
+   part's seconds are printed.
 27. mesh: the several-card paths on the one card (parallel/mesh.py,
    the engine's 2-D pipeline): a real NCCL world of one rank formed in
    this process (`init_process_group("nccl")` on a free loopback port,
@@ -3303,14 +3315,61 @@ def devcost_audit(sweep: dict) -> None:
           "(d) the deterministic reduce's audit is missing or diverged")
 
 
+def devcost_drift_cli(ledgers: Path) -> None:
+    """(c): `python3 -m mplc_tpu_torch.drift_diff` on the phase's ledger
+    files, each pair as a text report with `--gate` and as `--json`, all
+    at once: exit 0 on the two sweeps', 1 on the plain sweep's against a
+    copy with one v(S) one ulp up, 2 on the main path's fp32 against bf16
+    (other fingerprints); every `--json` document the in-process
+    `diff_ledgers`."""
+    doc = json.loads((ledgers / "sweep_plain.json").read_text())
+    key = sorted(doc["entries"])[-1]
+    entry = doc["entries"][key]
+    entry["value"] = float(np.nextafter(entry["value"], np.inf))
+    entry["value_bits"] = numerics.float_bits(entry["value"])
+    (ledgers / "sweep_bumped.json").write_text(json.dumps(doc))
+    pairs = {"sweeps": ("sweep_fenced.json", "sweep_plain.json", 0, "ZERO DRIFT"),
+             "bumped": ("sweep_plain.json", "sweep_bumped.json", 1, "DRIFT DETECTED"),
+             "precision": ("main_fp32.json", "main_bf16.json", 2, "DIFFERENT GAMES")}
+    t0 = time.perf_counter()
+    procs = {(tag, flag): subprocess.Popen(
+        [sys.executable, "-m", "mplc_tpu_torch.drift_diff", str(ledgers / a),
+         str(ledgers / b), flag], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(Path(__file__).resolve().parent), env=fleet.worker_env())
+        for tag, (a, b, _rc, _word) in pairs.items() for flag in ("--gate", "--json")}
+    outs = {k: (*p.communicate(timeout=300), p.returncode) for k, p in procs.items()}
+    wall = time.perf_counter() - t0
+    for tag, (a, b, rc, word) in pairs.items():
+        text, err, rc_gate = outs[(tag, "--gate")]
+        js, _, rc_json = outs[(tag, "--json")]
+        want = numerics.diff_ledgers(numerics.ValueLedger.load(str(ledgers / a)),
+                                     numerics.ValueLedger.load(str(ledgers / b)))
+        got = json.loads(js) if js.strip().startswith("{") else {}
+        print(f"[devcost] (c) drift_diff {a} {b}: --gate exit {rc_gate}, --json exit "
+              f"{rc_json}; drift {got.get('drift')}, max ulp {(got.get('ulp') or {}).get('max')}"
+              f", tau-b {got.get('kendall_tau')}, same fingerprint "
+              f"{got.get('same_fingerprint')}; report: {text.strip().splitlines()[-1]!r}"
+              f"{'; ' + err.strip().splitlines()[-1] if err.strip() else ''}")
+        check(rc_gate == rc and rc_json == (2 if rc == 2 else 0) and word in text,
+              f"(c) drift_diff {a} {b} exited {rc_gate} (--json {rc_json}), not {rc}: "
+              f"{text[-300:]} {err[-300:]}")
+        check(got == json.loads(json.dumps(want)),
+              f"(c) drift_diff {a} {b} --json differs from diff_ledgers")
+        check(got.get("drift") is (tag != "sweeps"),
+              f"(c) drift_diff {a} {b} reports drift {got.get('drift')}")
+    print(f"[devcost] (c) drift_diff: {len(procs)} processes in {wall:.2f} s")
+
+
 def phase_devcost(sl, sweep: dict, ledgers: Path, card: str) -> dict:
     """Device cost, fences, the value ledger and the audit: (a) the main
     path ledgered and fenced, (b) the sweep fenced at rate 1 against rate
-    0, (c) ledger diffs, (d) the audit on both reductions."""
+    0, (c) ledger diffs in process and through `drift_diff`, (d) the audit
+    on both reductions."""
     t0 = time.perf_counter()
     path = devcost_main_path(sl, ledgers / "main_fp32.json")
     devcost_fences(sweep, card, ledgers)
     devcost_precision_ledgers(path.pop("ledger"), ledgers / "main_bf16.json")
+    devcost_drift_cli(ledgers)
     devcost_audit(sweep)
     print(f"[devcost] all parts passed in {time.perf_counter() - t0:.2f} s")
     return path
@@ -4564,6 +4623,34 @@ def fleet_selfcheck(run: dict, work: Path) -> dict:
     return {"seconds": wall}
 
 
+def fleet_cards(run: dict, work: Path) -> dict:
+    """(e) `python3 -m mplc_tpu_torch.parallel.fleet --selfcheck --shards 2
+    --devices-per-shard 1` on the card, beside (a)-(d): exit 0 and `ok:
+    true`, both shards wrapped onto the card the coordinator sees first,
+    each worker's line naming that card."""
+    rc, lines, wall = fleet_side_end(run, work)
+    last = (lines or ["{}"])[-1]
+    doc = json.loads(last) if last.startswith("{") else {}
+    workers = [ln for ln in lines if ln.startswith("[fleet worker]")]
+    for ln in workers:
+        print(f"[fleet] (e) {ln}")
+    card = torch.cuda.get_device_name(0) if DEVICE.startswith("cuda") else "cpu"
+    visible = fleet._visible_cards() if DEVICE.startswith("cuda") else []
+    want = visible[0] if visible else None
+    cards = doc.get("shard_cards") or []
+    print(f"[fleet] (e) selfcheck --shards 2 --devices-per-shard 1: exit {rc} in "
+          f"{wall:.2f} s; shards on {json.dumps(cards)}; {last[:300]}")
+    check(rc == 0 and doc.get("ok") is True, f"(e) the selfcheck failed: exit {rc}, "
+          f"{last[:400]}")
+    check(len(cards) == 2 and all(c["devices"] == 1 and c["visible"] == want
+                                  and c["card"] == card for c in cards),
+          f"(e) the shards did not both wrap onto card {want} ({card}): {cards}")
+    check(len(workers) == 2 and all(card in ln and f"CUDA_VISIBLE_DEVICES={want}," in ln
+                                    for ln in workers),
+          f"(e) the worker lines do not name the card: {workers}")
+    return {"seconds": wall}
+
+
 def fleet_killed_side(run: dict, work: Path) -> dict:
     """(d) collected from its own process (`--fleet-killed`), which made its
     checks: its lines printed here, exit 0."""
@@ -4629,8 +4716,8 @@ def fleet_killed(work: Path) -> dict:
 
 
 def phase_fleet(card, smi: str) -> dict:
-    """The fleet sweep, (a)-(d); (c) and (d) run in processes of their own
-    beside (a) and (b). No reconstruction kernel launches in this
+    """The fleet sweep, (a)-(e); (c), (d) and (e) run in processes of their
+    own beside (a) and (b). No reconstruction kernel launches in this
     process."""
     t0 = time.perf_counter()
     k1_reset()
@@ -4640,12 +4727,16 @@ def phase_fleet(card, smi: str) -> dict:
                      "-m", "mplc_tpu_torch.parallel.fleet", "--selfcheck", "--shards", "2",
                      "--obs-dir", str(work / "selfcheck_obs"), "--device", DEVICE]),
                  fleet_side(work, "killed", [str(Path(__file__).resolve()),
-                                             "--fleet-killed", str(work), DEVICE])]
+                                             "--fleet-killed", str(work), DEVICE]),
+                 fleet_side(work, "cards", [
+                     "-m", "mplc_tpu_torch.parallel.fleet", "--selfcheck", "--shards", "2",
+                     "--devices-per-shard", "1", "--device", DEVICE])]
         try:
             a = fleet_mnist(work, smi)
             b = fleet_faults(work)
             c = fleet_selfcheck(sides[0], work)
             d = fleet_killed_side(sides[1], work)
+            e = fleet_cards(sides[2], work)
         finally:
             # the side processes and their workers stop with the phase
             for run in sides:
@@ -4653,8 +4744,9 @@ def phase_fleet(card, smi: str) -> dict:
                     fleet_side_stop(run)
     launches, bf16, widths = k1_counts()
     print(f"[fleet] seconds (a) {a['seconds']:.2f}, (b) {b['seconds']:.2f}, (c) "
-          f"{c['seconds']:.2f} and (d) {d['seconds']:.2f} ({d['run_s']:.2f} in run_fleet), "
-          f"each in a process of its own beside (a) and (b); K1 launches {launches}, "
+          f"{c['seconds']:.2f}, (d) {d['seconds']:.2f} ({d['run_s']:.2f} in run_fleet) and "
+          f"(e) {e['seconds']:.2f}, (c)-(e) each in a process of its own beside (a) and (b); "
+          f"K1 launches {launches}, "
           f"K1-bf16 {bf16} in this process on {card}")
     check(launches == bf16 == 0, "the fleet sweep launched a reconstruction kernel")
     print(f"[fleet] all parts passed in {time.perf_counter() - t0:.2f} s")

@@ -191,8 +191,13 @@ BATCH_CAP_CEILING_ENV = "MPLC_TORCH_BATCH_CAP_CEILING"
 #   MPLC_TORCH_MAX_CAP_HALVINGS   OOM cap halvings before the ladder ends:
 #                                 a CUDA engine raises LadderExhaustedError,
 #                                 a CPU engine runs the rest on its CPU
-#                                 rung (3).
+#                                 rung (3);
+#   MPLC_TORCH_FAULT_RANK         in a world of ranks (parallel/mesh.py),
+#                                 the one rank whose batch plan is armed
+#                                 (unset: every rank's), so that one rank
+#                                 of a world fails where its peers do not.
 FAULT_PLAN_ENV = "MPLC_TORCH_FAULT_PLAN"
+FAULT_RANK_ENV = "MPLC_TORCH_FAULT_RANK"
 MAX_RETRIES_ENV = "MPLC_TORCH_MAX_RETRIES"
 RETRY_BACKOFF_ENV = "MPLC_TORCH_RETRY_BACKOFF_SEC"
 MAX_CAP_HALVINGS_ENV = "MPLC_TORCH_MAX_CAP_HALVINGS"

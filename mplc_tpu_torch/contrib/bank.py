@@ -22,7 +22,7 @@ What is kept of the JAX bank: the key (`program_key`, `recon_key`, the
 engine digest in its per-game and its shared, shape-only scope), the
 process-global FIFO store bounded at 256 programs, `bank_stats()` with the
 JAX key set, the manifest `mplc_program_bank.json` (`programs` and
-`costs`, replaced atomically) in `manifest_dir()`
+`costs`, replaced atomically under a lock of the folder) in `manifest_dir()`
 (MPLC_TORCH_COMPILE_CACHE_DIR; unset: none), `persistent_keys`,
 `persistent_costs` and `holds_persistent(plan)`. The key drops XLA's
 donation signature: the port donates no buffer. The planner's
@@ -31,6 +31,8 @@ donation signature: the port donates no buffer. The planner's
 
 from __future__ import annotations
 
+import contextlib
+import fcntl
 import hashlib
 import json
 import logging
@@ -53,6 +55,23 @@ _PROGRAMS: dict = {}
 _MAX_PROGRAMS = 256
 _LOCK = threading.Lock()
 _MANIFEST_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _manifest_file_lock(d: str):
+    """An exclusive lock on the manifest's folder across processes (fleet
+    workers and the ranks of a shard's world share one folder), so that no
+    process's read-modify-write drops another's keys. Where the lock file
+    cannot be made, the thread lock alone."""
+    try:
+        os.makedirs(d, exist_ok=True)
+        f = open(os.path.join(d, MANIFEST_NAME + ".lock"), "a")
+    except OSError:
+        yield
+        return
+    with f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
 
 
 def bank_enabled() -> bool:
@@ -230,7 +249,7 @@ class ProgramBank:
         d = manifest_dir()
         if not d:
             return
-        with _MANIFEST_LOCK:
+        with _MANIFEST_LOCK, _manifest_file_lock(d):
             doc = self._manifest_doc()
             keys = set(doc.get("programs", []))
             costs = dict(doc.get("costs", {}))
@@ -242,7 +261,6 @@ class ProgramBank:
             path = os.path.join(d, MANIFEST_NAME)
             tmp = f"{path}.{os.getpid()}.tmp"
             try:
-                os.makedirs(d, exist_ok=True)
                 with open(tmp, "w") as f:
                     json.dump({"programs": sorted(keys), "costs": costs}, f)
                 os.replace(tmp, path)

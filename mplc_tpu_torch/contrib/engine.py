@@ -365,7 +365,8 @@ class CharacteristicEngine:
     _sharding = None
     _coal = None
 
-    def __init__(self, scenario, seed_ensemble: int | None = None):
+    def __init__(self, scenario, share_data_from: "CharacteristicEngine | None" = None,
+                 seed_ensemble: int | None = None):
         self.scenario = scenario
         self.partners_list = sorted(scenario.partners_list, key=lambda p: p.id)
         self.partners_count = len(self.partners_list)
@@ -405,9 +406,16 @@ class CharacteristicEngine:
 
         label_dim = self.model.label_dim()
         ds = scenario.dataset
-        self.stacked = StackedPartners.build(self.partners_list, label_dim, self.device)
-        self.val = stage_eval_set(ds.x_val, ds.y_val, label_dim, self.device)
-        self.test = stage_eval_set(ds.x_test, ds.y_test, label_dim, self.device)
+        if share_data_from is not None:
+            # another engine's staged tensors over the same scenario data:
+            # no second device copy of the stacked train and eval sets
+            self.stacked = share_data_from.stacked
+            self.val = share_data_from.val
+            self.test = share_data_from.test
+        else:
+            self.stacked = StackedPartners.build(self.partners_list, label_dim, self.device)
+            self.val = stage_eval_set(ds.x_val, ds.y_val, label_dim, self.device)
+            self.test = stage_eval_set(ds.x_test, ds.y_test, label_dim, self.device)
 
         self._multi_cfg = TrainConfig(
             approach=scenario.multi_partner_learning_approach_key,

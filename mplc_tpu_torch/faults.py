@@ -84,7 +84,8 @@ The service fault plan (`MPLC_TORCH_SERVICE_FAULT_PLAN`) addresses the
 sweep service's jobs by submission ordinal, and the router's
 (`MPLC_TORCH_ROUTER_FAULT_PLAN`, `shardkill@shard1:sec5`) kills a fleet
 router's shards (service/router.py); grammars below. Over several ranks
-(parallel/mesh.py) each rank reads its own batch plan, and the engine
+(parallel/mesh.py) each rank reads its own batch plan (MPLC_TORCH_FAULT_RANK
+arms it on one rank alone), and the engine
 agrees every batch's failure across the ranks, so a fault injected on
 one rank takes every rank down the same rung, as a real OOM inside a
 partner-sharded training does (at its mesh row's next agreement point).
@@ -98,8 +99,8 @@ import warnings
 
 import torch
 
-from .constants import (FAULT_PLAN_ENV, PARTNER_FAULT_PLAN_ENV, ROUTER_FAULT_PLAN_ENV,
-                        SERVICE_FAULT_PLAN_ENV)
+from .constants import (FAULT_PLAN_ENV, FAULT_RANK_ENV, PARTNER_FAULT_PLAN_ENV,
+                        ROUTER_FAULT_PLAN_ENV, SERVICE_FAULT_PLAN_ENV)
 
 
 class InjectedTransient(RuntimeError):
@@ -235,6 +236,13 @@ class FaultInjector:
 
     @classmethod
     def from_env(cls) -> "FaultInjector":
+        """The plan of MPLC_TORCH_FAULT_PLAN; in a world of ranks, empty on
+        every rank but MPLC_TORCH_FAULT_RANK's where that is set."""
+        only = os.environ.get(FAULT_RANK_ENV, "").strip()
+        if only:
+            from .parallel import mesh
+            if only != str(mesh.world_rank()):
+                return cls()
         return cls(parse_fault_plan(os.environ.get(FAULT_PLAN_ENV)))
 
     @property

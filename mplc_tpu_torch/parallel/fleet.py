@@ -33,7 +33,8 @@ The files on disk are the JAX package's, key for key (`fleet_spec.json`,
 `trace_coordinator.jsonl`, `trace_shardI.jsonl`, `flight_shardI/`,
 `worker_shardI.log`, `fleet_trace_manifest.json`, `incident_*/`), so the
 JAX package's `merge_shard_results` and `obs.fleet_view.merge_fleet_traces`
-read a port's fleet folder. `result_shardI.json` adds the key `device`.
+read a port's fleet folder. `result_shardI.json` adds the keys `device`,
+`visible_devices` (the worker's CUDA_VISIBLE_DEVICES) and `card` (its name).
 A failed run (`FleetError`) leaves one incident bundle (`_write_incident`).
 
 Where the port differs from the JAX module:
@@ -44,12 +45,23 @@ Where the port differs from the JAX module:
   worker with no card and no `--device cpu` exits non-zero (`Scenario`
   raises through `utils.resolve_device`): no worker ever drops to the CPU.
   `threads` (`--threads N`) sets a worker's torch threads.
-- **One device a worker.** A worker process is one rank on one device;
-  a worker spanning several cards would be a world of ranks of its own
-  (parallel/mesh.py, ROADMAP.md queue 1 item 13), so `devices_per_shard`
-  stays in the signatures but a value other than None or 1 raises
-  ValueError; `_local_device_count` reports the one device a shard ran on
-  without touching CUDA.
+- **Cards of a shard.** `devices_per_shard` (the CLI: `--devices-per-shard
+  N`) gives each shard its own cards, where the JAX package forces the
+  size of a worker's host mesh: on the card, shard i's worker sees the
+  coordinator's cards [i*N, (i+1)*N) through CUDA_VISIBLE_DEVICES, which
+  replaces any inherited value (`_shard_devices`); at N = 1 the shards wrap
+  onto the cards there are (shard i on card i % cards), and at N > 1 a
+  fleet of W*N cards more than the host has raises ValueError before any
+  worker starts (NCCL refuses two ranks on one card). None keeps every
+  worker on the default card. At N > 1 a worker runs its slice as a world
+  of N ranks (`parallel/launch.py` `spawn`: NCCL on its cards, gloo on the
+  CPU, a MASTER_PORT of its own a worker), its engine spreading the slice's
+  coalitions over the world (the 1-D coalition sharding, or the 2-D mode
+  under MPLC_TORCH_PARTNER_SHARDS); every rank's value table is agreed
+  before rank 0 alone writes the shard's files, its trace included (`run_shard`),
+  and the ledger's meta names `n_devices` N. One process holds one device,
+  so `inproc` with N > 1 raises ValueError. `_local_device_count` reports
+  the ranks a shard ran on, without touching CUDA.
 - **Worker environment.** `worker_env` passes the port's knobs only (no
   `JAX_*`, `XLA_*` or other packages' `MPLC_*` variables), strips the
   parent's telemetry outputs (its trace file, metrics port, Chrome trace,
@@ -77,12 +89,15 @@ shard). Nothing here changes a computed number.
 
 CLI:
   python3 -m mplc_tpu_torch.parallel.fleet --worker SPEC.json --shard I/W \\
-      --out DIR [--no-ledger] [--device cpu] [--threads N]
+      --out DIR [--no-ledger] [--device cpu] [--threads N] \\
+      [--devices-per-shard N --master-port P --timeout S]
   python3 -m mplc_tpu_torch.parallel.fleet --selfcheck [--shards W] \\
-      [--obs-dir DIR] [--device cpu] [--threads N]
+      [--devices-per-shard N] [--obs-dir DIR] [--device cpu] [--threads N]
 The selfcheck runs a small deterministic-reduce Titanic sweep at 1 shard
 and at W shards (worker subprocesses) and exits non-zero unless
-`diff_ledgers` reports zero drift and tau-b 1.0; with `--obs-dir` it also
+`diff_ledgers` reports zero drift and tau-b 1.0; with `--devices-per-shard
+N` the 1 shard runs on 1 device and the W shards on N each, and it prints
+each worker's line naming the cards it saw; with `--obs-dir` it also
 writes the merged timeline and the aggregated snapshot there and requires
 one entry a shard in each.
 """
@@ -131,11 +146,45 @@ class FleetMergeError(FleetError):
 
 
 def _check_devices_per_shard(devices: "int | None") -> None:
-    if devices not in (None, 1):
+    if devices is not None and (isinstance(devices, bool) or not isinstance(devices, int)
+                                or devices < 1):
+        raise ValueError(f"devices_per_shard={devices!r}: a shard runs on a whole number "
+                         "of devices, at least 1 (None: the default card)")
+
+
+def _on_card(device) -> bool:
+    return device is None or str(device).startswith("cuda")
+
+
+def _visible_cards(base: "dict | None" = None, cards: "int | None" = None) -> list:
+    """The ids of the cards the coordinator sees, in order: its
+    CUDA_VISIBLE_DEVICES (of `base`, default this process's environment)
+    where set, else 0..cards-1; `cards` (None: torch's count) bounds the
+    list."""
+    if cards is None:
+        import torch
+        cards = torch.cuda.device_count()
+    src = os.environ if base is None else base
+    ids = [x.strip() for x in (src.get("CUDA_VISIBLE_DEVICES") or "").split(",") if x.strip()]
+    return (ids or [str(i) for i in range(cards)])[:cards]
+
+
+def _shard_devices(shard: int, shards: int, devices: int, visible: list) -> list:
+    """The card ids shard `shard` of `shards` runs on at `devices` cards a
+    shard, out of `visible`: the block [shard*N, (shard+1)*N); at N = 1
+    card shard % len(visible) (the shards wrap onto the cards there are).
+    At N > 1 a fleet needing more cards than there are raises ValueError
+    (NCCL refuses two ranks on one card)."""
+    _check_devices_per_shard(devices)
+    if not 0 <= shard < shards:
+        raise ValueError(f"shard index {shard} outside 0..{shards - 1}")
+    if devices == 1:
+        return [visible[shard % len(visible)]] if visible else []
+    if shards * devices > len(visible):
         raise ValueError(
-            f"devices_per_shard={devices}: a fleet worker runs on one device a "
-            "process; a shard over several devices would be a world of ranks of its "
-            "own (ROADMAP.md queue 1 item 13)")
+            f"{shards} shards x {devices} devices need {shards * devices} cards, "
+            f"{len(visible)} visible: a world of ranks needs a card a rank")
+    return visible[shard * devices:(shard + 1) * devices]
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +341,29 @@ def _bank_counters() -> dict:
             "engine.batches": snap.get("engine.batches", 0)}
 
 
+def _card_name(device) -> str:
+    import torch
+    dev = torch.device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _agree_values(shard: int, values: list) -> None:
+    """Every rank of a shard's world holds the same v(S) bits for the slice:
+    one all-gather of each rank's table digest; a difference raises
+    FleetError on every rank (run under `mesh.agreed`)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from . import mesh
+    digest = hashlib.sha256(np.asarray(values, np.float64).tobytes()).digest()[:8]
+    mine = torch.tensor([int.from_bytes(digest, "little", signed=True)], dtype=torch.int64)
+    got = mesh.make_mesh().axis("coal").all_gather(mine, tag="agree").tolist()
+    if len(set(got)) != 1:
+        raise FleetError(f"shard {shard}: the ranks' value tables differ (digests {got})")
+
+
 def run_shard(spec: FleetSpec, shard: int, shards: int, out_dir: str,
               ledger: bool = True, device=None) -> dict:
     """One shard's slice run to completion on `device` (None: the card):
@@ -299,17 +371,26 @@ def run_shard(spec: FleetSpec, shard: int, shards: int, out_dir: str,
     planned programs, evaluate the slice under the spec's reduction mode
     with a per-shard value ledger and crash journal, and write
     `result_shardI.json`, `cache_shardI.json` and `ledger_shardI.json`.
-    Touches `.shardI.done` LAST: the merge refuses a shard without it."""
+    Touches `.shardI.done` LAST: the merge refuses a shard without it.
+
+    Called on every rank of a shard's world (`_shard_rank`), the engine
+    spreads the slice over the ranks; every rank's value table is agreed,
+    then rank 0 alone keeps the ledger and the crash journal and writes
+    the files. The other ranks return {shard, shards, rank, device,
+    card}."""
+    from . import mesh
     if not 0 <= shard < shards:
         raise ValueError(f"shard index {shard} outside 0..{shards - 1}")
+    writer = mesh.world_rank() == 0
     os.makedirs(out_dir, exist_ok=True)
     paths = _shard_paths(out_dir, shard)
-    # a previous run's files in the same folder must not survive: a leftover
-    # marker could bless a half-written result, and a leftover ledger would
-    # be merged as if this run wrote it
-    for key in ("done", "result", "ledger"):
-        with contextlib.suppress(OSError):
-            os.remove(paths[key])
+    if writer:
+        # a previous run's files in the same folder must not survive: a
+        # leftover marker could bless a half-written result, and a leftover
+        # ledger would be merged as if this run wrote it
+        for key in ("done", "result", "ledger"):
+            with contextlib.suppress(OSError):
+                os.remove(paths[key])
     # the clock handshake: the coordinator's clock at spawn, echoed beside
     # this worker's start and end readings (obs/fleet_view._clock_offset)
     worker_start_ts = time.time()
@@ -324,7 +405,7 @@ def run_shard(spec: FleetSpec, shard: int, shards: int, out_dir: str,
                                       run=run_id or "")
     t0 = time.perf_counter()
     env = {constants.DETERMINISTIC_REDUCE_ENV: "1" if spec.deterministic else None,
-           constants.NUMERICS_LEDGER_ENV: paths["ledger"] if ledger else None}
+           constants.NUMERICS_LEDGER_ENV: paths["ledger"] if ledger and writer else None}
     before = _bank_counters()
     cache_dir = os.environ.get(constants.COMPILE_CACHE_DIR_ENV)
     cache_before = compile_cache_entries(cache_dir) if cache_dir else None
@@ -344,7 +425,8 @@ def run_shard(spec: FleetSpec, shard: int, shards: int, out_dir: str,
         manifest_hits = sum(1 for pipe, slot, width in plan
                             if engine.program_bank.program_key(pipe, slot, width) in held)
     my_slice = plan_slices(engine, all_subsets, shards)[shard]
-    engine.autosave_path = paths["cache"]   # the shard's crash journal
+    if writer:
+        engine.autosave_path = paths["cache"]   # the shard's crash journal
     # every planned program acquired outside the timed sweep (the port's
     # bank records keys only, so this costs little; the seconds are
     # reported, never hidden)
@@ -358,6 +440,14 @@ def run_shard(spec: FleetSpec, shard: int, shards: int, out_dir: str,
     t_sweep = time.perf_counter()
     engine.evaluate(my_slice)
     sweep_s = time.perf_counter() - t_sweep
+    values = [float(engine.charac_fct_values[s]) for s in my_slice]
+    if mesh.world_size() > 1:
+        mesh.agreed(lambda: _agree_values(shard, values))
+    if not writer:
+        shard_span.end()
+        return {"shard": shard, "shards": shards, "rank": mesh.world_rank(),
+                "device": str(engine.device), "card": _card_name(engine.device),
+                "subsets": [list(s) for s in my_slice]}
     if engine.numerics_ledger is not None:
         engine.numerics_ledger.save()
     engine.save_cache(paths["cache"])
@@ -373,13 +463,16 @@ def run_shard(spec: FleetSpec, shard: int, shards: int, out_dir: str,
         # merged cache without building the game itself
         "fingerprint": engine._fingerprint(),
         "subsets": [list(s) for s in my_slice],
-        "values": [[list(s), float(engine.charac_fct_values[s])] for s in my_slice],
+        "values": [[list(s), v] for s, v in zip(my_slice, values)],
         "wallclock_s": wall,
         "sweep_s": sweep_s,
         "warmup_s": warmup_s,
         "setup_s": wall - sweep_s - warmup_s,
         "devices": _local_device_count(),
         "device": str(engine.device),
+        # the cards the shard's worker was given, and the card's name
+        "visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "card": _card_name(engine.device),
         "deterministic": bool(spec.deterministic),
         "counters": {k: after[k] - before[k] for k in after},
         "programs_planned": len(plan),
@@ -408,9 +501,10 @@ def run_shard(spec: FleetSpec, shard: int, shards: int, out_dir: str,
 
 
 def _local_device_count() -> int:
-    """The devices a shard ran on: one (the port's engine runs on one
-    device a process). Read without initializing CUDA."""
-    return 1
+    """The devices a shard ran on: the ranks of its world (one device a
+    rank), 1 without one. Read without initializing CUDA."""
+    from . import mesh
+    return mesh.world_size()
 
 
 def _atomic_json(path: str, doc: dict) -> None:
@@ -572,9 +666,17 @@ def run_fleet(spec: FleetSpec, shards: int, out_dir: str,
     bundle. `verify_against` (a ledger doc or its path) requires the merged
     ledger to equal the reference, zero ulp drift and tau-b 1.0 over every
     coalition, and raises FleetMergeError otherwise, also when there is no
-    merged ledger. `devices_per_shard` other than None or 1 raises
-    ValueError (one device a process)."""
+    merged ledger. `devices_per_shard` N gives each worker its own cards
+    (`_shard_devices`) and, at N > 1, a world of N ranks (see the module
+    docstring); N > 1 with `inproc`, or more cards than the host has,
+    raises ValueError before any shard starts."""
     _check_devices_per_shard(devices_per_shard)
+    if devices_per_shard is not None and devices_per_shard > 1:
+        if inproc:
+            raise ValueError(f"devices_per_shard={devices_per_shard} needs worker "
+                             "processes: one process holds one device (inproc=False)")
+        if _on_card(device):
+            _shard_devices(0, shards, devices_per_shard, _visible_cards(env))
     os.makedirs(out_dir, exist_ok=True)
     run_id = _mint_run_id()
     manifest = {"run_id": run_id, "shards": shards, "coordinator_pid": os.getpid(),
@@ -689,13 +791,19 @@ def _spec_fingerprint(spec: FleetSpec, device=None) -> "dict | None":
 
 
 def worker_env(base: "dict | None" = None, devices: "int | None" = None,
-               extra: "dict | None" = None, threads: "int | None" = None) -> dict:
+               extra: "dict | None" = None, threads: "int | None" = None,
+               shard: int = 0, shards: int = 1, cards: "int | None" = None,
+               device=None) -> dict:
     """A worker's environment: `base` (default this process's) with the
     port's knobs only (no `JAX_*`, `XLA_*` or other packages' `MPLC_*`
     variables), the parent's telemetry outputs stripped, cuBLAS's fixed
     workspace set before the worker's first cuBLAS call, `threads` as
-    OMP_NUM_THREADS, then `extra` applied (None: unset). `devices` is the
-    JAX signature's: None or 1."""
+    OMP_NUM_THREADS, then `extra` applied (None: unset). With `devices`
+    (devices a shard) and `device` on the card, CUDA_VISIBLE_DEVICES is
+    shard `shard` of `shards`'s cards (`_shard_devices` over the `cards`
+    visible, None: torch's count), replacing any inherited value; with no
+    card visible it is left as it is (the worker then fails: no fallback to
+    the CPU)."""
     _check_devices_per_shard(devices)
     src = os.environ if base is None else base
     env = {k: v for k, v in src.items()
@@ -706,6 +814,10 @@ def worker_env(base: "dict | None" = None, devices: "int | None" = None,
     env.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if threads:
         env["OMP_NUM_THREADS"] = str(int(threads))
+    if devices is not None and _on_card(device):
+        ids = _shard_devices(shard, shards, devices, _visible_cards(src, cards))
+        if ids:
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(ids)
     for k, v in (extra or {}).items():
         if v is None:
             env.pop(k, None)
@@ -720,14 +832,37 @@ def _repo_root() -> str:
 
 
 def worker_argv(spec_path: str, shard: int, shards: int, out_dir: str,
-                ledger: bool = True, device=None, threads: "int | None" = None) -> list:
+                ledger: bool = True, device=None, threads: "int | None" = None,
+                devices: "int | None" = None, port: "int | None" = None,
+                timeout: "float | None" = None) -> list:
     """The worker's command line: the one place the subprocess protocol
-    (module path and flags) lives."""
+    (module path and flags) lives. `devices` above 1 makes the worker a
+    world of that many ranks, on MASTER_PORT `port`, under `timeout`."""
+    world = devices is not None and devices > 1
     return ([sys.executable, "-m", "mplc_tpu_torch.parallel.fleet",
              "--worker", spec_path, "--shard", f"{shard}/{shards}", "--out", out_dir]
             + ([] if ledger else ["--no-ledger"])
             + ([] if device is None else ["--device", str(device)])
-            + ([] if not threads else ["--threads", str(int(threads))]))
+            + ([] if not threads else ["--threads", str(int(threads))])
+            + ([] if not world else ["--devices-per-shard", str(int(devices))])
+            + ([] if not (world and port) else ["--master-port", str(int(port))])
+            + ([] if not (world and timeout) else ["--timeout", repr(float(timeout))]))
+
+
+def _free_ports(n: int) -> list:
+    """`n` distinct free ports of the loopback (each worker world's
+    MASTER_PORT: the worlds start at once), all held until all are read."""
+    import socket
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
 
 
 def _worker_tail(log_path: str) -> str:
@@ -743,21 +878,24 @@ def run_worker_subprocess(spec: FleetSpec, shard: int, shards: int, out_dir: str
                           ledger: bool = True,
                           timeout: float = 3600.0,
                           device=None, threads: "int | None" = None) -> None:
-    """Run ONE shard worker as a subprocess on `device` (None: the card) and
-    wait for it. Raises FleetError on a non-zero exit, with the tail of the
-    worker's log."""
+    """Run ONE shard worker as a subprocess on `device` (None: the card),
+    on its own cards at `devices` a shard (`worker_env`), and wait for it.
+    Raises FleetError on a non-zero exit, with the tail of the worker's
+    log."""
     _check_devices_per_shard(devices)
     os.makedirs(out_dir, exist_ok=True)
     spec_path = os.path.join(out_dir, "fleet_spec.json")
     with open(spec_path, "w") as f:
         f.write(spec.to_json())
-    wenv = worker_env(env, devices, threads=threads)
+    wenv = worker_env(env, devices, threads=threads, shard=shard, shards=shards,
+                      device=device)
     wenv.setdefault("PYTHONPATH", _repo_root())
     log_path = os.path.join(out_dir, f"worker_shard{shard}.log")
     with open(log_path, "w") as log:
         try:
             rc = subprocess.run(
-                worker_argv(spec_path, shard, shards, out_dir, ledger, device, threads),
+                worker_argv(spec_path, shard, shards, out_dir, ledger, device, threads,
+                            devices, timeout=timeout),
                 env=wenv, stdout=log, stderr=subprocess.STDOUT, cwd=_repo_root(),
                 timeout=timeout).returncode
         except subprocess.TimeoutExpired:
@@ -775,6 +913,10 @@ def _run_fleet_subprocess(spec, shards, out_dir, devices_per_shard, env, per_sha
         f.write(spec.to_json())
     repo_root = _repo_root()
     deadline = time.monotonic() + timeout
+    world = devices_per_shard is not None and devices_per_shard > 1
+    ports = _free_ports(shards) if world else [None] * shards
+    cards = (len(_visible_cards(env))
+             if devices_per_shard is not None and _on_card(device) else None)
 
     def _spawn(i):
         spawn_ts = time.time()
@@ -784,12 +926,14 @@ def _run_fleet_subprocess(spec, shards, out_dir, devices_per_shard, env, per_sha
         # explicit override beats the coordinator's defaults
         extra = _shard_obs_env(out_dir, run_id, i, spawn_ts)
         extra.update((per_shard_env or {}).get(i) or {})
-        wenv = worker_env(env, devices_per_shard, extra, threads=threads)
+        wenv = worker_env(env, devices_per_shard, extra, threads=threads, shard=i,
+                          shards=shards, cards=cards, device=device)
         wenv.setdefault("PYTHONPATH", repo_root)
         log_path = os.path.join(out_dir, f"worker_shard{i}.log")
         log = open(log_path, "w")
         return (i, spawn_ts, subprocess.Popen(
-            worker_argv(spec_path, i, shards, out_dir, ledger, device, threads),
+            worker_argv(spec_path, i, shards, out_dir, ledger, device, threads,
+                        devices_per_shard, ports[i], max(1.0, deadline - time.monotonic())),
             env=wenv, stdout=log, stderr=subprocess.STDOUT, cwd=repo_root),
             log, log_path)
 
@@ -1045,20 +1189,56 @@ def cluster_view(state_dir: str, stale_sec: "float | None" = None,
 # the CLI: the worker and the selfcheck
 # ---------------------------------------------------------------------------
 
+def _worker_line(rep: dict, rank: int, ranks: int) -> str:
+    """The line a worker (a rank of its world) prints: the cards it saw."""
+    return (f"[fleet worker] shard {rep['shard']}/{rep['shards']} rank {rank}/{ranks}: "
+            f"{rep['device']} ({rep['card']}), CUDA_VISIBLE_DEVICES="
+            f"{os.environ.get('CUDA_VISIBLE_DEVICES')}, {len(rep['subsets'])} coalitions")
+
+
+def _shard_rank(spec_json: str, shard: int, shards: int, out_dir: str, ledger: bool,
+                device) -> dict:
+    """One rank of a shard's world (`launch.spawn`'s target): `run_shard`,
+    the trace file kept by rank 0 alone (the fleet's timeline holds one
+    track a shard; the flight dumps are named by process)."""
+    from . import mesh
+    rank = mesh.world_rank()
+    if rank:
+        os.environ.pop(obs_trace.TRACE_FILE_ENV, None)
+    rep = run_shard(FleetSpec.from_json(spec_json), shard, shards, out_dir,
+                    ledger=ledger, device=device)
+    print(_worker_line(rep, rank, mesh.world_size()), flush=True)
+    return rep
+
+
 def _cli_worker(args) -> int:
     m = re.fullmatch(r"(\d+)/(\d+)", args.shard)
     if not m:
         print(f"--shard must be I/W, got {args.shard!r}", file=sys.stderr)
         return 2
     shard, shards = int(m.group(1)), int(m.group(2))
+    ranks = args.devices_per_shard or 1
     if args.threads:
         import torch
         torch.set_num_threads(args.threads)
     with open(args.spec) as f:
-        spec = FleetSpec.from_json(f.read())
+        spec_json = f.read()
     try:
-        rep = run_shard(spec, shard, shards, args.out, ledger=not args.no_ledger,
-                        device=args.device)
+        if ranks > 1:
+            # the shard's world: a rank a card of this worker's block (cuda:r
+            # of CUDA_VISIBLE_DEVICES), or a gloo rank on the CPU
+            from . import launch
+            device = args.device or "cuda"
+            threads = args.threads or (1 if device == "cpu"
+                                       else max(1, (os.cpu_count() or 1) // ranks))
+            rep = launch.spawn(f"{__name__}:_shard_rank", ranks,
+                               (spec_json, shard, shards, args.out, not args.no_ledger,
+                                args.device), device=device, timeout=args.timeout,
+                               threads=threads, port=args.master_port)[0]
+        else:
+            rep = run_shard(FleetSpec.from_json(spec_json), shard, shards, args.out,
+                            ledger=not args.no_ledger, device=args.device)
+            print(_worker_line(rep, 0, 1), flush=True)
     except BaseException as e:  # noqa: BLE001 - InjectedCrash included
         # a dying worker's last act: a flight dump into the shard's flight
         # folder the coordinator set, so the incident bundle holds this
@@ -1067,7 +1247,8 @@ def _cli_worker(args) -> int:
                     extra={"shard": shard, "shards": shards, "error": repr(e)[:500]})
         raise
     print(json.dumps({"shard": shard, "coalitions": len(rep["subsets"]),
-                      "wallclock_s": rep["wallclock_s"], "device": rep["device"]}))
+                      "wallclock_s": rep["wallclock_s"], "device": rep["device"],
+                      "devices": rep["devices"]}))
     return 0
 
 
@@ -1078,13 +1259,25 @@ def _cli_selfcheck(args) -> int:
     coalition."""
     from ..obs.numerics import diff_ledgers
     spec = FleetSpec()  # Titanic, 3 partners, 2 epochs, deterministic
+    dps = args.devices_per_shard
     with tempfile.TemporaryDirectory(prefix="mplc_fleet_smoke_") as tmp:
         env = worker_env(extra={constants.SYNTH_SCALE_ENV:
                                 os.environ.get(constants.SYNTH_SCALE_ENV, "0.02")})
         t0 = time.perf_counter()
         kw = dict(env=env, timeout=args.timeout, device=args.device, threads=args.threads)
-        ref = run_fleet(spec, 1, os.path.join(tmp, "w1"), **kw)
-        got = run_fleet(spec, args.shards, os.path.join(tmp, "w"), **kw)
+        ref = run_fleet(spec, 1, os.path.join(tmp, "w1"),
+                        devices_per_shard=None if dps is None else 1, **kw)
+        got = run_fleet(spec, args.shards, os.path.join(tmp, "w"), devices_per_shard=dps,
+                        **kw)
+        workers = {}
+        for i in range(args.shards):
+            # each worker's (each rank's) line naming the cards it saw
+            lines = [ln.rstrip() for ln in _tail_lines(
+                os.path.join(got.out_dir, f"worker_shard{i}.log"), 400)
+                if ln.startswith("[fleet worker]")]
+            workers[i] = lines
+            for ln in lines:
+                print(ln, flush=True)
         diff = diff_ledgers(ref.ledger, got.ledger)
         ok = (diff["comparable"] and not diff["drift"] and diff["kendall_tau"] == 1.0
               and diff["common"] == len(spec.all_subsets()))
@@ -1107,11 +1300,14 @@ def _cli_selfcheck(args) -> int:
             ok = (ok and merged["shard_tracks"] == args.shards
                   and merged["flow_links"] == args.shards
                   and obs["snapshot_shards"] == args.shards)
+        ok = ok and all(len(workers[i]) == (dps or 1) for i in workers)
         print(json.dumps({
-            "shards": args.shards, "subsets": diff["common"],
+            "shards": args.shards, "devices_per_shard": dps, "subsets": diff["common"],
             "comparable": diff["comparable"], "drift": diff["drift"],
             "max_ulp": diff["ulp"]["max"], "kendall_tau": diff["kendall_tau"],
             "devices": sorted({r["device"] for r in ref.shard_reports + got.shard_reports}),
+            "shard_cards": [{"devices": r["devices"], "visible": r.get("visible_devices"),
+                             "card": r.get("card")} for r in got.shard_reports],
             "wallclock_s": round(time.perf_counter() - t0, 1),
             "obs": obs, "ok": ok}))
         if not ok:
@@ -1144,7 +1340,14 @@ def main(argv=None) -> int:
                          "to run on the CPU)")
     ap.add_argument("--threads", type=int, default=None,
                     help="torch threads of a worker")
+    ap.add_argument("--devices-per-shard", type=int, default=None,
+                    help="devices a shard (a worker's own cards; above 1 a world of "
+                         "ranks); the selfcheck's 1-shard run then takes 1")
+    ap.add_argument("--master-port", type=int, default=None,
+                    help="worker mode: its world's MASTER_PORT (default: a free port)")
     args = ap.parse_args(argv)
+    if args.devices_per_shard is not None and args.devices_per_shard < 1:
+        ap.error("--devices-per-shard must be at least 1")
     if args.spec:
         if not (args.shard and args.out):
             ap.error("--worker requires --shard I/W and --out DIR")

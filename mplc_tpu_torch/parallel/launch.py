@@ -10,7 +10,9 @@ MASTER_PORT on a free port of the loopback), forms the world
 calls `target` ("module:function") with `args` and returns every rank's
 return value, in rank order. The ranks are joined under one time limit;
 a rank that raises, dies or outlives it fails the call with every rank's
-error, and no rank outlives the call. The CPU tests use it in place of the
+error, and no rank outlives the call: the others get `PEER_GRACE_SEC` to
+end after one failed, and every rank dies with the process that spawned
+it. The CPU tests use it in place of the
 JAX tests' 8-device host mesh, one torch thread a rank.
 
 `--selfcheck` runs the several-card checks in one call and prints their
@@ -21,9 +23,13 @@ lines and one JSON line; it exits 1 when a check fails:
       of 2 epochs under the deterministic reduce: the v(S) table bit-equal
       to the same game on a world of 1 (zero ulp, tau-b 1.0 through
       `obs.numerics.diff_ledgers`);
-  (b) the same game under the default reduce, within one test sample of (a)
-      (the partners' sums associate otherwise); its distance from the
-      default reduce on one rank, and that run's from the deterministic
+  (b) the same game under the default reduce, every v(S) within
+      `DEFAULT_REDUCE_BOUND` of (a): the partners' sums associate otherwise,
+      and the reference promises the default reduce only the same game at a
+      coarse tolerance (tests/test_partner_shard.py's
+      `test_partner_sharded_default_mode_still_drifts_documented`; the
+      strict promise is (a)'s). Its gap in test samples, its distance from
+      the default reduce on one rank, and that run's from the deterministic
       one's, are printed beside; then the same on the games of `B_SEEDS`
       (`--b-seeds`), each held to one rank's deterministic reduce there;
   (c) a [4 coal x 1 part] layout, the 1-D coalition sharding of the same 16
@@ -62,6 +68,10 @@ from .. import constants, faults
 from . import mesh
 
 
+# seconds the other ranks of a world get to end after one failed
+PEER_GRACE_SEC = 15.0
+
+
 class RankFailed(RuntimeError):
     """A spawned world failed: `errors` maps each failed rank to its
     traceback (or exit status)."""
@@ -77,8 +87,21 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def _die_with_parent() -> None:
+    """Have the kernel end this rank when the process that spawned it dies
+    (Linux's parent-death signal), so no rank outlives a killed launcher,
+    a fleet worker included. Elsewhere a no-op."""
+    try:
+        import ctypes
+        import signal
+        ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+    except (OSError, AttributeError):
+        pass
+
+
 def _rank_main(rank: int, nproc: int, port: int, target: str, args: tuple, env: dict,
                out: str, device: str, threads: int) -> None:
+    _die_with_parent()
     os.environ.update(env)
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(nproc),
                       LOCAL_WORLD_SIZE=str(nproc), MASTER_ADDR="127.0.0.1",
@@ -104,13 +127,35 @@ def _rank_main(rank: int, nproc: int, port: int, target: str, args: tuple, env: 
         mesh.destroy_world()
 
 
+def _join(procs: list, timeout: float) -> "int | None":
+    """Wait until every rank has ended, the time limit is past, or
+    `PEER_GRACE_SEC` after the first rank that failed; the failed rank's
+    index, or None."""
+    deadline = time.monotonic() + timeout
+    failed = grace_end = None
+    while any(p.is_alive() for p in procs):
+        now = time.monotonic()
+        if failed is None:
+            failed = next((r for r, p in enumerate(procs)
+                           if p.exitcode not in (None, 0)), None)
+            if failed is not None:
+                grace_end = now + PEER_GRACE_SEC
+        if now >= deadline or (grace_end is not None and now >= grace_end):
+            break
+        time.sleep(0.05)
+    return failed
+
+
 def spawn(target: str, nproc: int, args: tuple = (), device: str = "cpu",
-          env: dict | None = None, timeout: float = 90.0, threads: int = 1) -> list:
+          env: dict | None = None, timeout: float = 90.0, threads: int = 1,
+          port: int | None = None) -> list:
     """Every rank's `target(*args)` (see the module docstring), in rank
     order. `env` is added to each rank's environment before the world
-    forms."""
+    forms; `port` is the world's MASTER_PORT (None: a free one). A rank
+    still running `PEER_GRACE_SEC` after another failed is killed: its
+    peers of a collective would otherwise wait out the group's timeout."""
     ctx = torch.multiprocessing.get_context("spawn")
-    port = free_port()
+    port = port or free_port()
     with tempfile.TemporaryDirectory(prefix="mplc_ranks_") as out:
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(r, nproc, port, target, tuple(args), dict(env or {}), out,
@@ -118,10 +163,9 @@ def spawn(target: str, nproc: int, args: tuple = (), device: str = "cpu",
                  for r in range(nproc)]
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout
+        failed = None
         try:
-            for p in procs:
-                p.join(max(0.0, deadline - time.monotonic()))
+            failed = _join(procs, timeout)
         finally:
             late = [r for r, p in enumerate(procs) if p.is_alive()]
             for p in procs:
@@ -134,6 +178,8 @@ def spawn(target: str, nproc: int, args: tuple = (), device: str = "cpu",
             if os.path.exists(err):
                 with open(err) as f:
                     errors[r] = f.read()
+            elif r in late and failed is not None:
+                errors[r] = f"killed {PEER_GRACE_SEC:g} s after rank {failed} failed"
             elif r in late:
                 errors[r] = f"still running after {timeout} s, killed"
             elif p.exitcode != 0:
@@ -164,6 +210,11 @@ CASES = {"a": (2, True), "b": (2, False), "c": (None, True)}
 # (b) is read again on the games of these seeds (the game's own is 0),
 # each against one rank's deterministic and default reduce
 B_SEEDS = (1, 2)
+# (b)'s bound on |v(S) - v(S) of the deterministic reduce|, in any v(S):
+# the port's bf16 bound (chip_smoke.py's BF16_VALUE_BOUND). One rank's two
+# reductions already part by up to 17 test samples (0.0085) on the MNIST
+# game, and [2 x 2] by 0.0095 (PERF.md, section 6)
+DEFAULT_REDUCE_BOUND = 0.05
 SERVICE_TENANTS = 4
 SERVICE_PARTNERS = 4
 
@@ -376,10 +427,11 @@ def selfcheck(nproc: int, device: str, dataset: str, timeout: float,
                 how = f"max ulp {d['ulp']['max']}, tau-b {d['kendall_tau']}, {d['common']} common"
             else:
                 gap = float(np.abs(np.array(r["values"]) - np.array(res["a"]["values"])).max())
-                check(gap <= 1.0 / r["n_test"] + 1e-6,
-                      f"({case}) parts from (a) by {gap} > one test sample")
+                check(gap <= DEFAULT_REDUCE_BOUND,
+                      f"({case}) parts from (a) by {gap} > {DEFAULT_REDUCE_BOUND}")
                 v = np.array(r["values"])
-                how = (f"max |v - v(a)| {gap:.6f} (one test sample {1 / r['n_test']:.6f}); "
+                how = (f"max |v - v(a)| {gap:.6f}, bound {DEFAULT_REDUCE_BOUND} "
+                       f"({gap * r['n_test']:.0f} test samples of {1 / r['n_test']:.6f}); "
                        f"against the default reduce on one rank max |v - v1| "
                        f"{float(np.abs(v - ref_default).max()):.6f}, that run against the "
                        f"deterministic one's {float(np.abs(ref_default - ref['values']).max()):.6f}")
@@ -401,14 +453,15 @@ def selfcheck(nproc: int, device: str, dataset: str, timeout: float,
             gap = float(np.abs(v - det1).max())
             check(all(rk[f"b{seed}"]["values"] == r["values"] for rk in ranks),
                   f"(b) seed {seed}: the ranks' value tables differ")
-            check(gap <= 1.0 / r["n_test"] + 1e-6,
-                  f"(b) seed {seed} parts from the deterministic reduce by {gap} > one "
-                  "test sample")
+            check(gap <= DEFAULT_REDUCE_BOUND,
+                  f"(b) seed {seed} parts from the deterministic reduce by {gap} > "
+                  f"{DEFAULT_REDUCE_BOUND}")
             lines[f"b{seed}"] = {"seconds": r["seconds"], "gap": gap,
                                  "gap_default_1": float(np.abs(v - def1).max()),
                                  "gap_1": float(np.abs(def1 - det1).max())}
             print(f"[selfcheck] (b) seed {seed}: {r['seconds']:.2f} s on rank 0; max |v - "
-                  f"v(det, 1 rank)| {gap:.6f} (one test sample {1 / r['n_test']:.6f}); "
+                  f"v(det, 1 rank)| {gap:.6f}, bound {DEFAULT_REDUCE_BOUND} ({gap * r['n_test']:.0f} "
+                  f"test samples of {1 / r['n_test']:.6f}); "
                   f"against the default reduce on one rank "
                   f"{lines[f'b{seed}']['gap_default_1']:.6f}, that run against the "
                   f"deterministic one's {lines[f'b{seed}']['gap_1']:.6f}; {smi}", flush=True)

@@ -113,6 +113,19 @@ def test_parallel_exports_wait_for_the_mesh():
     assert importlib.import_module("mplc_tpu_torch.parallel.fleet").run_fleet
 
 
+def test_engine_signature_matches_jax():
+    """`CharacteristicEngine(scenario, share_data_from=None,
+    seed_ensemble=None)`: the JAX engine's parameters, in its order, with
+    its defaults."""
+    import inspect
+    from mplc_tpu.contrib.engine import CharacteristicEngine as JEngine
+    jsig = inspect.signature(JEngine.__init__).parameters
+    tsig = inspect.signature(CharacteristicEngine.__init__).parameters
+    assert list(tsig) == list(jsig) == ["self", "scenario", "share_data_from",
+                                        "seed_ensemble"]
+    assert [p.default for p in tsig.values()] == [p.default for p in jsig.values()]
+
+
 def test_package_import_loads_constants_and_obs():
     code = ("import sys, mplc_tpu_torch; "
             "print('mplc_tpu_torch.constants' in sys.modules, "

@@ -832,13 +832,30 @@ def test_nccl_world_of_one_2d_pipeline_equals_the_1d_route(cuda, monkeypatch):
 def test_four_cards_run_the_several_card_selfcheck_on_titanic(cuda):
     """On a host with 4 cards, `launch --selfcheck` on Titanic: the [2 x 2]
     and [4 x 1] NCCL meshes bit-equal to one rank, the default reduce
-    within a test sample (on the game's seed and two more), an OOM inside
-    one rank's rounds ending every rank on the 2-D ladder, the service's 4
-    workers on 4 cards bit-equal to solo. NCCL refuses two ranks on one
-    card, so one card skips. On Titanic only: the MNIST game's default
-    reduce misses the one-sample bound (PERF.md), which this does not
-    hold."""
+    within `launch.DEFAULT_REDUCE_BOUND` (on the game's seed and two more),
+    an OOM inside one rank's rounds ending every rank on the 2-D ladder,
+    the service's 4 workers on 4 cards bit-equal to solo. NCCL refuses two
+    ranks on one card, so one card skips."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs 4 CUDA devices (NCCL refuses two ranks on one card)")
     from mplc_tpu_torch.parallel import launch
     assert launch.selfcheck(4, "cuda", "titanic", 600) == 0
+
+
+def test_four_cards_run_a_fleet_of_two_shards_of_two_cards(cuda, tmp_path):
+    """On a host with 4 cards, the Titanic fleet spec as 2 shards of 2
+    cards each (a NCCL world of 2 ranks a worker, cards 0-1 and 2-3)
+    merges bit-equal to 1 shard of 1 card, its ledger naming 2 devices a
+    shard; one card skips."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices (NCCL refuses two ranks on one card)")
+    from mplc_tpu_torch.parallel import fleet
+    spec = fleet.FleetSpec()
+    ref = fleet.run_fleet(spec, 1, str(tmp_path / "w1"), devices_per_shard=1, timeout=600)
+    got = fleet.run_fleet(spec, 2, str(tmp_path / "w2x2"), devices_per_shard=2, timeout=600,
+                          verify_against=ref.ledger)
+    assert got.values == ref.values and got.diff["ulp"]["max"] == 0
+    assert got.ledger["meta"]["n_devices"] == 2
+    visible = fleet._visible_cards()
+    assert [r["visible_devices"] for r in got.shard_reports] == [
+        ",".join(visible[0:2]), ",".join(visible[2:4])]

@@ -20,8 +20,8 @@ JAX package's (`mplc_tpu/parallel/fleet.py`), on the CPU, one torch thread:
   mismatch, `verify_against` with no ledger);
 - `_rebuild_increments` and `write_cache_doc` byte for byte the JAX
   functions', the merged cache loadable by the port's engine;
-- `devices_per_shard` other than None or 1 raising, and the worker
-  environment holding the port's knobs only.
+- `devices_per_shard` other than None or a positive whole number raising,
+  and the worker environment holding the port's knobs only.
 
 The two packages cut the same slices and write the same files; their
 `programs_planned`, `widths` and `manifest_hits` differ by route (the JAX
@@ -199,15 +199,17 @@ def test_one_shard_values_match_the_jax_fleet(monkeypatch, tmp_path):
     np.testing.assert_allclose(v, jv, rtol=0, atol=1.0 / n_test + 1e-6)
     np.testing.assert_allclose(shapley_from_characteristic(3, {(): 0.0, **res.values}),
                                jshapley(3, {(): 0.0, **jres.values}), rtol=0, atol=1e-3)
-    # the same files and keys (the port's result adds its device)
+    # the same files and keys (the port's result adds its device, the cards
+    # its worker was given and the card's name)
     for name in ("result_shard0.json", "ledger_shard0.json", "cache_shard0.json",
                  "ledger_merged.json", "cache_merged.json", "fleet_trace_manifest.json"):
         assert (tmp_path / "port" / name).exists() and (tmp_path / "jax" / name).exists()
     rep = json.loads((tmp_path / "port" / "result_shard0.json").read_text())
     jrep = json.loads((tmp_path / "jax" / "result_shard0.json").read_text())
-    assert set(rep) - set(jrep) == {"device"} and set(jrep) <= set(rep)
+    assert set(rep) - set(jrep) == {"device", "visible_devices", "card"}
+    assert set(jrep) <= set(rep)
     assert set(rep["counters"]) == set(jrep["counters"])
-    assert rep["devices"] == 1 and rep["device"] == "cpu"
+    assert rep["devices"] == 1 and rep["device"] == "cpu" and rep["card"] == "cpu"
     assert set(res.ledger) == set(jres.ledger) and len(res.ledger["entries"]) == 7
 
 
@@ -303,15 +305,28 @@ def test_worker_without_a_card_fails_without_falling_back(tmp_path):
 
 
 def test_devices_per_shard_other_than_one_raises(tmp_path):
-    for bad in (2, 8):
-        with pytest.raises(ValueError, match="one device a process"):
+    """A shard runs on a whole number of devices, at least 1: 0, negative,
+    fractional, boolean and string counts stay refused everywhere, before
+    any folder or worker; several devices a shard need worker processes
+    (tests/test_torch_fleet_world.py runs them)."""
+    for bad in (0, -1, 1.5, True, "2"):
+        with pytest.raises(ValueError, match="at least 1"):
             fleet.run_fleet(SPEC, 2, str(tmp_path / "x"), devices_per_shard=bad)
-        with pytest.raises(ValueError, match="one device a process"):
+        with pytest.raises(ValueError, match="at least 1"):
             fleet.worker_env(devices=bad)
-        with pytest.raises(ValueError, match="one device a process"):
+        with pytest.raises(ValueError, match="at least 1"):
             fleet.run_worker_subprocess(SPEC, 0, 1, str(tmp_path / "y"), devices=bad)
-    assert not (tmp_path / "x").exists()
-    assert fleet.worker_env(devices=1, base={}) == {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        with pytest.raises(ValueError, match="at least 1"):
+            fleet._shard_devices(0, 1, bad, ["0"])
+    for n in (2, 8):
+        with pytest.raises(ValueError, match="one process holds one device"):
+            fleet.run_fleet(SPEC, 2, str(tmp_path / "x"), devices_per_shard=n, inproc=True,
+                            device="cpu")
+    assert not (tmp_path / "x").exists() and not (tmp_path / "y").exists()
+    assert fleet.worker_env(devices=1, base={}, device="cpu") == {
+        "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    assert fleet.worker_env(devices=1, base={}, cards=1) == {
+        "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "CUDA_VISIBLE_DEVICES": "0"}
 
 
 def test_worker_env_passes_the_ports_knobs_only():

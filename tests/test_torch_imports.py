@@ -35,7 +35,8 @@ def test_port_files_found():
                    "obs/export.py", "parallel/fleet.py", "service/admission.py",
                    "service/packer.py", "service/scheduler.py", "service/router.py",
                    "obs/fleet_view.py", "load_gen.py", "fleet_trace_merge.py",
-                   "parallel/mesh.py", "parallel/partner_shard.py", "parallel/launch.py"):
+                   "parallel/mesh.py", "parallel/partner_shard.py", "parallel/launch.py",
+                   "drift_diff.py", "tune_coalition_cap.py"):
         assert REPO / "mplc_tpu_torch" / module in FILES, module
 
 

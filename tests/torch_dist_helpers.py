@@ -1,6 +1,6 @@
 """Rank-side code of the port's several-rank CPU tests
 (tests/test_torch_mesh.py, test_torch_partner_shard.py,
-test_torch_sharding.py): the functions `mplc_tpu_torch.parallel.launch.spawn`
+test_torch_sharding.py, test_torch_fleet_world.py): the functions `mplc_tpu_torch.parallel.launch.spawn`
 calls in each gloo rank, and the games they share with the tests' own
 world of 1. No JAX here: every rank imports this module."""
 
@@ -63,6 +63,16 @@ def mesh_rank() -> dict:
 def sleep_rank(seconds: float) -> None:
     """A rank that outlives its spawn's time limit."""
     import time
+    time.sleep(seconds)
+
+
+def fail_on_rank(failing: int, seconds: float) -> None:
+    """Rank `failing` raises at once; every other rank sleeps `seconds`, as
+    a peer waiting in a collective the failed rank never reaches would
+    (test_torch_fleet_world.py)."""
+    import time
+    if par.world_rank() == failing:
+        raise ValueError(f"rank {failing} fails")
     time.sleep(seconds)
 
 
