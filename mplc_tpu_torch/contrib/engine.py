@@ -42,6 +42,21 @@ one `engine.hbm` event a call that did device work; the ladder adds
 coalition, epoch, sample, partner-pass and ladder counters go to
 `obs/metrics.py`. None of it adds a sync.
 
+Beside those names the port's own (`obs/trace.py` `PORT_SPANS`) cover a
+batch's host time with leaf spans: the trainer's (`trainer.init`,
+`trainer.draws`, `trainer.minibatch`, `trainer.finalize`) and
+`engine.flops` inside the dispatch; `engine.record` from the harvest's
+return to the `engine.batch` event (the fence, the program bank, the
+stores, the ledger and the audit), again after it (the meter, the memory
+sample, the autosave) and at an `evaluate` call's tail; `engine.progress`
+around the caller's hook. A trained batch's event carries its host split:
+`seconds` (its `dur`), `lead_s` (its start to the end of its first epoch's
+draws, while the card has nothing of it queued), `record_s` (the
+`engine.record` seconds inside its interval), and its trainer's gradient
+calls (`grad_calls`, `grad_call_host_s`, `models_called`,
+`models_padded`). `engine.stage` times the staging of an engine that
+shares no data.
+
 The fault ladder (faults.py; the JAX engine's, knobs `MPLC_TORCH_*`):
 every batch runs under a batch-fault plan's injector; a transient failure
 at dispatch or harvest retries it with bounded exponential backoff, an
@@ -119,6 +134,7 @@ the JAX engine has a second loop that recovers by recursion.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -134,7 +150,7 @@ import torch
 from .. import constants, faults
 from ..data.partition import StackedPartners
 from ..mpl.approaches import stage_eval_set
-from ..mpl.engine import SLOT_APPROACHES, MplTrainer, TrainConfig, upload
+from ..mpl.engine import SLOT_APPROACHES, CallTotals, MplTrainer, TrainConfig, upload
 from ..mpl.engine import call_flops, host_coalitions
 from ..parallel import mesh as par
 from ..parallel.partner_shard import slice_stacked, slice_streams, whole_streams
@@ -309,6 +325,16 @@ class SlicedSinglesPipeline(BatchedTrainerPipeline):
             streams_all, torch.eye(B), call_log)
 
 
+@functools.lru_cache(maxsize=None)
+def model_param_bytes(model) -> int:
+    """Bytes of one of `model`'s parameter sets, from one CPU init a model
+    and process: every engine of a process shares it (a fresh engine a
+    request would otherwise pay a CPU init of the model in its planning,
+    with the card idle)."""
+    params = model.init(torch.Generator().manual_seed(0))
+    return sum(t.numel() * t.element_size() for d in params.values() for t in d.values())
+
+
 def device_memory_bytes(device) -> int:
     """Bytes of device memory the engine may plan with: on a CUDA device
     what is free plus what this process's caching allocator already holds
@@ -413,9 +439,11 @@ class CharacteristicEngine:
             self.val = share_data_from.val
             self.test = share_data_from.test
         else:
-            self.stacked = StackedPartners.build(self.partners_list, label_dim, self.device)
-            self.val = stage_eval_set(ds.x_val, ds.y_val, label_dim, self.device)
-            self.test = stage_eval_set(ds.x_test, ds.y_test, label_dim, self.device)
+            with obs_trace.span("engine.stage", partners=self.partners_count):
+                self.stacked = StackedPartners.build(self.partners_list, label_dim,
+                                                     self.device)
+                self.val = stage_eval_set(ds.x_val, ds.y_val, label_dim, self.device)
+                self.test = stage_eval_set(ds.x_test, ds.y_test, label_dim, self.device)
 
         self._multi_cfg = TrainConfig(
             approach=scenario.multi_partner_learning_approach_key,
@@ -755,11 +783,9 @@ class CharacteristicEngine:
         return self._autotuned_cap(slot_count)
 
     def _model_param_bytes(self) -> int:
-        """Bytes of one model's parameters (from one CPU init, once)."""
+        """Bytes of one model's parameters (`model_param_bytes`)."""
         if self._param_bytes is None:
-            params = self.model.init(torch.Generator().manual_seed(0))
-            self._param_bytes = sum(t.numel() * t.element_size()
-                                    for d in params.values() for t in d.values())
+            self._param_bytes = model_param_bytes(self.model)
         return self._param_bytes
 
     def _per_coalition_bytes(self, k: int) -> int:
@@ -1143,6 +1169,7 @@ class CharacteristicEngine:
                 keys, ctx["single"], [int(j) for j in rows % K])
             coal_host = torch.from_numpy(ctx["coal_all"][rows // K])
             calls = None if degraded else []
+            meta["totals"] = pipe.trainer.totals = CallTotals()
             if fence:
                 self._fence_start(meta)
             fetch = pipe.dispatch_async(upload(coal_host, self.device), generators,
@@ -1151,7 +1178,8 @@ class CharacteristicEngine:
             if fence:
                 self._fence_stop(meta)
             if calls:
-                meta["flops"] = call_flops(self.model, calls, self.stacked.x)
+                with obs_trace.span("engine.flops"):
+                    meta["flops"] = call_flops(self.model, calls, self.stacked.x)
             return fetch
 
         def dispatch(ordinal=self._batch_ordinal):
@@ -1218,7 +1246,9 @@ class CharacteristicEngine:
         """After a fenced batch's harvest (which synchronized the stream),
         its device seconds from the two events into `meta["device_sec"]`,
         the `engine.device_step_sec` histogram and an `engine.device_fence`
-        event. An unfenced batch is left alone."""
+        event: a point at the harvest (`dur` 0: device seconds are no host
+        interval) carrying them as `device_sec`. An unfenced batch is left
+        alone."""
         ev = meta.get("fence")
         if ev is None:
             return
@@ -1228,17 +1258,9 @@ class CharacteristicEngine:
             dur = ev[1] - ev[0]
         meta["device_sec"] = dur
         obs_metrics.histogram("engine.device_step_sec").observe(dur)
-        obs_trace.event("engine.device_fence", dur=dur, ordinal=meta.get("ordinal"),
+        obs_trace.event("engine.device_fence", device_sec=dur, ordinal=meta.get("ordinal"),
                         width=meta["width"], slot_count=meta.get("slot_count"),
                         coalitions=meta["coalitions"], interval=self._fence_interval)
-
-    def _fence_next(self, pending) -> bool:
-        """True when the next batch ordinal is a fence sample and a batch is
-        still in flight, which the JAX engine drains first so that the fence
-        times its batch alone. The port's batches run one after another, so
-        none is ever pending here and this is False."""
-        return bool(pending is not None and self._fence_interval
-                    and devcost.should_fence(self._batch_ordinal + 1, self._fence_interval))
 
     def _record_group(self, group, fetch, meta, per_partner, slot_count) -> None:
         """A batch's harvest and bookkeeping: fetch its results (with the
@@ -1251,6 +1273,57 @@ class CharacteristicEngine:
         with obs_trace.span("engine.harvest", width=meta["width"], slot_count=slot_count,
                             coalitions=n):
             accs, epochs = self._fetch_with_retry(fetch, meta)
+        with obs_trace.span("engine.record", phase="batch", ordinal=meta["ordinal"]) as record:
+            batch_samples = self._record_values(group, accs, epochs, meta, per_partner,
+                                                slot_count)
+        batch_epochs = int(epochs[:n].sum())
+        batch_passes = batch_epochs * meta["mb_count"] * meta["passes_per_mb"]
+        seconds = time.perf_counter() - meta["t0"]
+        attrs = {k: meta[k] for k in ("width", "slot_count", "coalitions", "padding")}
+        entry = {"kind": meta["kind"], **attrs, "seconds": seconds}
+        extra = {}
+        if meta.get("degraded"):
+            entry["degraded"] = extra["degraded"] = meta["degraded"]
+            obs_metrics.counter("engine.cpu_degraded_batches").inc()
+            obs_metrics.counter("engine.cpu_degraded_coalitions").inc(n)
+        if meta.get("device_sec") is not None:
+            # a fenced batch: its device seconds feed the report's
+            # device_time and roofline rows
+            extra["device_sec"] = meta["device_sec"]
+            extra["fenced"] = True
+        if meta.get("flops"):
+            extra["flops"] = meta["flops"]
+        totals = meta.get("totals")
+        if totals is not None:
+            # the batch's host split (module docstring)
+            extra.update(seconds=seconds, record_s=record.duration,
+                         grad_calls=totals.grad_calls,
+                         grad_call_host_s=totals.grad_call_host_s,
+                         models_called=totals.models_called,
+                         models_padded=totals.models_padded)
+            if totals.first_draws_end is not None:
+                extra["lead_s"] = totals.first_draws_end - meta["t0"]
+        self.batch_log.append(entry)
+        self._account_batch(seconds, attrs, batch_epochs, batch_samples, batch_passes,
+                            ordinal=meta["ordinal"], **extra)
+        with obs_trace.span("engine.record", phase="after", ordinal=meta["ordinal"]):
+            self.device_meter.note(n, span_sec=seconds, device_sec=meta.get("device_sec"),
+                                   flops=meta.get("flops"),
+                                   degraded=bool(meta.get("degraded")))
+            obs_metrics.histogram("engine.pad_waste_fraction").observe(
+                meta["padding"] / meta["width"])
+            obs_metrics.sample_device_memory(device=self.device)
+            if self.autosave_path is not None:
+                self.save_cache(self.autosave_path)
+        if self.progress is not None:
+            with obs_trace.span("engine.progress", ordinal=meta["ordinal"]):
+                self.progress(len(group), meta.get("remaining", 0), slot_count)
+
+    def _record_values(self, group, accs, epochs, meta, per_partner, slot_count) -> int:
+        """A harvested batch's bookkeeping before its event: its fence, its
+        program, its values stored (each into the value ledger, when it is
+        on) and a fenced batch's audit. Returns its training samples."""
+        n = meta["coalitions"]
         self._maybe_fence(meta)
         if self.program_bank is not None and not meta.get("degraded") \
                 and self._pipe2d is None:
@@ -1273,8 +1346,6 @@ class CharacteristicEngine:
                 self._store(s, float(acc))
             batch_samples += int(ep) * int(per_partner[list(self._effective_subset(s))].sum())
         self._ledger_ctx = {}
-        batch_epochs = int(epochs[:n].sum())
-        batch_passes = batch_epochs * meta["mb_count"] * meta["passes_per_mb"]
         if (self._numerics_audit and meta.get("device_sec") is not None
                 and not meta["ensemble"] and group and len(self.numerics_audits) < 4):
             # the fenced batch's first coalition, through a separate
@@ -1288,43 +1359,17 @@ class CharacteristicEngine:
                                                    meta["slot_count"])
                 if res is not None:
                     self.numerics_audits.append(res)
-        seconds = time.perf_counter() - meta["t0"]
-        attrs = {k: meta[k] for k in ("width", "slot_count", "coalitions", "padding")}
-        entry = {"kind": meta["kind"], **attrs, "seconds": seconds}
-        extra = {}
-        if meta.get("degraded"):
-            entry["degraded"] = extra["degraded"] = meta["degraded"]
-            obs_metrics.counter("engine.cpu_degraded_batches").inc()
-            obs_metrics.counter("engine.cpu_degraded_coalitions").inc(n)
-        if meta.get("device_sec") is not None:
-            # a fenced batch: its device seconds feed the report's
-            # device_time and roofline rows
-            extra["device_sec"] = meta["device_sec"]
-            extra["fenced"] = True
-        if meta.get("flops"):
-            extra["flops"] = meta["flops"]
-        self.batch_log.append(entry)
-        self._account_batch(seconds, attrs, batch_epochs, batch_samples, batch_passes,
-                            ordinal=meta["ordinal"], **extra)
-        self.device_meter.note(n, span_sec=seconds, device_sec=meta.get("device_sec"),
-                               flops=meta.get("flops"), degraded=bool(meta.get("degraded")))
-        obs_metrics.histogram("engine.pad_waste_fraction").observe(
-            meta["padding"] / meta["width"])
-        obs_metrics.sample_device_memory(device=self.device)
-        if self.autosave_path is not None:
-            self.save_cache(self.autosave_path)
-        if self.progress is not None:
-            self.progress(len(group), meta.get("remaining", 0), slot_count)
+        return batch_samples
 
-    def _account_batch(self, seconds: float, attrs: dict, epochs: int, samples: int,
+    def _account_batch(self, dur: float, attrs: dict, epochs: int, samples: int,
                        passes: int, ordinal: int | None = None, **extra) -> None:
-        """A training batch's counters and its `engine.batch` event
-        (`seconds`: dispatch start to harvest end); the recording's too. `ordinal` is the
-        batch's (None: the last dispatched)."""
+        """A training batch's counters and its `engine.batch` event (`dur`:
+        the batch's start to the end of its bookkeeping); the recording's
+        too. `ordinal` is the batch's (None: the last dispatched)."""
         self.epochs_trained += epochs
         self.samples_trained += samples
         obs_metrics.counter("engine.batches").inc()
-        obs_trace.event("engine.batch", dur=seconds,
+        obs_trace.event("engine.batch", dur=dur,
                         ordinal=self._batch_ordinal if ordinal is None else ordinal,
                         **attrs, epochs=epochs, samples=samples,
                         partner_passes=passes, **extra)
@@ -1371,15 +1416,17 @@ class CharacteristicEngine:
             elif multis:
                 self._run_batch(multis, self.multi_pipe)
             if self._batch_ordinal != ordinal:
-                # one device-memory snapshot a call that did device work,
-                # after its batches, so the high water includes them
-                obs_metrics.sample_device_memory(device=self.device)
-                obs_trace.event("engine.hbm", **self._hbm_attrs(
-                    max((self._slot_width(lens[k]) for k in multis), default=None)
-                    if multis and self._use_slots else None))
-                if self.numerics_ledger is not None:
-                    # the ledger saved once a call that did device work
-                    self.numerics_ledger.save()
+                with obs_trace.span("engine.record", phase="evaluate"):
+                    # one device-memory snapshot a call that did device
+                    # work, after its batches, so the high water includes
+                    # them
+                    obs_metrics.sample_device_memory(device=self.device)
+                    obs_trace.event("engine.hbm", **self._hbm_attrs(
+                        max((self._slot_width(lens[k]) for k in multis), default=None)
+                        if multis and self._use_slots else None))
+                    if self.numerics_ledger is not None:
+                        # the ledger saved once a call that did device work
+                        self.numerics_ledger.save()
         if self._cache_needs_upgrade and self.autosave_path is not None:
             # a legacy cache is rewritten with a checksum even when every
             # value was memoized and no batch's autosave ran

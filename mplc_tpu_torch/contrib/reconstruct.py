@@ -18,7 +18,14 @@ followed by its `engine.batch` event; `ReconstructionEvaluator.evaluate` is
 an `engine.evaluate` span (mode=reconstruct) holding, for each batch, an
 `engine.prep`, an `engine.dispatch` (where K1 launches) and an
 `engine.harvest` (the host read of the accuracies, the batch's one sync),
-then an eval-only `engine.batch` event. With the engine's value ledger on
+then an eval-only `engine.batch` event. Inside the dispatch the port's
+own leaf spans (`obs/trace.py` `PORT_SPANS`) split the host's work into
+`recon.reconstruct` (the flatten and K1 enqueued) and `recon.evaluate`
+(`evaluate_models` enqueued); the stores after the harvest are an
+`engine.record` span, whose seconds the batch event carries as
+`record_s` beside `seconds` (its `dur`), and the hook an `engine.progress`
+span. `recon.record` feeds `recon.record_seconds_total`. With the
+engine's value ledger on
 (MPLC_TORCH_NUMERICS_LEDGER), each reconstructed v(S) is recorded with
 source "reconstruction" and the ledger saved after each `evaluate` that
 reconstructed; each batch is noted eval-only on the engine's device meter.
@@ -242,9 +249,12 @@ class ReconstructionEvaluator:
                                              self._weights, self.precision)
 
     def _apply(self, masks: torch.Tensor) -> torch.Tensor:
-        """Test accuracy of each reconstructed coalition model ([B])."""
-        params = recon_kernel.unflatten(self.reconstruct(masks), self._layout)
-        with torch.no_grad():
+        """Test accuracy of each reconstructed coalition model ([B]; `masks`
+        on the host or on the engine's device)."""
+        with obs_trace.span("recon.reconstruct", width=int(masks.shape[0])):
+            masks = masks.to(self.engine.device)
+            params = recon_kernel.unflatten(self.reconstruct(masks), self._layout)
+        with obs_trace.span("recon.evaluate", width=int(masks.shape[0])), torch.no_grad():
             return self.engine.trainer.evaluate_models(params, self.engine.test)[1]
 
     def _chunk(self) -> int:
@@ -321,7 +331,7 @@ class ReconstructionEvaluator:
             def dispatch(sel=sel, attrs=attrs, ordinal=eng._batch_ordinal):
                 with obs_trace.span("engine.dispatch", **attrs, eval_only=True):
                     eng._faults.check("dispatch", ordinal)
-                    accs = self._apply(torch.from_numpy(masks_all[sel]).to(eng.device))
+                    accs = self._apply(torch.from_numpy(masks_all[sel]))
                     return lambda: accs.cpu().numpy()
 
             meta["redispatch"] = dispatch
@@ -347,32 +357,38 @@ class ReconstructionEvaluator:
                 eng._degrade_cap(e)
                 i -= len(group)
                 continue
-            for s, acc in zip(group, accs[:len(group)].tolist()):
-                self.values[s] = float(acc)
-                if eng.numerics_ledger is not None:
-                    # the engine's ledger, tagged by source, so a diff
-                    # never mixes reconstructed values with retrained ones
-                    eng.numerics_ledger.record(
-                        s, float(acc), source="reconstruction", slot_width=None,
-                        cap_halvings=eng._cap_halvings, degraded=on_cpu)
-            self.reconstructions += len(group)
-            obs_metrics.counter("engine.batches").inc()
-            obs_metrics.counter("engine.reconstructions").inc(len(group))
-            obs_metrics.histogram("engine.pad_waste_fraction").observe(attrs["padding"] / b)
-            if on_cpu:
-                obs_metrics.counter("engine.cpu_degraded_batches").inc()
-                obs_metrics.counter("engine.cpu_degraded_coalitions").inc(len(group))
+            with obs_trace.span("engine.record", phase="batch",
+                                ordinal=meta["ordinal"]) as record:
+                for s, acc in zip(group, accs[:len(group)].tolist()):
+                    self.values[s] = float(acc)
+                    if eng.numerics_ledger is not None:
+                        # the engine's ledger, tagged by source, so a diff
+                        # never mixes reconstructed values with retrained ones
+                        eng.numerics_ledger.record(
+                            s, float(acc), source="reconstruction", slot_width=None,
+                            cap_halvings=eng._cap_halvings, degraded=on_cpu)
+                self.reconstructions += len(group)
+                obs_metrics.counter("engine.batches").inc()
+                obs_metrics.counter("engine.reconstructions").inc(len(group))
+                obs_metrics.histogram("engine.pad_waste_fraction").observe(
+                    attrs["padding"] / b)
+                if on_cpu:
+                    obs_metrics.counter("engine.cpu_degraded_batches").inc()
+                    obs_metrics.counter("engine.cpu_degraded_coalitions").inc(len(group))
             # eval-only: no epochs, samples or partner passes
             seconds = time.perf_counter() - meta["t0"]
             obs_trace.event("engine.batch", dur=seconds,
                             ordinal=meta["ordinal"], **attrs, epochs=0, samples=0,
-                            partner_passes=0, eval_only=True)
+                            partner_passes=0, eval_only=True, seconds=seconds,
+                            record_s=record.duration)
             if eng.device_meter is not None:
                 # neither fenced nor counted: eval-only batches bill at their
                 # own host span, outside the fenced training rate
-                eng.device_meter.note(len(group), span_sec=seconds, eval_only=True)
+                with obs_trace.span("engine.record", phase="after", ordinal=meta["ordinal"]):
+                    eng.device_meter.note(len(group), span_sec=seconds, eval_only=True)
             if eng.progress is not None:
                 # the engine's per-batch hook (the sweep service's heartbeat,
                 # journal and deadline): this batch is fully recorded, and
                 # nothing else is in flight
-                eng.progress(len(group), n - i, None)
+                with obs_trace.span("engine.progress", ordinal=meta["ordinal"]):
+                    eng.progress(len(group), n - i, None)

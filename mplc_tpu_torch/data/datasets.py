@@ -37,6 +37,7 @@ import numpy as np
 from .. import constants
 from ..models import zoo as model_zoo
 from ..models.core import Model
+from ..obs import trace as obs_trace
 
 _PROTOTYPES = Path(__file__).with_name("digits_prototypes.npy")
 
@@ -75,7 +76,8 @@ class Dataset:
         self.y_test = y_test
         self.model = model
         self.provenance = provenance
-        self.train_val_split_global()
+        with obs_trace.span("data.prepare", dataset=dataset_name):
+            self.train_val_split_global()
 
     def train_val_split_global(self):
         if self.x_val is not None or self.y_val is not None:
@@ -241,10 +243,11 @@ def with_held_out_test(dataset: Dataset, rows: int) -> Dataset:
     rows (already shuffled by its train/val split) and whose training
     rows are the rest, split 90/10 into train and val anew. For a loader
     whose own test set scores nothing, as `load_cifar10`'s."""
-    return Dataset(dataset.name, dataset.input_shape, dataset.num_classes,
-                   dataset.x_train[rows:], dataset.y_train[rows:],
-                   dataset.x_train[:rows], dataset.y_train[:rows], model=dataset.model,
-                   provenance=f"{dataset.provenance}, test = {rows} training rows")
+    with obs_trace.span("data.prepare", dataset=dataset.name, held_out_test=rows):
+        return Dataset(dataset.name, dataset.input_shape, dataset.num_classes,
+                       dataset.x_train[rows:], dataset.y_train[rows:],
+                       dataset.x_train[:rows], dataset.y_train[:rows], model=dataset.model,
+                       provenance=f"{dataset.provenance}, test = {rows} training rows")
 
 
 def featurize_titanic_csv(csv_path) -> tuple[np.ndarray, np.ndarray]:

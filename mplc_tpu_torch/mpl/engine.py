@@ -78,6 +78,15 @@ harvest of its results. The one read
 left is early stopping's: with `is_early_stopping` on and patience short
 of epoch_count, each epoch reads whether every run has stopped.
 
+Observability (`obs/trace.py`, port-only names): a batch's host work is
+covered by leaf spans, `trainer.init` (initial parameters drawn and
+uploaded), `trainer.draws` (an epoch's streams), `trainer.minibatch` (one
+minibatch enqueued; FedAvg's is an aggregation round) and
+`trainer.finalize` (the test evaluation enqueued); a host read of a device
+tensor in a dispatch is a `trainer.sync` span. `MplTrainer.totals` sums the
+gradient calls, their host seconds and their models (padded copies
+apart) without a record per call.
+
 Precision (`TrainConfig.precision`): the model computes in `cfg.dtype`
 (bf16 under `mixed` and `bf16`, or under `fp32` with `compute_dtype`
 "bfloat16"); parameters, optimizer state, aggregation
@@ -87,9 +96,11 @@ weights and the recorded deltas stay float32 in every mode.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import logging
+import time
 from typing import NamedTuple
 
 import torch
@@ -97,6 +108,7 @@ from torch.func import grad_and_value, vmap
 
 from .. import constants
 from ..models.core import Model
+from ..obs import trace as obs_trace
 from ..ops.aggregation import AGGREGATOR_NAMES, aggregate, aggregation_weights
 from ..ops.metrics import masked_loss_and_metrics
 from . import dropout as drop_masks
@@ -320,15 +332,38 @@ def upload(t: torch.Tensor, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _host_read(t: torch.Tensor, what: str) -> torch.Tensor:
+    """`t` on the CPU: itself when it lies there, else read from its
+    device inside a `trainer.sync` span."""
+    if t.device.type == "cpu":
+        return t
+    with obs_trace.span("trainer.sync", what=what):
+        return t.cpu()
+
+
 def _host_mask(stacked) -> torch.Tensor:
     """The stacked validity mask [P, Nmax] on the CPU."""
-    return stacked.mask.cpu() if stacked.mask_host is None else stacked.mask_host
+    return (_host_read(stacked.mask, "mask") if stacked.mask_host is None
+            else stacked.mask_host)
 
 
 def host_coalitions(coal: torch.Tensor, coal_host) -> torch.Tensor:
     """The host copy of a batch's coalitions: `coal_host` when given, else
     `coal` read to the CPU (a read of the device when `coal` lies there)."""
-    return coal.cpu() if coal_host is None else torch.as_tensor(coal_host)
+    return _host_read(coal, "coalitions") if coal_host is None else torch.as_tensor(coal_host)
+
+
+@dataclasses.dataclass
+class CallTotals:
+    """A dispatch's host-side totals (`MplTrainer.totals`): its gradient
+    calls, their host seconds (two `perf_counter` readings a call), the
+    models in them and the padded copies among them (`_model_grads`), and
+    the `perf_counter` reading at the end of its first epoch's draws."""
+    grad_calls: int = 0
+    grad_call_host_s: float = 0.0
+    models_called: int = 0
+    models_padded: int = 0
+    first_draws_end: float | None = None
 
 
 class EpochStreams(NamedTuple):
@@ -421,6 +456,9 @@ class MplTrainer:
         # when a list, every gradient and forward call of the model appends
         # its (kind, models, rows): a batch's FLOP count (`call_flops`)
         self.call_log: list | None = None
+        # what the calls cost on the host; the engine sets fresh totals
+        # before each batch's dispatch
+        self.totals = CallTotals()
 
     def _log_call(self, kind: str, models: int, rows: int) -> None:
         if self.call_log is not None:
@@ -438,6 +476,12 @@ class MplTrainer:
         [B, ...]; `generators` may then be None). lflip runs start from
         theta = eye (1 - eps) + (1 - eye) eps / (K - 1) for every partner,
         or from `init_theta` [B, P, K, K]."""
+        with obs_trace.span("trainer.init"):
+            return self._init_state(generators, partners_count, device, init_params,
+                                    init_theta)
+
+    def _init_state(self, generators, partners_count: int, device, init_params,
+                    init_theta) -> TrainState:
         cfg = self.cfg
         if init_params is None:
             drawn = [self.model.init(g) for g in generators]
@@ -552,9 +596,16 @@ class MplTrainer:
         passes the host copy), then the approach's visit-order keys or
         label-draw uniforms, then the dropout key. Either way they go to
         `dev` through `upload`."""
+        with obs_trace.span("trainer.draws"):
+            out = self._drawn(generators, mask, streams, dev)
+        if self.totals.first_draws_end is None:
+            self.totals.first_draws_end = time.perf_counter()
+        return out
+
+    def _drawn(self, generators, mask: torch.Tensor, streams, dev) -> EpochStreams:
         cfg = self.cfg
         dev = mask.device if dev is None else dev
-        mask = mask.cpu()
+        mask = _host_read(mask, "mask")
         extra = None
         if cfg.approach in SEQ_APPROACHES:
             extra = "order_keys", (cfg.minibatch_count, mask.shape[1])
@@ -689,16 +740,17 @@ class MplTrainer:
         for _ in range(0, N, M):
             self._log_call("grad", M, x.shape[1])
         if M == N:
-            return self._grads(params, x, y, m, drop)
+            return self._grad_call(N, 0, params, x, y, m, drop)
 
         def take(t, s):
             n = min(M, N - s)
             part = t[s:s + n]
             return part if n == M else torch.cat(
                 [part, part[:1].expand((M - n,) + part.shape[1:])])
-        outs = [self._grads(_tree_map(lambda t: take(t, s), params),
-                            *(take(t, s) for t in (x, y, m)),
-                            tuple(take(d, s) for d in drop))
+        outs = [self._grad_call(M, M - min(M, N - s),
+                                _tree_map(lambda t: take(t, s), params),
+                                *(take(t, s) for t in (x, y, m)),
+                                tuple(take(d, s) for d in drop))
                 for s in range(0, N, M)]
 
         def join(*ts):
@@ -706,6 +758,27 @@ class MplTrainer:
         grads = _tree_map(join, *(o[0] for o in outs))
         loss, acc, cnt = (join(*ts) for ts in zip(*((o[1][0],) + o[1][1] for o in outs)))
         return grads, (loss, (acc, cnt))
+
+    def _grad_call(self, models: int, padded: int, *args):
+        """One vmapped gradient call of `models` models, `padded` of them
+        copies, added to `totals` with its host seconds."""
+        t0 = time.perf_counter()
+        out = self._grads(*args)
+        tot = self.totals
+        tot.grad_call_host_s += time.perf_counter() - t0
+        tot.grad_calls += 1
+        tot.models_called += models
+        tot.models_padded += padded
+        return out
+
+    @contextlib.contextmanager
+    def _minibatch(self, mb_i: int):
+        """A `trainer.minibatch` span around minibatch `mb_i`'s enqueue,
+        with the gradient calls it made (attr `grad_calls`)."""
+        calls = self.totals.grad_calls
+        with obs_trace.span("trainer.minibatch", mb=mb_i) as sp:
+            yield
+            sp.attrs["grad_calls"] = self.totals.grad_calls - calls
 
     def _steps(self, params: dict, opt_state: dict, batches, columns: int | None = None):
         """One masked optimizer step of N models (params [N, ...]) for each
@@ -715,8 +788,15 @@ class MplTrainer:
         deterministic reduce, `columns` W computes the gradients a column
         of the run-major [B, W] models at a time (`_column_grads`); either
         way the calls are `_model_grads`'."""
+        params, opt_state, sums = self._run_steps(params, opt_state, batches, columns)
+        return (params, opt_state) + self._means(sums)
+
+    def _run_steps(self, params: dict, opt_state: dict, batches, columns: int | None = None,
+                   sums: tuple | None = None):
+        """`_steps` with its (loss, accuracy, count) sums returned rather
+        than their means, carried on from `sums` (None: from 0)."""
         opt = self.model.optimizer
-        loss_sum = acc_sum = cnt_sum = 0.0
+        loss_sum, acc_sum, cnt_sum = sums or (0.0, 0.0, 0.0)
         by_column = columns is not None and self.cfg.deterministic_reduce
         for x, y, m, drop in batches:
             if by_column:
@@ -727,8 +807,14 @@ class MplTrainer:
             loss_sum = loss_sum + loss * cnt
             acc_sum = acc_sum + acc * cnt
             cnt_sum = cnt_sum + cnt
+        return params, opt_state, (loss_sum, acc_sum, cnt_sum)
+
+    @staticmethod
+    def _means(sums: tuple):
+        """(mean loss, mean accuracy) of `_run_steps`' sums."""
+        loss_sum, acc_sum, cnt_sum = sums
         denom = torch.clamp(cnt_sum, min=1.0)
-        return params, opt_state, loss_sum / denom, acc_sum / denom
+        return loss_sum / denom, acc_sum / denom
 
     # ------------------------------------------------------------------
     # lflip: one EM step of theta and the label draw, all partners at once
@@ -858,75 +944,76 @@ class MplTrainer:
         params = state.params
         theta = state.theta
         for mb_i in range(cfg.minibatch_count):
-            vl, va = self._maybe_val_eval(params, val, mb_i)
-            _write(state.val_loss_h[:, e, mb_i], vl, frozen)
-            _write(state.val_acc_h[:, e, mb_i], va, frozen)
-            if cfg.approach == "lflip":
-                theta, w_idx, y_flip = self._lflip_windows(
-                    params, theta, stacked, pids, perms, sizes, act, mb_i,
-                    draws.flip_u[:, mb_i])
+            with self._minibatch(mb_i):
+                vl, va = self._maybe_val_eval(params, val, mb_i)
+                _write(state.val_loss_h[:, e, mb_i], vl, frozen)
+                _write(state.val_acc_h[:, e, mb_i], va, frozen)
+                if cfg.approach == "lflip":
+                    theta, w_idx, y_flip = self._lflip_windows(
+                        params, theta, stacked, pids, perms, sizes, act, mb_i,
+                        draws.flip_u[:, mb_i])
 
-            def batches():
-                for g in range(cfg.pass_steps):
-                    if cfg.approach == "lflip":
-                        local, _, valid = self._step_rows(sizes, g, sb_cap)
-                        local = torch.clamp(local, 0, mb_cap - 1)
-                        x = stacked.x[rows, torch.gather(w_idx, 2, local)]
-                        y = y_flip[runs[:, :, None], torch.arange(W, device=dev)[:, None],
-                                   local]
-                        valid = valid.float()
-                    else:
-                        idx, valid = self._subbatch(perms, sizes, mb_i, g, sb_cap)
-                        x, y = stacked.x[rows, idx], stacked.y[rows, idx]
-                    yield flat(x), flat(y), flat(valid * act[:, :, None]), step_drop(mb_i, g)
-            start = _tree_map(lambda t: t[:, None].expand((B, W) + t.shape[1:]), params)
-            if stale is not None:
-                old = _tree_map(lambda st: st[runs, stale_row], stale)
-                start = _tree_map(lambda o, n: torch.where(_rows(late, o), o, n), old, start)
-            start = _tree_map(flat, start)
-            new_flat, _, losses, accs = self._steps(
-                start, self.model.optimizer.init(start), batches(), columns=W)
-            if need_pval and cfg.deterministic_reduce:
-                # a column's B models at a time, as their steps
-                cols = [self.evaluate_models(_tree_map(lambda t: _column(t, W, w), new_flat), val)
-                        for w in range(W)]
-                pvl, pva = (torch.stack(ts, 1) for ts in zip(*cols))
-            elif need_pval:
-                pvl, pva = (t.reshape(B, W) for t in self.evaluate_models(new_flat, val))
-            else:
-                pvl = pva = torch.full((B, W), float("nan"), device=dev)
-            # each used slot's metrics into its partner's history row: a
-            # gather from the slot holding partner p (a partner sits in one
-            # slot at most), kept where no used slot holds it
-            view = state.partner_h[:, :, :, e, mb_i]
-            vals = torch.stack([losses.reshape(B, W), accs.reshape(B, W), pvl, pva], 1)
-            hit = (pids[:, :, None] == torch.arange(P, device=dev)) & used[:, :, None]
-            src = torch.gather(vals, 2, hit.to(torch.uint8).argmax(1)[:, None, :]
-                               .expand(B, 4, P))
-            _write(view, torch.where(hit.any(1)[:, None, :], src, view), frozen)
-            new_params = _tree_map(lambda t: t.reshape((B, W) + t.shape[1:]), new_flat)
-            if cfg.partner_axis is not None:
-                # the row's agreement point: a peer's failure in this round
-                # raises here, before its aggregation's collectives
-                cfg.partner_axis.agree()
-            w = aggregation_weights(cfg.aggregator, act, sizes, torch.nan_to_num(pva),
-                                    deterministic=cfg.deterministic_reduce,
-                                    group=cfg.partner_axis)
-            if cfg.record_updates:
-                r_idx = e * cfg.minibatch_count + mb_i
-                for g, d in new_params.items():
-                    for k, t in d.items():
-                        _write(state.upd_h[g][k][:, r_idx], t - params[g][k][:, None],
-                               frozen)
-                _write(state.w_h[:, r_idx], w, frozen)
-            agg = aggregate(new_params, w, deterministic=cfg.deterministic_reduce,
-                            group=cfg.partner_axis)
-            if cfg.faulted:
-                agg = _keep_frozen(act.sum(1) == 0, params, agg)
-            if stale is not None:
-                stale = _tree_map(lambda st, t: torch.cat([t[:, None], st[:, :-1]], 1),
-                                  stale, params)
-            params = agg
+                def batches():
+                    for g in range(cfg.pass_steps):
+                        if cfg.approach == "lflip":
+                            local, _, valid = self._step_rows(sizes, g, sb_cap)
+                            local = torch.clamp(local, 0, mb_cap - 1)
+                            x = stacked.x[rows, torch.gather(w_idx, 2, local)]
+                            y = y_flip[runs[:, :, None], torch.arange(W, device=dev)[:, None],
+                                       local]
+                            valid = valid.float()
+                        else:
+                            idx, valid = self._subbatch(perms, sizes, mb_i, g, sb_cap)
+                            x, y = stacked.x[rows, idx], stacked.y[rows, idx]
+                        yield flat(x), flat(y), flat(valid * act[:, :, None]), step_drop(mb_i, g)
+                start = _tree_map(lambda t: t[:, None].expand((B, W) + t.shape[1:]), params)
+                if stale is not None:
+                    old = _tree_map(lambda st: st[runs, stale_row], stale)
+                    start = _tree_map(lambda o, n: torch.where(_rows(late, o), o, n), old, start)
+                start = _tree_map(flat, start)
+                new_flat, _, losses, accs = self._steps(
+                    start, self.model.optimizer.init(start), batches(), columns=W)
+                if need_pval and cfg.deterministic_reduce:
+                    # a column's B models at a time, as their steps
+                    cols = [self.evaluate_models(_tree_map(lambda t: _column(t, W, w), new_flat), val)
+                            for w in range(W)]
+                    pvl, pva = (torch.stack(ts, 1) for ts in zip(*cols))
+                elif need_pval:
+                    pvl, pva = (t.reshape(B, W) for t in self.evaluate_models(new_flat, val))
+                else:
+                    pvl = pva = torch.full((B, W), float("nan"), device=dev)
+                # each used slot's metrics into its partner's history row: a
+                # gather from the slot holding partner p (a partner sits in one
+                # slot at most), kept where no used slot holds it
+                view = state.partner_h[:, :, :, e, mb_i]
+                vals = torch.stack([losses.reshape(B, W), accs.reshape(B, W), pvl, pva], 1)
+                hit = (pids[:, :, None] == torch.arange(P, device=dev)) & used[:, :, None]
+                src = torch.gather(vals, 2, hit.to(torch.uint8).argmax(1)[:, None, :]
+                                   .expand(B, 4, P))
+                _write(view, torch.where(hit.any(1)[:, None, :], src, view), frozen)
+                new_params = _tree_map(lambda t: t.reshape((B, W) + t.shape[1:]), new_flat)
+                if cfg.partner_axis is not None:
+                    # the row's agreement point: a peer's failure in this round
+                    # raises here, before its aggregation's collectives
+                    cfg.partner_axis.agree()
+                w = aggregation_weights(cfg.aggregator, act, sizes, torch.nan_to_num(pva),
+                                        deterministic=cfg.deterministic_reduce,
+                                        group=cfg.partner_axis)
+                if cfg.record_updates:
+                    r_idx = e * cfg.minibatch_count + mb_i
+                    for g, d in new_params.items():
+                        for k, t in d.items():
+                            _write(state.upd_h[g][k][:, r_idx], t - params[g][k][:, None],
+                                   frozen)
+                    _write(state.w_h[:, r_idx], w, frozen)
+                agg = aggregate(new_params, w, deterministic=cfg.deterministic_reduce,
+                                group=cfg.partner_axis)
+                if cfg.faulted:
+                    agg = _keep_frozen(act.sum(1) == 0, params, agg)
+                if stale is not None:
+                    stale = _tree_map(lambda st, t: torch.cat([t[:, None], st[:, :-1]], 1),
+                                      stale, params)
+                params = agg
         if theta is not None:
             state.theta = _keep_frozen(frozen, state.theta, theta)
         if stale is not None:
@@ -983,50 +1070,51 @@ class MplTrainer:
             return aggregate(stack, w, deterministic=cfg.deterministic_reduce)
 
         for mb_i in range(cfg.minibatch_count):
-            vl, va = self._maybe_val_eval(params, val, mb_i,
-                                          es_col=cfg.minibatch_count - 1)
-            _write(state.val_loss_h[:, e, mb_i], vl, frozen)
-            _write(state.val_acc_h[:, e, mb_i], va, frozen)
-            keys = torch.gather(draws.order_keys[:, mb_i], 1, pids) + (1.0 - act) * 1e3
-            order = torch.argsort(keys, dim=1, stable=True)        # [B, W] slots
-            opt_state = opt.init(params)
-            pva_slot = nan.clone()        # this minibatch's val accuracy a slot
-            for pos in range(visits):
-                s = order[:, pos]                                  # [B]
-                pid = pids[runs, s]
-                on = act[runs, s] > 0
-                perm_s, size_s = perms[runs, s][:, None], sizes[runs, s][:, None]
+            with self._minibatch(mb_i):
+                vl, va = self._maybe_val_eval(params, val, mb_i,
+                                              es_col=cfg.minibatch_count - 1)
+                _write(state.val_loss_h[:, e, mb_i], vl, frozen)
+                _write(state.val_acc_h[:, e, mb_i], va, frozen)
+                keys = torch.gather(draws.order_keys[:, mb_i], 1, pids) + (1.0 - act) * 1e3
+                order = torch.argsort(keys, dim=1, stable=True)        # [B, W] slots
+                opt_state = opt.init(params)
+                pva_slot = nan.clone()        # this minibatch's val accuracy a slot
+                for pos in range(visits):
+                    s = order[:, pos]                                  # [B]
+                    pid = pids[runs, s]
+                    on = act[runs, s] > 0
+                    perm_s, size_s = perms[runs, s][:, None], sizes[runs, s][:, None]
 
-                def batches():
-                    for g in range(cfg.pass_steps):
-                        idx, valid = self._subbatch(perm_s, size_s, mb_i, g, sb_cap)
-                        yield (stacked.x[pid[:, None], idx[:, 0]],
-                               stacked.y[pid[:, None], idx[:, 0]],
-                               valid[:, 0] * on[:, None],
-                               self._step_masks(draws, sb_cap * cfg.step_width_mult,
-                                                (1, mb_i, pos + 1, g),
-                                                lambda m: m[:, mb_i, pos, g]))
-                new_p, new_opt, loss, acc = self._steps(
-                    params, {**opt_state, "count": pos * cfg.pass_steps}, batches())
-                params = _keep_frozen(~on, params, new_p)
-                opt_state = _keep_frozen_opt(~on, opt_state, new_opt)
-                # the visited slot's row of each run, kept where the visit
-                # was no member's
-                for g, d in stack.items():
-                    for k, t in d.items():
-                        t[runs, s] = _keep_frozen(~on, t[runs, s], params[g][k])
-                if need_pval:
-                    pvl, pva = self.evaluate_models(params, val)
-                else:
-                    pvl = pva = nan[:, 0]
-                view = state.partner_h[:, :, :, e, mb_i]
-                cells = view.clone()
-                cells[runs, :, pid] = _keep_frozen(~on, cells[runs, :, pid],
-                                                   torch.stack([loss, acc, pvl, pva], 1))
-                _write(view, cells, frozen)
-                pva_slot[runs, s] = torch.where(on, pva, pva_slot[runs, s])
-            if cfg.approach == "seqavg":
-                params = aggregate_stack(pva_slot)
+                    def batches():
+                        for g in range(cfg.pass_steps):
+                            idx, valid = self._subbatch(perm_s, size_s, mb_i, g, sb_cap)
+                            yield (stacked.x[pid[:, None], idx[:, 0]],
+                                   stacked.y[pid[:, None], idx[:, 0]],
+                                   valid[:, 0] * on[:, None],
+                                   self._step_masks(draws, sb_cap * cfg.step_width_mult,
+                                                    (1, mb_i, pos + 1, g),
+                                                    lambda m: m[:, mb_i, pos, g]))
+                    new_p, new_opt, loss, acc = self._steps(
+                        params, {**opt_state, "count": pos * cfg.pass_steps}, batches())
+                    params = _keep_frozen(~on, params, new_p)
+                    opt_state = _keep_frozen_opt(~on, opt_state, new_opt)
+                    # the visited slot's row of each run, kept where the visit
+                    # was no member's
+                    for g, d in stack.items():
+                        for k, t in d.items():
+                            t[runs, s] = _keep_frozen(~on, t[runs, s], params[g][k])
+                    if need_pval:
+                        pvl, pva = self.evaluate_models(params, val)
+                    else:
+                        pvl = pva = nan[:, 0]
+                    view = state.partner_h[:, :, :, e, mb_i]
+                    cells = view.clone()
+                    cells[runs, :, pid] = _keep_frozen(~on, cells[runs, :, pid],
+                                                       torch.stack([loss, acc, pvl, pva], 1))
+                    _write(view, cells, frozen)
+                    pva_slot[runs, s] = torch.where(on, pva, pva_slot[runs, s])
+                if cfg.approach == "seqavg":
+                    params = aggregate_stack(pva_slot)
         if cfg.approach == "seq-with-final-agg":
             # weighted by the last minibatch's val accuracies, as the masked
             # history's column MB-1
@@ -1058,16 +1146,23 @@ class MplTrainer:
         ar = torch.arange(sb_cap, device=masks.device)[None, :]
         runs = torch.arange(B, device=masks.device)[:, None]
 
-        def batches():
-            for g in range(steps):
+        gup = cfg.gradient_updates_per_pass
+
+        def batches(mb_i: int):
+            for g in range(mb_i * gup, (mb_i + 1) * gup):
                 local = g * sb + ar
                 valid = (ar < sb) & (local < size_p[:, None])
                 idx = torch.gather(perm, 1, torch.clamp(local, 0, n_max - 1))
                 # dropout: keyed (step + 1)
                 yield (x_p[runs, idx], y_p[runs, idx], valid.float(),
                        self._step_masks(draws, sb_cap, (g + 1,), lambda m: m[:, g]))
-        params, opt_state, loss, acc = self._steps(state.params, state.opt_state,
-                                                   batches())
+        # the steps in minibatches of gup, the sums carried across them
+        params, opt_state, sums = state.params, state.opt_state, None
+        for mb_i in range(cfg.minibatch_count):
+            with self._minibatch(mb_i):
+                params, opt_state, sums = self._run_steps(params, opt_state, batches(mb_i),
+                                                          sums=sums)
+        loss, acc = self._means(sums)
         hold = frozen
         if cfg.partner_drop_epochs is not None:
             # from its drop epoch on the partner's solo training stops:
@@ -1125,7 +1220,7 @@ class MplTrainer:
         trainer need it)."""
         cfg = self.cfg
         if state.epoch >= cfg.epoch_count or (
-                cfg.stops_early and bool(state.done.all())):
+                cfg.stops_early and bool(_host_read(state.done.all(), "stopped"))):
             return state
         frozen = state.done.clone()
         epoch_fn = (self._single_epoch if cfg.approach == "single" else
@@ -1160,7 +1255,8 @@ class MplTrainer:
 
     def finalize(self, state: TrainState, test: EvalSet) -> tuple[torch.Tensor, torch.Tensor]:
         """([B] test_loss, [B] test_accuracy) of the final global models."""
-        return self.evaluate_models(state.params, test)
+        with obs_trace.span("trainer.finalize"):
+            return self.evaluate_models(state.params, test)
 
 
 def call_flops(model: Model, calls: list, x_like: torch.Tensor) -> float | None:

@@ -10,9 +10,12 @@ the Chrome trace-event format (the JSON object form, `{"traceEvents":
     (`pid` 1, `tid` = the recording thread id, named with "M" metadata
     events); zero-duration events are widened to 1 us so they render and
     can anchor flows. Sampled device fences (`engine.device_fence`,
-    obs/devcost.py: the batch's device seconds between CUDA events) go to
-    a "device" process track (pid 2), so measured device time stands
-    apart from the host spans;
+    obs/devcost.py: a point event at the batch's harvest carrying the
+    batch's device seconds between CUDA events as `device_sec`) go to a
+    "device" process track (pid 2) as a slice of `device_sec` ending at
+    the harvest (the JAX package's fence, whose `ts` and `dur` are the
+    device interval, as it is), so measured device time stands apart from
+    the host spans and never sits on a host track;
   - timestamps are rebased to the trace's first record, in microseconds;
   - FLOW events (ph "s"/"f") link the recovery records to the work they
     recovered: `engine.retry` / `engine.fault` to the next `engine.batch`
@@ -78,11 +81,20 @@ def _attrs(rec: dict) -> dict:
     return rec.get("attrs") or {}
 
 
+def _device_lead(rec: dict) -> float:
+    """The device seconds a port fence (a point event at its harvest)
+    carries, drawn before its `ts`; 0 for any other record, and for the
+    JAX package's fence, whose `ts` and `dur` are the device interval."""
+    if rec.get("name") not in _DEVICE_ROWS:
+        return 0.0
+    return float(_attrs(rec).get("device_sec") or 0.0)
+
+
 def to_chrome(records: list) -> dict:
     """Chrome trace-event JSON (object form) from span records."""
     events = []
     if records:
-        t0 = min(float(r.get("ts") or 0.0) for r in records)
+        t0 = min(float(r.get("ts") or 0.0) - _device_lead(r) for r in records)
     else:
         t0 = 0.0
 
@@ -96,6 +108,10 @@ def to_chrome(records: list) -> dict:
             tids.append((pid, tid))
         ts_us = (float(rec.get("ts") or 0.0) - t0) * 1e6
         dur_us = max(float(rec.get("dur") or 0.0) * 1e6, 1.0)
+        if _device_lead(rec):
+            # the port's fence: its device seconds end at its harvest
+            dur_us = max(_device_lead(rec) * 1e6, 1.0)
+            ts_us -= dur_us
         events.append({
             "name": name,
             "cat": name.split(".", 1)[0],

@@ -50,6 +50,15 @@ Metric names the port's instrumented paths use (the JAX package's names):
                                                (warned once)
     obs.flight_dumps                  counter  flight-recorder postmortems
 
+and the port's own set-up seconds, each fed by its spans when they end
+(`obs/trace.py` `SECONDS_COUNTERS`; absent until such a span ran):
+
+    scenario.prepare_seconds_total    counter  `data.prepare` and
+                                               `scenario.prepare` spans
+    engine.stage_seconds_total        counter  `engine.stage` spans
+    kernels.load_seconds_total        counter  `kernels.load` spans
+    recon.record_seconds_total        counter  `recon.record` spans
+
 `snapshot()` exports the registry as a plain dict (JSON-ready); `reset()`
 clears it (tests and per-run boundaries); `merge_snapshots()` merges
 snapshots of several processes; `export_view()` gives structured rows

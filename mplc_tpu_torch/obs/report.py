@@ -11,8 +11,12 @@ engine's (tests/test_torch_ladder.py holds the two rows equal on one game
 and plan). The program bank, device fence, service, live, router and
 numerics rows read the events the port's modules emit under the JAX
 names (PRs 16-19); a row whose events a run did not emit stays absent or
-zero, as it does on a JAX stream without them. Paths below name the JAX
-package's modules.
+zero, as it does on a JAX stream without them. The port's own names
+(`obs/trace.py` `PORT_SPANS`: the batch path's leaf spans, set-up's) fall
+through every row, so a port stream reports as a JAX one; the device
+fence row reads only the fence's `interval` (its device seconds ride the
+`engine.batch` event as well). Paths below name the JAX package's
+modules.
 
 `sweep_report(records)` consumes the span/event records collected during a
 run (`obs.trace.collect()`, or a parsed JSONL trace file) and derives the

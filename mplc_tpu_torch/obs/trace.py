@@ -24,9 +24,28 @@ Record schema (one JSON object a line):
     {"name": str, "id": int, "parent": int | null, "ts": float (epoch s),
      "dur": float (s), "thread": int, "attrs": {...}}
 
+One clock, and host time only:
+  - a record's `ts` is `time.time()` at its start (an event's is
+    backdated by its `dur`): the clock a device trace is aligned to by a
+    marker op launched at a known `time.time()` (the benchmark's
+    `devtrace.py`), so a device idle gap is named by the span open then;
+  - a record with `dur > 0` is a host interval. Device seconds never pose
+    as one: the sampled fence is a point event (`dur` 0) at its batch's
+    harvest carrying them as `device_sec`.
+
 Nesting is per thread (a thread-local span stack): `parent` is the
 innermost span open on the same thread when the span started. File writes
 hold a module lock, so threads interleave whole lines, never parts.
+
+Set-up seconds: a span named in `SECONDS_COUNTERS` adds its duration to
+that counter of `obs/metrics.py` when it ends, unless a span enclosing it
+feeds the same counter (whose seconds already hold it).
+
+Profiler mirroring: while the program's own profiler is open
+(`utils.profile_trace`, which calls `set_profiler_mirror`), every span
+also opens a `torch.profiler.record_function` of its name, so the
+profiler's Chrome trace holds the spans on the device trace's clock.
+Off, that costs one bool check a span.
 
 Every closed span and event also lands in a bounded in-memory ring
 (`MPLC_TORCH_FLIGHT_RECORDER_SIZE` records, default 512), sink or not; the
@@ -55,6 +74,8 @@ import os
 import threading
 import time
 
+from . import metrics
+
 _lock = threading.Lock()
 _local = threading.local()
 _ids = itertools.count(1)
@@ -74,8 +95,9 @@ FLEET_TRACE_SHARD_ENV = "MPLC_TORCH_FLEET_SHARD_ID"
 
 # Every literal name passed to span()/start_span()/event() in the port and
 # in chip_smoke.py, and no other (tests/test_torch_obs.py scans for both).
-# Each key is also a key of the JAX package's registry, so one
-# `obs.report.sweep_report` reads either package's records.
+# Each key outside `PORT_SPANS` is also a key of the JAX package's
+# registry, so one `obs.report.sweep_report` reads either package's
+# records; it ignores the port-only names.
 SPAN_REGISTRY = {
     "engine.evaluate": "one evaluate() call of the engine or of the "
                        "reconstruction evaluator (attrs: requested/missing, "
@@ -85,9 +107,11 @@ SPAN_REGISTRY = {
                        "host read",
     "engine.harvest": "the host read of one batch's results (the batch's "
                       "one sync)",
-    "engine.batch": "per-batch accounting event (dispatch start to "
-                    "harvest end; attrs: ordinal/width/slot_count/"
-                    "coalitions/padding/epochs/samples/partner_passes)",
+    "engine.batch": "per-batch accounting event (batch start to the end of "
+                    "its bookkeeping; attrs: ordinal/width/slot_count/"
+                    "coalitions/padding/epochs/samples/partner_passes; a "
+                    "trained batch also seconds/lead_s/record_s/grad_calls/"
+                    "grad_call_host_s/models_called/models_padded)",
     "engine.hbm": "per-evaluate device-memory snapshot (attrs: "
                   "param_bytes/slot_count/per_coalition_bytes/"
                   "fixed_bytes/caps/hbm_bytes_limit/peak_in_use_bytes)",
@@ -97,10 +121,12 @@ SPAN_REGISTRY = {
                       "cpu_fallback/ladder_exhausted, halvings)",
     "engine.fault": "injected fault fired (MPLC_TORCH_FAULT_PLAN; attrs: "
                     "kind/site/ordinal)",
-    "engine.device_fence": "sampled device fence: a batch's device seconds "
+    "engine.device_fence": "sampled device fence: a point event (dur 0) at "
+                           "the batch's harvest carrying its device seconds "
                            "between CUDA events recorded before its "
                            "dispatch and after its last queued work (attrs: "
-                           "ordinal/width/slot_count/coalitions/interval)",
+                           "device_sec/ordinal/width/slot_count/coalitions/"
+                           "interval)",
     "numerics.audit": "reduction audit of one coalition (attrs: subset/"
                       "rounds/executed/max_ulp/first_round/first_leaf/"
                       "reduction_mode)",
@@ -181,7 +207,64 @@ SPAN_REGISTRY = {
                     "source/ok)",
     "flight.dump": "flight-recorder postmortem written (attrs: reason/"
                    "path/records)",
+    # the port's own names (PORT_SPANS): the batch path's leaf spans and
+    # set-up's spans
+    "trainer.init": "a batch's initial parameters drawn on the host from "
+                    "each coalition's generator and uploaded "
+                    "(`MplTrainer.init_state`)",
+    "trainer.draws": "one epoch's random streams drawn on the host and "
+                     "uploaded (`MplTrainer._draws`)",
+    "trainer.minibatch": "one minibatch enqueued (a FedAvg aggregation round; "
+                         "attrs: mb/grad_calls)",
+    "trainer.finalize": "the test evaluation of a batch's models enqueued",
+    "trainer.sync": "a host read of a device tensor inside a dispatch (attrs: "
+                    "what)",
+    "engine.flops": "a batch's logged calls counted (`call_flops`; a shape's "
+                    "first count runs on meta tensors)",
+    "engine.record": "the engine's bookkeeping: a batch's from its harvest to "
+                     "its engine.batch event (phase=batch), the work after "
+                     "that event (phase=after), an evaluate call's tail "
+                     "(phase=evaluate)",
+    "engine.progress": "the progress hook (the caller's code) after a batch",
+    "engine.stage": "the scenario's data staged on the engine's device "
+                    "(stacked partners, val and test sets)",
+    "recon.reconstruct": "a batch of coalition models reconstructed (flatten "
+                         "and K1 enqueued)",
+    "recon.evaluate": "a batch of reconstructed models' test evaluation "
+                      "enqueued (`evaluate_models`)",
+    "data.prepare": "a Dataset built (its global train/val split)",
+    "scenario.prepare": "one step of a Scenario's preparation (attrs: step = "
+                        "init/partners/split/batch_sizes/corrupt)",
+    "kernels.load": "a CUDA source's library loaded, built first by nvcc when "
+                    "the build folder lacks it (attrs: source)",
 }
+
+# the names of SPAN_REGISTRY the JAX package lacks
+PORT_SPANS = frozenset({
+    "trainer.init", "trainer.draws", "trainer.minibatch", "trainer.finalize",
+    "trainer.sync", "engine.flops", "engine.record", "engine.progress",
+    "engine.stage", "recon.reconstruct", "recon.evaluate", "data.prepare",
+    "scenario.prepare", "kernels.load"})
+
+# span name -> the counter its seconds feed (module docstring)
+SECONDS_COUNTERS = {
+    "data.prepare": "scenario.prepare_seconds_total",
+    "scenario.prepare": "scenario.prepare_seconds_total",
+    "engine.stage": "engine.stage_seconds_total",
+    "kernels.load": "kernels.load_seconds_total",
+    "recon.record": "recon.record_seconds_total",
+}
+
+# set by `utils.profile_trace` while its profiler is open
+_profiler_mirror = False
+
+
+def set_profiler_mirror(on: bool) -> bool:
+    """Mirror every span opened from now on as a `torch.profiler`
+    `record_function` (on) or not; returns the previous setting."""
+    global _profiler_mirror
+    prev, _profiler_mirror = _profiler_mirror, bool(on)
+    return prev
 
 
 def _flight_size() -> int:
@@ -281,7 +364,7 @@ class Span:
     (close without emitting). `duration` is set once closed."""
 
     __slots__ = ("name", "attrs", "id", "parent", "ts", "_t0", "duration",
-                 "_closed")
+                 "_closed", "_mirror")
 
     def __init__(self, name: str, attrs: dict):
         self.name = name
@@ -290,12 +373,21 @@ class Span:
         st = _stack()
         self.parent = st[-1].id if st else None
         st.append(self)
+        self._mirror = None
+        if _profiler_mirror:
+            from torch.profiler import record_function
+            self._mirror = record_function(name)
+            self._mirror.__enter__()
         self.ts = time.time()
         self.duration = None
         self._closed = False
         self._t0 = time.perf_counter()
 
-    def _pop(self) -> None:
+    def _close(self) -> None:
+        self.duration = time.perf_counter() - self._t0
+        self._closed = True
+        if self._mirror is not None:
+            self._mirror.__exit__(None, None, None)
         st = _stack()
         # pop up to and including self: a caller that leaked an inner span
         # must not corrupt the nesting of what follows
@@ -306,9 +398,11 @@ class Span:
     def end(self) -> "Span":
         if self._closed:
             return self
-        self.duration = time.perf_counter() - self._t0
-        self._closed = True
-        self._pop()
+        self._close()
+        counter = SECONDS_COUNTERS.get(self.name)
+        if counter is not None and not any(SECONDS_COUNTERS.get(s.name) == counter
+                                           for s in _stack()):
+            metrics.counter(counter).inc(self.duration)
         _emit({"name": self.name, "id": self.id, "parent": self.parent,
                "ts": self.ts, "dur": self.duration,
                "thread": threading.get_ident(), "attrs": self.attrs})
@@ -316,11 +410,8 @@ class Span:
 
     def cancel(self) -> None:
         """Close without emitting (the duration is still recorded)."""
-        if self._closed:
-            return
-        self.duration = time.perf_counter() - self._t0
-        self._closed = True
-        self._pop()
+        if not self._closed:
+            self._close()
 
     def __enter__(self) -> "Span":
         return self
@@ -356,7 +447,8 @@ def event(name: str, dur: float = 0.0, **attrs) -> None:
     span (a build whose seconds the caller measured, a batch's accounting).
 
     `ts` is backdated by `dur`, so it marks the interval's start as a
-    span's does: events are emitted after the work they time."""
+    span's does: events are emitted after the work they time. `dur` is
+    host seconds (module docstring); device seconds ride an attribute."""
     st = _stack()
     _emit({"name": name, "id": next(_ids),
            "parent": st[-1].id if st else None,

@@ -17,8 +17,10 @@ Each source nvcc builds emits a `trainer.compile` trace event (`fn` the
 source's name, `dur` nvcc's seconds) and adds to the `trainer.compiles_total`
 and `trainer.compile_seconds_total` counters: the port's counterpart of the
 JAX package's jit-miss event (`mplc_tpu/mpl/engine.py`). A library loaded
-from the build folder emits nothing. These builds are the port's only
-compiles: its trainers run eagerly, with nothing traced or compiled.
+from the build folder emits no such event. These builds are the port's
+only compiles: its trainers run eagerly, with nothing traced or compiled.
+`load` is a `kernels.load` span either way (the build, where there is one,
+and the `dlopen`).
 """
 
 from __future__ import annotations
@@ -131,8 +133,10 @@ def build(names) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, building it first if needed."""
+    """The loaded library of `csrc/<name>.cu`, building it first if needed
+    (a `kernels.load` span, feeding `kernels.load_seconds_total`)."""
     if name not in _loaded:
-        build([name])
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        with trace.span("kernels.load", source=name):
+            build([name])
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]

@@ -46,6 +46,7 @@ from .data import datasets as dataset_module
 from .data.partition import _encode_labels, compute_batch_sizes, split_advanced, split_basic
 from .data.partner import CORRUPTION_KINDS, Partner
 from .mpl.approaches import MULTI_PARTNER_LEARNING_APPROACHES
+from .obs import trace as obs_trace
 from .ops.aggregation import AGGREGATOR_NAMES
 from .utils import pyplot, resolve_device
 
@@ -101,150 +102,151 @@ class Scenario:
                  partner_shards=None,
                  device=None,
                  **kwargs):
-        unrecognised = [k for k in kwargs if k not in _PARAMS_KNOWN]
-        if unrecognised:
-            raise Exception(
-                f"Unrecognised parameters {unrecognised}, check your configuration")
-        self.device = resolve_device(device)
+        with obs_trace.span("scenario.prepare", step="init"):
+            unrecognised = [k for k in kwargs if k not in _PARAMS_KNOWN]
+            if unrecognised:
+                raise Exception(
+                    f"Unrecognised parameters {unrecognised}, check your configuration")
+            self.device = resolve_device(device)
 
-        # `aggregation` is the JAX package's alias of `aggregation_weighting`;
-        # a conflicting pair is an error, neither set is "data-volume"
-        aggregation_alias = kwargs.get("aggregation")
-        if aggregation_alias is not None:
-            if aggregation_weighting is not None and \
-                    _AGGREGATION_ALIASES.get(aggregation_weighting) != \
-                    _AGGREGATION_ALIASES.get(aggregation_alias):
+            # `aggregation` is the JAX package's alias of `aggregation_weighting`;
+            # a conflicting pair is an error, neither set is "data-volume"
+            aggregation_alias = kwargs.get("aggregation")
+            if aggregation_alias is not None:
+                if aggregation_weighting is not None and \
+                        _AGGREGATION_ALIASES.get(aggregation_weighting) != \
+                        _AGGREGATION_ALIASES.get(aggregation_alias):
+                    raise ValueError(
+                        f"Conflicting aggregation settings: aggregation="
+                        f"{aggregation_alias!r} vs aggregation_weighting="
+                        f"{aggregation_weighting!r}; set only one")
+                aggregation_weighting = aggregation_alias
+            if aggregation_weighting is None:
+                aggregation_weighting = "data-volume"
+
+            if isinstance(dataset, dataset_module.Dataset):
+                self.dataset = dataset
+            else:
+                self.dataset = dataset_module.load_dataset(dataset_name)
+                logger.debug(f"Dataset selected: {dataset_name}")
+
+            self.dataset_proportion = dataset_proportion
+            # the JAX package's assertions, raised so that they hold under -O
+            if not self.dataset_proportion > 0:
+                raise AssertionError("Error in the config file, dataset_proportion should be > 0")
+            if not self.dataset_proportion <= 1:
+                raise AssertionError("Error in the config file, dataset_proportion should be <= 1")
+            if self.dataset_proportion < 1:
+                self.dataset.shorten_dataset_proportion(self.dataset_proportion)
+            self.nb_samples_used = len(self.dataset.x_train)
+            self.final_relative_nb_samples = []
+
+            self.partners_list: list[Partner] = []
+            self.partners_count = partners_count
+            self.amounts_per_partner = amounts_per_partner
+            self.samples_split_type, self.samples_split_description = (
+                samples_split_option or ("basic", "random"))
+            # an empty list is a list of no specs (and fails the count check),
+            # not the default
+            self.corrupted_datasets = (corrupted_datasets if corrupted_datasets is not None
+                                       else ["not_corrupted"] * partners_count)
+            if len(self.corrupted_datasets) != partners_count:
+                raise ValueError(f"corrupted_datasets has {len(self.corrupted_datasets)} "
+                                 f"entries for {partners_count} partners: one spec per partner")
+            # a typo'd spec must not run an uncorrupted partner through a
+            # robustness experiment
+            for idx, spec in enumerate(self.corrupted_datasets):
+                kind = spec[0] if isinstance(spec, (list, tuple)) else spec
+                if kind not in CORRUPTION_KINDS:
+                    raise ValueError(f"corrupted_datasets[{idx}] = {kind!r} is not a valid "
+                                     f"corruption; valid names: {', '.join(CORRUPTION_KINDS)}")
+            # set by data_corruption(): the engine warns when the partner fault
+            # plan has data faults that never ran
+            self._data_faults_applied = False
+
+            if multi_partner_learning_approach not in MULTI_PARTNER_LEARNING_APPROACHES:
+                raise KeyError(
+                    f"Multi-partner learning approach '{multi_partner_learning_approach}' "
+                    f"is not a valid approach. List of supported approaches: "
+                    f"{', '.join(MULTI_PARTNER_LEARNING_APPROACHES)}")
+            self.multi_partner_learning_approach = \
+                MULTI_PARTNER_LEARNING_APPROACHES[multi_partner_learning_approach]
+            self.multi_partner_learning_approach_key = multi_partner_learning_approach
+            try:
+                self.aggregation_name = _AGGREGATION_ALIASES[aggregation_weighting]
+            except KeyError:
                 raise ValueError(
-                    f"Conflicting aggregation settings: aggregation="
-                    f"{aggregation_alias!r} vs aggregation_weighting="
-                    f"{aggregation_weighting!r}; set only one")
-            aggregation_weighting = aggregation_alias
-        if aggregation_weighting is None:
-            aggregation_weighting = "data-volume"
+                    f"aggregation approach '{aggregation_weighting}' is not a valid "
+                    f"approach. Supported: {AGGREGATOR_NAMES}") from None
+            # the reference stores a class here, the JAX package the name
+            self.aggregation = self.aggregation_name
 
-        if isinstance(dataset, dataset_module.Dataset):
-            self.dataset = dataset
-        else:
-            self.dataset = dataset_module.load_dataset(dataset_name)
-            logger.debug(f"Dataset selected: {dataset_name}")
+            self.epoch_count = epoch_count
+            self.minibatch_count = minibatch_count
+            self.gradient_updates_per_pass_count = gradient_updates_per_pass_count
+            if min(epoch_count, minibatch_count, gradient_updates_per_pass_count) <= 0:
+                raise ValueError("epoch_count, minibatch_count and "
+                                 "gradient_updates_per_pass_count must be > 0")
+            self.is_early_stopping = is_early_stopping
 
-        self.dataset_proportion = dataset_proportion
-        # the JAX package's assertions, raised so that they hold under -O
-        if not self.dataset_proportion > 0:
-            raise AssertionError("Error in the config file, dataset_proportion should be > 0")
-        if not self.dataset_proportion <= 1:
-            raise AssertionError("Error in the config file, dataset_proportion should be <= 1")
-        if self.dataset_proportion < 1:
-            self.dataset.shorten_dataset_proportion(self.dataset_proportion)
-        self.nb_samples_used = len(self.dataset.x_train)
-        self.final_relative_nb_samples = []
+            self.init_model_from = init_model_from
+            self.use_saved_weights = init_model_from != "random_initialization"
+            self.seed = seed
+            if compute_dtype not in constants.COMPUTE_DTYPES:
+                raise ValueError(f"compute_dtype must be one of {constants.COMPUTE_DTYPES}, "
+                                 f"got {compute_dtype!r}")
+            self.compute_dtype = compute_dtype
+            # a coalition cache saved by an earlier run of the same game
+            self.contributivity_cache_from = contributivity_cache_from
+            # the partner shards of the engine's 2-D [coal, part] mode
+            # (contrib/engine.py): each fedavg or lflip coalition's partners
+            # split over that many ranks of the launcher's world, which it must
+            # divide, as the partner count must (the engine raises otherwise).
+            # MPLC_TORCH_PARTNER_SHARDS wins; the engine writes the value that
+            # runs back here, for to_dataframe
+            self.partner_shards = 1 if partner_shards is None else int(partner_shards)
+            if self.partner_shards < 1:
+                raise ValueError(f"partner_shards must be >= 1, got {partner_shards}")
+            # set by the CharacteristicEngine once it picks its execution mode
+            self.slot_bucketing = None
 
-        self.partners_list: list[Partner] = []
-        self.partners_count = partners_count
-        self.amounts_per_partner = amounts_per_partner
-        self.samples_split_type, self.samples_split_description = (
-            samples_split_option or ("basic", "random"))
-        # an empty list is a list of no specs (and fails the count check),
-        # not the default
-        self.corrupted_datasets = (corrupted_datasets if corrupted_datasets is not None
-                                   else ["not_corrupted"] * partners_count)
-        if len(self.corrupted_datasets) != partners_count:
-            raise ValueError(f"corrupted_datasets has {len(self.corrupted_datasets)} "
-                             f"entries for {partners_count} partners: one spec per partner")
-        # a typo'd spec must not run an uncorrupted partner through a
-        # robustness experiment
-        for idx, spec in enumerate(self.corrupted_datasets):
-            kind = spec[0] if isinstance(spec, (list, tuple)) else spec
-            if kind not in CORRUPTION_KINDS:
-                raise ValueError(f"corrupted_datasets[{idx}] = {kind!r} is not a valid "
-                                 f"corruption; valid names: {', '.join(CORRUPTION_KINDS)}")
-        # set by data_corruption(): the engine warns when the partner fault
-        # plan has data faults that never ran
-        self._data_faults_applied = False
+            self.mpl = None
+            self._charac_engine = None
+            self.contributivity_list: list[Contributivity] = []
+            self.methods = list(methods or [])
+            for method in self.methods:
+                if method not in constants.CONTRIBUTIVITY_METHODS:
+                    raise ValueError(f"Contributivity method '{method}' is not in "
+                                     "methods list.")
 
-        if multi_partner_learning_approach not in MULTI_PARTNER_LEARNING_APPROACHES:
-            raise KeyError(
-                f"Multi-partner learning approach '{multi_partner_learning_approach}' "
-                f"is not a valid approach. List of supported approaches: "
-                f"{', '.join(MULTI_PARTNER_LEARNING_APPROACHES)}")
-        self.multi_partner_learning_approach = \
-            MULTI_PARTNER_LEARNING_APPROACHES[multi_partner_learning_approach]
-        self.multi_partner_learning_approach_key = multi_partner_learning_approach
-        try:
-            self.aggregation_name = _AGGREGATION_ALIASES[aggregation_weighting]
-        except KeyError:
-            raise ValueError(
-                f"aggregation approach '{aggregation_weighting}' is not a valid "
-                f"approach. Supported: {AGGREGATOR_NAMES}") from None
-        # the reference stores a class here, the JAX package the name
-        self.aggregation = self.aggregation_name
+            self.scenario_id = scenario_id
+            self.n_repeat = repeats_count
+            self.is_quick_demo = is_quick_demo
+            if self.is_quick_demo and self.dataset_proportion < 1:
+                raise Exception("Don't start a quick_demo without the full dataset")
+            if self.is_quick_demo:
+                logger.info("Quick demo: limit number of data and number of epochs.")
+                self._quick_demo_subsample()
+                self.epoch_count = 3
+                self.minibatch_count = 2
 
-        self.epoch_count = epoch_count
-        self.minibatch_count = minibatch_count
-        self.gradient_updates_per_pass_count = gradient_updates_per_pass_count
-        if min(epoch_count, minibatch_count, gradient_updates_per_pass_count) <= 0:
-            raise ValueError("epoch_count, minibatch_count and "
-                             "gradient_updates_per_pass_count must be > 0")
-        self.is_early_stopping = is_early_stopping
-
-        self.init_model_from = init_model_from
-        self.use_saved_weights = init_model_from != "random_initialization"
-        self.seed = seed
-        if compute_dtype not in constants.COMPUTE_DTYPES:
-            raise ValueError(f"compute_dtype must be one of {constants.COMPUTE_DTYPES}, "
-                             f"got {compute_dtype!r}")
-        self.compute_dtype = compute_dtype
-        # a coalition cache saved by an earlier run of the same game
-        self.contributivity_cache_from = contributivity_cache_from
-        # the partner shards of the engine's 2-D [coal, part] mode
-        # (contrib/engine.py): each fedavg or lflip coalition's partners
-        # split over that many ranks of the launcher's world, which it must
-        # divide, as the partner count must (the engine raises otherwise).
-        # MPLC_TORCH_PARTNER_SHARDS wins; the engine writes the value that
-        # runs back here, for to_dataframe
-        self.partner_shards = 1 if partner_shards is None else int(partner_shards)
-        if self.partner_shards < 1:
-            raise ValueError(f"partner_shards must be >= 1, got {partner_shards}")
-        # set by the CharacteristicEngine once it picks its execution mode
-        self.slot_bucketing = None
-
-        self.mpl = None
-        self._charac_engine = None
-        self.contributivity_list: list[Contributivity] = []
-        self.methods = list(methods or [])
-        for method in self.methods:
-            if method not in constants.CONTRIBUTIVITY_METHODS:
-                raise ValueError(f"Contributivity method '{method}' is not in "
-                                 "methods list.")
-
-        self.scenario_id = scenario_id
-        self.n_repeat = repeats_count
-        self.is_quick_demo = is_quick_demo
-        if self.is_quick_demo and self.dataset_proportion < 1:
-            raise Exception("Don't start a quick_demo without the full dataset")
-        if self.is_quick_demo:
-            logger.info("Quick demo: limit number of data and number of epochs.")
-            self._quick_demo_subsample()
-            self.epoch_count = 3
-            self.minibatch_count = 2
-
-        now_str = datetime.datetime.now().strftime("%Y-%m-%d_%Hh%M")
-        self.scenario_name = (f"scenario_{self.scenario_id}_repeat_{self.n_repeat}"
-                              f"_{now_str}_{uuid.uuid4().hex[:3]}")
-        self.short_scenario_name = f"{self.partners_count} {self.amounts_per_partner}"
-        self.save_folder = Path(experiment_path) / self.scenario_name
-        self.is_dry_run = is_dry_run
-        if not is_dry_run:
-            self.save_folder.mkdir(parents=True, exist_ok=True)
-            logger.info("### Description of data scenario configured:")
-            logger.info(f"   Number of partners defined: {self.partners_count}")
-            logger.info(f"   Data distribution scenario chosen: {self.samples_split_description}")
-            logger.info(f"   Multi-partner learning approach: {self.multi_partner_learning_approach_key}")
-            logger.info(f"   Weighting option: {self.aggregation_name}")
-            logger.info(f"   Dataset: {self.dataset.name} ({self.dataset.provenance}); "
-                        f"{len(self.dataset.x_train)} train / "
-                        f"{len(self.dataset.x_val)} val / "
-                        f"{len(self.dataset.x_test)} test samples")
+            now_str = datetime.datetime.now().strftime("%Y-%m-%d_%Hh%M")
+            self.scenario_name = (f"scenario_{self.scenario_id}_repeat_{self.n_repeat}"
+                                  f"_{now_str}_{uuid.uuid4().hex[:3]}")
+            self.short_scenario_name = f"{self.partners_count} {self.amounts_per_partner}"
+            self.save_folder = Path(experiment_path) / self.scenario_name
+            self.is_dry_run = is_dry_run
+            if not is_dry_run:
+                self.save_folder.mkdir(parents=True, exist_ok=True)
+                logger.info("### Description of data scenario configured:")
+                logger.info(f"   Number of partners defined: {self.partners_count}")
+                logger.info(f"   Data distribution scenario chosen: {self.samples_split_description}")
+                logger.info(f"   Multi-partner learning approach: {self.multi_partner_learning_approach_key}")
+                logger.info(f"   Weighting option: {self.aggregation_name}")
+                logger.info(f"   Dataset: {self.dataset.name} ({self.dataset.provenance}); "
+                            f"{len(self.dataset.x_train)} train / "
+                            f"{len(self.dataset.x_val)} val / "
+                            f"{len(self.dataset.x_test)} test samples")
 
     def _quick_demo_subsample(self):
         """At most TRAIN/VAL/TEST_SET_MAX_SIZE_QUICK_DEMO rows of each split,
@@ -267,12 +269,14 @@ class Scenario:
     def instantiate_scenario_partners(self):
         if self.partners_list:
             raise RuntimeError("self.partners_list should be []")
-        self.partners_list = [Partner(i, seed=self.seed * 1000 + i)
-                              for i in range(self.partners_count)]
+        with obs_trace.span("scenario.prepare", step="partners"):
+            self.partners_list = [Partner(i, seed=self.seed * 1000 + i)
+                                  for i in range(self.partners_count)]
 
     def split_data(self, is_logging_enabled=True):
-        split_basic(self.dataset, self.partners_list, self.amounts_per_partner,
-                    self.samples_split_description, self.minibatch_count)
+        with obs_trace.span("scenario.prepare", step="split"):
+            split_basic(self.dataset, self.partners_list, self.amounts_per_partner,
+                        self.samples_split_description, self.minibatch_count)
         self.nb_samples_used = sum(len(p.x_train) for p in self.partners_list)
         self.final_relative_nb_samples = [
             p.final_nb_samples / self.nb_samples_used for p in self.partners_list]
@@ -281,17 +285,19 @@ class Scenario:
         return 0
 
     def split_data_advanced(self, is_logging_enabled=True):
-        self.nb_samples_used, self.final_relative_nb_samples = split_advanced(
-            self.dataset, self.partners_list, self.amounts_per_partner,
-            self.samples_split_description, self.minibatch_count)
+        with obs_trace.span("scenario.prepare", step="split"):
+            self.nb_samples_used, self.final_relative_nb_samples = split_advanced(
+                self.dataset, self.partners_list, self.amounts_per_partner,
+                self.samples_split_description, self.minibatch_count)
         if is_logging_enabled:
             logger.info("### Splitting data among partners: advanced split done.")
         return 0
 
     def compute_batch_sizes(self):
-        compute_batch_sizes(self.partners_list, self.minibatch_count,
-                            self.gradient_updates_per_pass_count,
-                            constants.MAX_BATCH_SIZE)
+        with obs_trace.span("scenario.prepare", step="batch_sizes"):
+            compute_batch_sizes(self.partners_list, self.minibatch_count,
+                                self.gradient_updates_per_pass_count,
+                                constants.MAX_BATCH_SIZE)
 
     def data_corruption(self):
         """Each partner's corruption (the JAX package's dispatch: a spec is
@@ -300,6 +306,10 @@ class Scenario:
         noisy and glabel entries through the same seeded operators. The
         clipped plan is kept as `_partner_fault_plan`, so the engine's
         trainers and fingerprint follow the plan whose data faults ran."""
+        with obs_trace.span("scenario.prepare", step="corrupt"):
+            self._corrupt()
+
+    def _corrupt(self) -> None:
         for partner, spec in zip(self.partners_list, self.corrupted_datasets):
             kind, param = (spec[0], spec[1]) if isinstance(spec, (list, tuple)) else (spec, None)
             label_ops = {"corrupted": partner.corrupt_labels,

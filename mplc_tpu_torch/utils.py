@@ -24,6 +24,7 @@ import torch
 import yaml
 
 from . import constants
+from .obs import trace as obs_trace
 
 
 def resolve_device(device=None) -> torch.device:
@@ -115,13 +116,16 @@ class profile_trace:
     after the block), which `python3 -m mplc_tpu_torch.obs.analyze_trace`
     summarizes. A CUDA run whose trace holds no device event (CUPTI gave
     none) raises instead of writing a CPU-only trace. The profiler adds
-    its own cost: time nothing gated inside it."""
+    its own cost: time nothing gated inside it. While it is open every
+    span of `obs/trace.py` is mirrored as a `record_function` of its name,
+    so the trace shows the program's spans beside the device's work."""
 
     def __init__(self, trace_dir: str | None = None, device=None):
         self.trace_dir = trace_dir or os.environ.get(PROFILE_DIR_ENV)
         self.cuda = torch.device(device or "cuda").type == "cuda"
         self.path = None
         self._prof = None
+        self._mirror_was = False
 
     def __enter__(self):
         if self.trace_dir:
@@ -135,6 +139,7 @@ class profile_trace:
                 activities.append(ProfilerActivity.CUDA)
             self._prof = profile(activities=activities)
             self._prof.__enter__()
+            self._mirror_was = obs_trace.set_profiler_mirror(True)
         return self
 
     def __exit__(self, *exc):
@@ -142,6 +147,7 @@ class profile_trace:
             return False
         from .obs import analyze_trace
 
+        obs_trace.set_profiler_mirror(self._mirror_was)
         self._prof.__exit__(*exc)
         if exc[0] is not None:
             return False

@@ -435,9 +435,14 @@ def test_every_span_name_is_a_registered_literal():
 
 
 def test_span_registry_has_no_stale_entry_and_is_the_jax_packages():
+    """Every registered name is emitted and described; the names shared
+    with the JAX package are its names, and `PORT_SPANS` is exactly the
+    port's own (the batch path's leaf spans and set-up's spans), none of
+    which the JAX package has."""
     emitted = {name for _, _, name in _span_call_names()}
     assert set(trace.SPAN_REGISTRY) == emitted
-    assert set(trace.SPAN_REGISTRY) <= set(jtrace.SPAN_REGISTRY)
+    assert set(trace.SPAN_REGISTRY) - trace.PORT_SPANS <= set(jtrace.SPAN_REGISTRY)
+    assert trace.PORT_SPANS == set(trace.SPAN_REGISTRY) - set(jtrace.SPAN_REGISTRY)
     for name, desc in trace.SPAN_REGISTRY.items():
         assert isinstance(desc, str) and desc.strip(), name
 
@@ -451,8 +456,9 @@ def test_engine_sweep_spans_and_report(tmp_path, monkeypatch):
     from mplc_tpu_torch.contrib.engine import CharacteristicEngine
     from test_torch_report import _port_scenario
 
-    monkeypatch.setenv(trace.TRACE_FILE_ENV, str(tmp_path / "trace.jsonl"))
+    # the sink opened after set-up, whose own spans it would hold too
     eng = CharacteristicEngine(_port_scenario())
+    monkeypatch.setenv(trace.TRACE_FILE_ENV, str(tmp_path / "trace.jsonl"))
     with trace.collect() as recs:
         eng.evaluate([(0,), (1,), (0, 1)])   # 3 misses
         eng.evaluate([(0,), (1,), (0, 1)])   # 3 hits

@@ -13,6 +13,8 @@ instrumented engines against the JAX package, on the CPU:
    follow `_bucket_size` at each package's device count and are held to it.
 
 Deliberate differences, named here and in CHANGES.md:
+  - names the JAX package does not emit: the port's own leaf spans of the
+    batch path and of set-up (`obs/trace.py` `PORT_SPANS`);
   - names the port does not emit: the JAX package's jit compiles
     (`trainer.compile`: the port's only compiles are its nvcc builds, on
     the card), the program bank (`bank.*`), device fences, numerics, live,
@@ -247,7 +249,8 @@ def runs():
 
 
 def _names(recs) -> list:
-    return sorted(r["name"] for r in recs if not r["name"].startswith(JAX_ONLY))
+    return sorted(r["name"] for r in recs if not r["name"].startswith(JAX_ONLY)
+                  and r["name"] not in trace.PORT_SPANS)
 
 
 @pytest.mark.parametrize("run", ["retrain-free", "sweep"])
